@@ -229,4 +229,4 @@ def _ensure_loaded() -> None:
     _LOADED = True
     # import all config modules for registration side effects; each
     # arch registers here in the slice of the port that runs it
-    from repro_torch.configs import qwen2_0_5b  # noqa: F401
+    from repro_torch.configs import qwen2_0_5b, rwkv6_1_6b  # noqa: F401

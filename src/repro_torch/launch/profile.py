@@ -4,6 +4,7 @@ the port, each under ``torch.profiler``.
 Example (full width, on the card)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2-0.5b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
 
 For each phase it prints the host wall time, the device-busy time (the sum
 of kernel times; one stream, so they do not overlap), the busy share, and
@@ -62,7 +63,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
-    st = ModelSettings(param_dtype=DTYPE, compute_dtype=DTYPE, attn_impl="kernel")
+    st = ModelSettings(param_dtype=DTYPE, compute_dtype=DTYPE,
+                       attn_impl="kernel", use_kernel_ssm=True)
     model = build_model(arch, st, device="cuda", seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     tokens = torch.randint(0, arch.vocab, (BATCH, SEQ), generator=gen, device="cuda")

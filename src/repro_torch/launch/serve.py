@@ -4,8 +4,11 @@ Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --max-new 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu
+
+The model runs every ported kernel (flash attention in prefill, WKV6 in
+every RWKV6 step).
 """
 from __future__ import annotations
 
@@ -37,7 +40,9 @@ def main(argv: Optional[Sequence[str]] = None) -> DecodeServer:
     args = ap.parse_args(argv)
 
     arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
-    st = ModelSettings(param_dtype=args.dtype, compute_dtype=args.dtype)
+    # the kernels on the card; on CPU tensors they run their plain versions
+    st = ModelSettings(param_dtype=args.dtype, compute_dtype=args.dtype,
+                       attn_impl="kernel", use_kernel_ssm=True)
     model = build_model(arch, st, device=args.device, seed=0)
     metrics = MetricsLogger(path=args.metrics_path, echo=False, run="serve",
                             arch=args.arch)

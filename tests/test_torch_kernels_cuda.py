@@ -1,5 +1,5 @@
-"""The port's CUDA flash-attention kernel held against its plain version
-on the card.
+"""The port's CUDA kernels (flash attention, WKV6) held against their plain
+versions on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 The file imports nothing of JAX, so it runs where only the port is
@@ -15,6 +15,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 
 # the sweep of tests/test_kernels.py::test_flash_attention (same
 # tolerances), a ragged S and the widest head_dim in the configs
@@ -86,3 +89,80 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         kernel.flash_attention_fwd(q, q[:, :1], q[:, :1])
+
+
+# WKV6: the sweep of tests/test_kernels.py::test_wkv6 (B, H, S, hd), then
+# S = 1 (a decode step) and ragged S, in fp32 and bf16 r/k/v
+WKV_CASES = [
+    (2, 2, 128, 16, "float32"),
+    (1, 4, 64, 32, "float32"),
+    (2, 2, 96, 16, "float32"),
+    (1, 1, 64, 64, "float32"),
+    (8, 4, 1, 64, "float32"),
+    (2, 3, 333, 64, "bfloat16"),
+    (1, 2, 40, 32, "bfloat16"),
+]
+
+
+def _wkv_inputs(seed, B, H, S, hd, dtype, device):
+    r, k, v = (_randn(seed + i, B, H, S, hd, dtype=dtype, device=device)
+               for i in range(3))
+    w = torch.exp(-torch.exp(_randn(seed + 3, B, H, S, hd, device=device) * 0.5))
+    u = _randn(seed + 4, H, hd, device=device) * 0.1
+    s0 = _randn(seed + 5, B, H, hd, hd, device=device) * 0.1
+    return r, k, v, w, u, s0
+
+
+def _wkv_close(got, exp):
+    """tests/test_kernels.py::test_wkv6's tolerance, scaled by the output."""
+    scale = exp.abs().max().item() + 1.0
+    torch.testing.assert_close(got, exp, rtol=1e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd,dtype", WKV_CASES)
+def test_wkv6_kernel_matches_ref_on_card(cuda_device, B, H, S, hd, dtype):
+    args = _wkv_inputs(60, B, H, S, hd, getattr(torch, dtype), cuda_device)
+    before = wkv_kernel.LAUNCHES
+    y, sT = wkv_kernel.wkv6_fwd(*args)
+    torch.cuda.synchronize()
+    assert wkv_kernel.LAUNCHES == before + 1
+    assert y.dtype == sT.dtype == torch.float32 and y.shape == (B, H, S, hd)
+    ey, es = wkv6_ref(*args)
+    _wkv_close(y, ey)
+    _wkv_close(sT, es)
+
+
+@pytest.mark.cuda
+def test_wkv6_model_layout_goes_through_the_kernel(cuda_device):
+    """``ops.wkv6`` hands the kernel strided views of the model's
+    (B, S, H, hd) tensors and returns y in that layout: one launch."""
+    B, S, H, hd = 2, 70, 4, 64
+    r, k, v, w = (_randn(70 + i, B, S, H, hd, device=cuda_device)
+                  for i in range(4))
+    w = torch.sigmoid(w)
+    u = _randn(74, H, hd, device=cuda_device) * 0.1
+    before = wkv_kernel.LAUNCHES
+    y, sT = wkv_ops.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), w, u)
+    torch.cuda.synchronize()
+    assert wkv_kernel.LAUNCHES == before + 1
+    assert y.shape == (B, S, H, hd) and y.is_contiguous()
+    ey, es = wkv6_ref(*(a.transpose(1, 2) for a in (r.bfloat16(), k.bfloat16(),
+                                                    v.bfloat16(), w)),
+                      u, torch.zeros(B, H, hd, hd, device=cuda_device))
+    _wkv_close(y, ey.transpose(1, 2))
+    _wkv_close(sT, es)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_rejects_what_it_does_not_take(cuda_device):
+    r, k, v, w, u, s0 = _wkv_inputs(80, 1, 2, 8, 48, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        wkv_kernel.wkv6_fwd(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = _wkv_inputs(80, 1, 2, 8, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        wkv_kernel.wkv6_fwd(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(ValueError, match="w must be float32"):
+        wkv_kernel.wkv6_fwd(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="s0 must be"):
+        wkv_kernel.wkv6_fwd(r, k, v, w, u, s0.transpose(2, 3))

@@ -8,8 +8,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from torch_harness import (ARCH, FP32, jax_model, jax_params,  # noqa: E402
-                           port_model, smoke_weights)
+from torch_harness import (ARCH, ARCHS, FP32, RWKV, jax_model,  # noqa: E402
+                           jax_params, port_model, smoke_weights)
 
 from repro import configs as jax_configs  # noqa: E402
 from repro.runtime.serve_loop import DecodeServer as JaxDecodeServer  # noqa: E402
@@ -53,6 +53,27 @@ def test_greedy_tokens_match_jax_server(weights, model):
     outs = server.run(max_steps=40)
     assert outs == jouts
     assert len(set(map(tuple, outs.values()))) > 1  # not one constant stream
+    assert server.stats == {**jserver.stats, "wall": server.stats["wall"]}
+
+
+@pytest.mark.parametrize("use_kernel_ssm", [False, True])
+def test_rwkv_greedy_tokens_match_jax_server(use_kernel_ssm):
+    """The same five requests on the rwkv6 smoke model.  Neither server
+    resets a slot's recurrent state when a new request takes the slot (the
+    reference's behaviour), so the queued requests' tokens depend on it."""
+    weights = smoke_weights(seed=0, arch=RWKV)
+    jserver = JaxDecodeServer(jax_model(max_seq=64, arch=RWKV),
+                              make_mesh((1, 1), ("data", "model")),
+                              batch_slots=2, max_seq=64)
+    server = _server(port_model(weights, arch=RWKV,
+                                use_kernel_ssm=use_kernel_ssm), max_seq=64)
+    for s, req in ((jserver, JaxRequest), (server, Request)):
+        for i in range(5):
+            s.submit(req(uid=i, prompt=np.array([1, 2, 3], np.int32), max_new=4))
+    jouts = jserver.run(jax_params(weights), max_steps=40)
+    outs = server.run(max_steps=40)
+    assert outs == jouts
+    assert len(set(map(tuple, outs.values()))) > 1
     assert server.stats == {**jserver.stats, "wall": server.stats["wall"]}
 
 
@@ -139,11 +160,24 @@ def test_cli_smoke_on_cpu(capsys):
     assert "throughput:" in capsys.readouterr().out
 
 
+def test_cli_smoke_rwkv_on_cpu(capsys):
+    server = serve_cli.main(["--arch", RWKV, "--smoke", "--device", "cpu",
+                             "--requests", "3", "--max-new", "2",
+                             "--batch-slots", "2", "--max-seq", "16"])
+    assert server.stats["tokens"] == 6
+    assert server.model.settings.use_kernel_ssm
+    assert server.model.settings.attn_impl == "kernel"
+    assert "throughput:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("getter", ["get_arch", "get_smoke_arch"])
-def test_configs_match_jax(getter):
-    """The port's copy of the configs is field-for-field the reference."""
-    ours = dataclasses.asdict(getattr(configs, getter)(ARCH))
-    assert ours == dataclasses.asdict(getattr(jax_configs, getter)(ARCH))
+def test_configs_match_jax(getter, arch):
+    """The port's copy of the configs is field-for-field the reference, for
+    every arch the port registers."""
+    assert configs.list_archs() == ARCHS
+    ours = dataclasses.asdict(getattr(configs, getter)(arch))
+    assert ours == dataclasses.asdict(getattr(jax_configs, getter)(arch))
     assert configs.SHAPES.keys() == jax_configs.SHAPES.keys()
 
 

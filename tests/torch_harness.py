@@ -21,7 +21,9 @@ from repro_torch.models import ModelSettings, build_model
 # six xdist workers share the machine: one intra-op thread each
 torch.set_num_threads(1)
 
-ARCH = "qwen2-0.5b"
+ARCH = "qwen2-0.5b"  # the dense arch, and the default below
+RWKV = "rwkv6-1.6b"
+ARCHS = (ARCH, RWKV)  # every arch the port registers
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 
 
@@ -44,15 +46,17 @@ def redraw(flat, seed: int):
     return out
 
 
-def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32"):
+def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
+              arch: str = ARCH, use_pallas_ssm: bool = False):
     st = JaxSettings(param_dtype=dtype, compute_dtype=dtype, remat="none",
-                     attn_impl=attn_impl, max_seq=max_seq)
-    return jax_build_model(jax_smoke_arch(ARCH), st)
+                     attn_impl=attn_impl, max_seq=max_seq,
+                     use_pallas_ssm=use_pallas_ssm)
+    return jax_build_model(jax_smoke_arch(arch), st)
 
 
-def smoke_weights(seed: int = 0, dtype="float32"):
+def smoke_weights(seed: int = 0, dtype="float32", arch: str = ARCH):
     """The smoke model's flat JAX tree, every leaf redrawn from ``seed``."""
-    params = jax_model(dtype=dtype).init(jax.random.key(0))
+    params = jax_model(dtype=dtype, arch=arch).init(jax.random.key(0))
     return redraw({k: np.asarray(v) for k, v in tree_paths(params).items()},
                   seed)
 
@@ -61,10 +65,11 @@ def jax_params(flat):
     return tree_from_paths({k: jnp.asarray(v) for k, v in flat.items()})
 
 
-def port_model(flat, attn_impl: str = "masked", dtype="float32"):
+def port_model(flat, attn_impl: str = "masked", dtype="float32",
+               arch: str = ARCH, use_kernel_ssm: bool = False):
     st = ModelSettings(param_dtype=dtype, compute_dtype=dtype,
-                       attn_impl=attn_impl)
-    model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+                       attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm)
+    model = build_model(get_smoke_arch(arch), st, device="cpu")
     load_jax_params(model, flat)
     return model
 
