@@ -7,13 +7,17 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per kernel, all started together), holds each against its plain
-PyTorch version, then drives the port's two serving paths at full width
+PyTorch version, then drives the port's three serving paths at full width
 (random weights from a seed), each through ``Model.prefill`` and
 ``DecodeServer`` answering 16 requests:
 
   * qwen2-0.5b, with the flash-attention kernel (K1) in every prefill layer;
   * rwkv6-1.6b, with the WKV6 kernel (K3) in every layer of every prefill
-    and decode step.
+    and decode step;
+  * jamba-1.5-large-398b cut to one card (one 8-layer Jamba block, no
+    experts, every width published: ``configs.one_card_arch``), with the
+    selective-scan kernel (K4) in its 7 Mamba layers of every prefill and
+    decode step and K1 in its attention layer's prefill.
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -37,10 +41,15 @@ SRC = os.path.join(HERE, "src")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 SEED = 0
-B_MAIN, S_MAIN = 4, 2048  # the prefill shape of both paths
-# each kernel's CUDA entry point, as ptxas names its instantiations
-PTXAS_ENTRY = {"flash_attention_fwd": "fa_fwd_kernel",
-               "wkv6_fwd": "wkv6_fwd_kernel"}
+# exps a second on the special-function units: 16 a clock on each of the
+# 132 SMs at the 1.98 GHz boost clock
+SFU_EXP_RATE = 16 * 132 * 1.98e9
+B_MAIN, S_MAIN = 4, 2048  # the prefill shape of every path
+# each kernel's CUDA entry point, as ptxas names its instantiations, and
+# the name of its integer template parameter
+PTXAS_ENTRY = {"flash_attention_fwd": ("fa_fwd_kernel", "hd"),
+               "wkv6_fwd": ("wkv6_fwd_kernel", "hd"),
+               "mamba_scan_fwd": ("mamba_scan_fwd_kernel", "ds")}
 
 
 def log(msg: str) -> None:
@@ -54,14 +63,15 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def ptxas_summary(text: str, kernel: str) -> str:
-    """'<dtype> hd<N>: <regs> regs, <spill> B spilled' for each instantiation
-    of the ``kernel<dtype, hd>`` template in ``nvcc -Xptxas -v`` output."""
+def ptxas_summary(text: str, kernel: str, param: str) -> str:
+    """'<dtype> <param><N>: <regs> regs, <spill> B spilled' for each
+    instantiation of the ``kernel<dtype, N>`` template in ``nvcc -Xptxas
+    -v`` output."""
     out, name = [], None
     for line in text.splitlines():
         m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", line)
         if "Compiling entry function" in line and m:
-            name = f"{'fp32' if m.group(1) == 'f' else 'bf16'} hd{m.group(2)}"
+            name = f"{'fp32' if m.group(1) == 'f' else 'bf16'} {param}{m.group(2)}"
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif name and "Used" in line and "registers" in line:
@@ -131,6 +141,20 @@ def wkv6_bound_ms(B, H, S, hd, dtype_name):
     return bound(5.0 * n * hd, nbytes, "float32")
 
 
+def mamba_scan_bound_ms(B, S, di, ds, dtype_name):
+    """u, dt, B, C in ``dtype_name`` and A, D, h0 fp32 read once, y fp32 and
+    hT written once; 6 fp32 FLOPs per (b, t, d, s): dt*A, the state's
+    multiply-add, dt*u*B's multiply, and y's multiply-add over the state.
+    Also returns the SFU floor: one exp per (b, t, d, s) on the
+    special-function units (not part of the bound)."""
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    n = B * S * di
+    nbytes = (2 * n + 2 * B * S * ds) * itemsize + 4 * n \
+        + 2 * B * di * ds * 4 + di * ds * 4 + di * 4
+    bound_ms, bound_by = bound(6.0 * n * ds, nbytes, "float32")
+    return bound_ms, bound_by, n * ds / SFU_EXP_RATE * 1e3
+
+
 def drive_path(counters: dict, fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before it;
     returns (fn's result, {kernel name: launches in that run})."""
@@ -170,9 +194,9 @@ def serve_line(name, server, launches) -> str:
             f"launches={launches}")
 
 
-def check_flash_attention(torch, gen, dev, arch):
-    """K1 against its plain version at the qwen2 path's shapes and others.
-    Returns the per-case results."""
+def check_flash_attention(torch, gen, dev, arch, jamba):
+    """K1 against its plain version at the qwen2 and jamba paths' prefill
+    shapes and others.  Returns the per-case results."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -181,6 +205,8 @@ def check_flash_attention(torch, gen, dev, arch):
     cases = [  # name, B, H, KV, S, hd, causal, dtype
         ("main-bf16", B_MAIN, H, KV, S_MAIN, hd, True, "bfloat16"),
         ("main-fp32", B_MAIN, H, KV, S_MAIN, hd, True, "float32"),
+        ("main-jamba", B_MAIN, jamba.n_heads, jamba.n_kv_heads, S_MAIN,
+         jamba.resolved_head_dim, True, "bfloat16"),
         ("hd128", 2, 8, 2, 1024, 128, True, "float32"),
         ("hd192", 1, 8, 1, 512, 192, True, "bfloat16"),
         ("hd160", 1, 4, 2, 130, 160, True, "bfloat16"),
@@ -289,39 +315,98 @@ def check_wkv6(torch, gen, dev, arch):
     return results
 
 
-def prefill_checks(torch, gen, dev, arch, settings, counters, kernel,
+def check_mamba_scan(torch, gen, dev, arch):
+    """K4 against its plain version at the jamba path's shapes (prefill and
+    decode, B and C as the strided column slices of the model's projection),
+    ragged S and the other state sizes, drawn as the JAX test draws.
+    Returns the per-case results."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    m = arch.mamba
+    di, dtr = m.expand * arch.d_model, m.resolved_dt_rank(arch.d_model)
+    cases = [  # name, B, S, di, ds, u/dt/B/C dtype
+        ("main-bf16", B_MAIN, S_MAIN, di, m.d_state, "bfloat16"),
+        ("main-fp32", B_MAIN, S_MAIN, di, m.d_state, "float32"),
+        ("decode-S1", 8, 1, di, m.d_state, "bfloat16"),
+        ("ragged-S40", 2, 40, di, m.d_state, "float32"),
+        ("ragged-S100", 2, 100, di, m.d_state, "bfloat16"),
+        ("ragged-S333", 2, 333, di, m.d_state, "float32"),
+        ("ds4", 2, 256, 4096, 4, "float32"),
+        ("ds8", 2, 256, 4096, 8, "bfloat16"),
+    ]
+    results = {}
+    for name, B, S, d, ds, dt_name in cases:
+        dt = getattr(torch, dt_name)
+        u = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+        delta = F.softplus(torch.randn(B, S, d, generator=gen, device=dev) - 2).to(dt)
+        A = -torch.exp(torch.randn(d, ds, generator=gen, device=dev) * 0.3)
+        # B and C: column slices of a (B, S, dt_rank + 2 ds) projection
+        xdbl = torch.randn(B, S, dtr + 2 * ds, generator=gen, device=dev).to(dt)
+        Bc, Cc = xdbl[..., dtr:dtr + ds], xdbl[..., dtr + ds:]
+        D = torch.ones(d, device=dev)
+        h0 = torch.randn(B, d, ds, generator=gen, device=dev) * 0.1
+        args = (u, delta, A, Bc, Cc, D, h0)
+        y, hT = ms_kernel.mamba_scan_fwd(*args)
+        torch.cuda.synchronize()
+        ey, eh = mamba_scan_ref(*args)
+        err = max((y - ey).abs().max().item(), (hT - eh).abs().max().item())
+        for got, exp in ((y, ey), (hT, eh)):  # tests/test_kernels.py's tolerance
+            torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4,
+                                       msg=lambda msg: f"{name}: {msg}")
+        kernel_ms = time_ms(lambda: ms_kernel.mamba_scan_fwd(*args), iters=20)
+        long = S >= 1000
+        plain_ms = time_ms(lambda: mamba_scan_ref(*args),
+                           iters=1 if long else 3, warmup=1)
+        bound_ms, bound_by, sfu_ms = mamba_scan_bound_ms(B, S, d, ds, dt_name)
+        results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+        log(f"[K4] {name:12s} (B,S,di,ds)=({B},{S},{d},{ds}) strided B/C "
+            f"{dt_name}: max_err={err:.3e} (atol=rtol=1e-4) "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) sfu_floor_ms={sfu_ms:.4f}")
+        del u, delta, A, xdbl, Bc, Cc, D, h0, y, hT, ey, eh
+    return results
+
+
+def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
                    n_plain, fp32_layers=None):
-    """The full-width bf16 prefill through ``kernel`` (``arch.n_layers``
-    launches, asserted), its times and ``n_plain`` times of the plain path;
-    then in fp32 at S=256 the kernel path's logits against the plain path's
-    beside the model's fp32 noise floor, and the checks: kernel vs plain
-    logits and prefill(32) vs 32 decode steps, on the first
+    """The full-width bf16 prefill through the kernels, each launched as
+    often as ``expected`` ({kernel: launches per prefill}) says and the
+    others not at all (asserted), its times and ``n_plain`` times of the
+    plain path; then in fp32 at S=256 the kernel path's logits against the
+    plain path's beside the model's fp32 noise floor, and the checks: kernel
+    vs plain logits and prefill(32) vs 32 decode steps, on the first
     ``fp32_layers`` layers (all when None).  Returns (the bf16 model,
     launches per prefill)."""
     from repro_torch.models import build_model
+    expected = {k: expected.get(k, 0) for k in counters}
     kernel_st, plain_st = settings("bfloat16", True), settings("bfloat16", False)
     model = build_model(arch, kernel_st, device="cuda", seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     tokens = torch.randint(0, arch.vocab, (B_MAIN, S_MAIN), generator=gen, device=dev)
     (logits, cache), launches = drive_path(counters, lambda: model.prefill(tokens))
-    per_prefill = launches[kernel]
-    if per_prefill != arch.n_layers or any(n for k, n in launches.items() if k != kernel):
+    if launches != expected:
         raise AssertionError(f"{arch.name} prefill launched {launches}, "
-                             f"expected {arch.n_layers} of {kernel} only")
+                             f"expected {expected}")
     if logits.shape != (B_MAIN, arch.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"{arch.name} prefill logits bad: {tuple(logits.shape)}")
-    shapes = {k: tuple(v.shape) for k, v in cache["l0"].items()}
+    shapes = {off: {k: tuple(v.shape) for k, v in c.items()}
+              for off, c in cache.items()}
     log(f"[prefill] {arch.name} cache shapes {shapes}")
     del logits, cache
 
-    before = counters[kernel].LAUNCHES
+    before = {k: mod.LAUNCHES for k, mod in counters.items()}
     kernel_runs = host_ms(lambda: model.prefill(tokens), 5)
-    if counters[kernel].LAUNCHES - before != 5 * arch.n_layers:
-        raise AssertionError("LAUNCHES did not grow by n_layers per prefill")
+    if any(mod.LAUNCHES - before[k] != 5 * expected[k]
+           for k, mod in counters.items()):
+        raise AssertionError("LAUNCHES did not grow as expected per prefill")
     model.settings = plain_st
     plain_runs = host_ms(lambda: model.prefill(tokens), n_plain)
     model.settings = kernel_st
     prefill_ms = statistics.median(kernel_runs)
+    per_prefill = {k: n for k, n in launches.items() if n}
     log(f"[prefill] {arch.name} full width ({n_params} params) bf16 B={B_MAIN} "
         f"S={S_MAIN}: launches/prefill={per_prefill} "
         f"prefill_ms median={prefill_ms:.2f} runs={[round(t, 2) for t in kernel_runs]} "
@@ -344,6 +429,7 @@ def prefill_checks(torch, gen, dev, arch, settings, counters, kernel,
         ln, _ = model32.prefill(toks256)
         model32.embed.copy_(embed)
     del embed
+    model32.settings = settings("float32", True)
     log(f"[prefill] {arch.name} fp32 B=2 S=256, {arch.n_layers} layers: kernel vs "
         f"plain logits max_abs_diff={(lk - lm).abs().max().item():.3e}; fp32 noise "
         f"floor (plain vs plain with embed x (1 + 1e-7 N(0,1))) "
@@ -387,9 +473,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: CUDA is not available; it runs on an NVIDIA GPU")
 
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, one_card_arch
     from repro_torch.kernels._build import library_path
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.models import ModelSettings
 
@@ -398,7 +485,8 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t_start = time.perf_counter()
-    counters = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel}
+    counters = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
+                "mamba_scan_fwd": ms_kernel}
 
     # ---- card and build: one nvcc per kernel, all started together ---------
     card = card_line()
@@ -414,18 +502,19 @@ def main() -> None:
         ptxas = library_path(name, mod.SOURCES).with_suffix(".log")
         if ptxas.exists():
             log(f"[build]   {name} ptxas per instantiation: "
-                f"{ptxas_summary(ptxas.read_text(), PTXAS_ENTRY[name])}")
+                f"{ptxas_summary(ptxas.read_text(), *PTXAS_ENTRY[name])}")
 
     # ---- qwen2-0.5b: K1 vs plain, prefill, consistency, serve --------------
     qwen = get_arch("qwen2-0.5b")
-    fa_results = check_flash_attention(torch, gen, dev, qwen)
+    jamba, cuts = one_card_arch("jamba-1.5-large-398b")
+    fa_results = check_flash_attention(torch, gen, dev, qwen, jamba)
 
     def qwen_settings(dtype, use_kernel):
         return ModelSettings(param_dtype=dtype, compute_dtype=dtype,
                              attn_impl="kernel" if use_kernel else "masked")
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, qwen_settings,
-                                        counters, "flash_attention_fwd", 3)
+                                        counters, {"flash_attention_fwd": qwen.n_layers}, 3)
     server, launches = serve(model, qwen, counters)
     log(serve_line(qwen.name, server, launches)
         + " (decode attention is plain PyTorch)")
@@ -445,7 +534,8 @@ def main() -> None:
     # through all 24 random layers fp32 rounding is amplified past their
     # tolerance (see the noise floor printed beside the full-depth numbers)
     model, wkv_launches = prefill_checks(torch, gen, dev, rwkv, rwkv_settings,
-                                         counters, "wkv6_fwd", 1, fp32_layers=4)
+                                         counters, {"wkv6_fwd": rwkv.n_layers}, 1,
+                                         fp32_layers=4)
     server, launches = serve(model, rwkv, counters)
     if launches["wkv6_fwd"] != rwkv.n_layers * server.stats["steps"]:
         raise AssertionError(f"rwkv6 serve launched {launches} in "
@@ -453,6 +543,33 @@ def main() -> None:
                              f"{rwkv.n_layers} wkv6_fwd a step")
     log(serve_line(rwkv.name, server, launches))
     del model, server
+    torch.cuda.empty_cache()
+
+    # ---- jamba (one-card cut): K4 vs plain, prefill, consistency, serve ----
+    log(f"[jamba] {jamba.name} cut to one card: {'; '.join(cuts)}")
+    ms_results = check_mamba_scan(torch, gen, dev, jamba)
+
+    def jamba_settings(dtype, use_kernel):
+        return ModelSettings(param_dtype=dtype, compute_dtype=dtype,
+                             attn_impl="kernel" if use_kernel else "masked",
+                             use_kernel_ssm=use_kernel)
+
+    n_mamba = jamba.n_layers - len(jamba.attn_layer_ids())
+    # the plain path runs the sequential scan, a Python loop over 2048
+    # steps in each of 7 layers: one run of it
+    model, jamba_launches = prefill_checks(
+        torch, gen, dev, jamba, jamba_settings, counters,
+        {"mamba_scan_fwd": n_mamba, "flash_attention_fwd": len(jamba.attn_layer_ids())}, 1)
+    server, launches = serve(model, jamba, counters)
+    if launches != {"flash_attention_fwd": 0, "wkv6_fwd": 0,
+                    "mamba_scan_fwd": n_mamba * server.stats["steps"]}:
+        raise AssertionError(f"jamba serve launched {launches} in "
+                             f"{server.stats['steps']} steps, expected "
+                             f"{n_mamba} mamba_scan_fwd a step and nothing else")
+    log(serve_line(jamba.name, server, launches)
+        + " (decode attention is plain PyTorch)")
+    del model, server
+    torch.cuda.empty_cache()
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -461,11 +578,15 @@ def main() -> None:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-         "launches": fa_launches, **fa_results["main-bf16"]},
+         "launches": fa_launches["flash_attention_fwd"], **fa_results["main-bf16"]},
         {"name": "wkv6_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_fwd.cu",
          "replaces": "src/repro/kernels/wkv6/kernel.py:104",
-         "launches": wkv_launches, **wkv_results["main-bf16"]}]}))
+         "launches": wkv_launches["wkv6_fwd"], **wkv_results["main-bf16"]},
+        {"name": "mamba_scan_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_fwd.cu",
+         "replaces": "src/repro/kernels/mamba_scan/kernel.py:87",
+         "launches": jamba_launches["mamba_scan_fwd"], **ms_results["main-bf16"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,7 @@ from repro_torch.configs.base import (
     list_archs,
     shape_applicable,
 )
+from repro_torch.configs.one_card import one_card_arch
 
 __all__ = [
     "SHAPES",
@@ -23,5 +24,6 @@ __all__ = [
     "get_arch",
     "get_smoke_arch",
     "list_archs",
+    "one_card_arch",
     "shape_applicable",
 ]

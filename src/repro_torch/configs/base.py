@@ -229,4 +229,8 @@ def _ensure_loaded() -> None:
     _LOADED = True
     # import all config modules for registration side effects; each
     # arch registers here in the slice of the port that runs it
-    from repro_torch.configs import qwen2_0_5b, rwkv6_1_6b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        jamba_1_5_large_398b,
+        qwen2_0_5b,
+        rwkv6_1_6b,
+    )

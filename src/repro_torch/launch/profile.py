@@ -5,11 +5,13 @@ Example (full width, on the card)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch jamba-1.5-large-398b
 
 For each phase it prints the host wall time, the device-busy time (the sum
 of kernel times; one stream, so they do not overlap), the busy share, and
 the kernels that took the most device time.  The phases are measured
-after one warm-up call each.
+after one warm-up call each.  An arch that does not fit one card runs its
+one-card cut (``configs.one_card_arch``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.base import get_arch
+from repro_torch.configs import one_card_arch
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import ModelSettings
 
@@ -62,7 +64,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap.add_argument("--arch", required=True)
     args = ap.parse_args(argv)
 
-    arch = get_arch(args.arch)
+    arch, cuts = one_card_arch(args.arch)
+    print(json.dumps({"arch": arch.name, "n_layers": arch.n_layers,
+                      "cuts": list(cuts)}))
     st = ModelSettings(param_dtype=DTYPE, compute_dtype=DTYPE,
                        attn_impl="kernel", use_kernel_ssm=True)
     model = build_model(arch, st, device="cuda", seed=SEED)

@@ -6,9 +6,13 @@ Example::
         --requests 8 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --dtype bfloat16
 
 The model runs every ported kernel (flash attention in prefill, WKV6 in
-every RWKV6 step).
+every RWKV6 step, the selective scan in every Mamba step).  An arch that
+does not fit one card runs its one-card cut (``configs.one_card_arch``),
+which is printed.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from repro_torch.configs.base import get_arch, get_smoke_arch
+from repro_torch.configs import one_card_arch
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import ModelSettings
 from repro_torch.obs.metrics import MetricsLogger
@@ -39,7 +43,9 @@ def main(argv: Optional[Sequence[str]] = None) -> DecodeServer:
                     help="streamed JSONL metrics (repro_torch.obs.metrics)")
     args = ap.parse_args(argv)
 
-    arch = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    arch, cuts = one_card_arch(args.arch, smoke=args.smoke)
+    for cut in cuts:
+        print(f"{arch.name} cut to one card: {cut}")
     # the kernels on the card; on CPU tensors they run their plain versions
     st = ModelSettings(param_dtype=args.dtype, compute_dtype=args.dtype,
                        attn_impl="kernel", use_kernel_ssm=True)

@@ -1,22 +1,26 @@
-"""Attention-free sequence mixers — the RWKV6 ("Finch") half of
-``repro.models.ssm`` in PyTorch.
+"""Attention-free sequence mixers — ``repro.models.ssm`` in PyTorch:
+RWKV6 ("Finch") and Mamba (Jamba's SSM).
 
-  * ``init_rwkv_*``   parameter construction (the JAX tree's keys and shapes)
-  * ``apply_rwkv_*``  the full-sequence form, which is also the decode step
-                      (S = 1) with explicit shift and wkv states
+  * ``init_*``   parameter construction (the JAX tree's keys and shapes)
+  * ``apply_*``  the full-sequence form, which is also the decode step
+                 (S = 1) with explicit states (shift and wkv for RWKV6,
+                 conv and ssm for Mamba)
 
-The recurrence runs through ``kernels/wkv6`` when ``use_kernel`` (the twin
-of the JAX ``use_pallas``), else through the sequential ``wkv6_scan_ref``.
-The Mamba half (Jamba's SSM, kernel K4) is not ported yet.
+Each recurrence runs through its kernel when ``use_kernel`` (the twin of
+the JAX ``use_pallas``): ``kernels/wkv6`` and ``kernels/mamba_scan``;
+else through the sequential ``wkv6_scan_ref`` and ``mamba_scan_ref``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref as _scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.models.layers import dense_init
@@ -171,3 +175,100 @@ def apply_rwkv_channel_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
     h = F.relu(xk @ p["wk"])
     v = (h * h) @ p["wv"]
     return torch.sigmoid(xr @ p["wr"]) * v, x[:, -1]
+
+
+# ===========================================================================
+# Mamba (selective SSM, as used by Jamba)
+# ===========================================================================
+
+
+def init_mamba(arch: ArchConfig, gen: torch.Generator, lead: Tuple[int, ...],
+               dtype, device) -> Params:
+    """``A_log`` and ``D`` are fp32 whatever ``dtype`` is, as in JAX."""
+    m, d = arch.mamba, arch.d_model
+    di, dtr = m.expand * d, m.resolved_dt_rank(d)
+
+    def dense(shape, in_dim):
+        return dense_init(gen, lead + shape, in_dim, dtype, device)
+
+    A = torch.arange(1, m.d_state + 1, dtype=torch.float32, device=device)
+    return {
+        "w_in": dense((d, 2 * di), d),
+        "conv_w": dense((m.d_conv, di), m.d_conv),
+        "conv_b": torch.zeros(lead + (di,), dtype=dtype, device=device),
+        "w_x": dense((di, dtr + 2 * m.d_state), di),
+        "w_dt": dense((dtr, di), dtr),
+        # softplus^-1 around 0.018
+        "dt_bias": torch.full(lead + (di,), math.log(math.e - 1) - 4.0,
+                              dtype=dtype, device=device),
+        "A_log": torch.log(A).expand(lead + (di, m.d_state)).clone(),
+        "D": torch.ones(lead + (di,), dtype=torch.float32, device=device),
+        "w_out": dense((di, d), di),
+    }
+
+
+def _mamba_conv_train(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over time with left padding. x: (B, S, di).
+    The window's products are summed in fp32 and rounded once to x's dtype;
+    then the bias is added in x's dtype."""
+    d_conv, di = p["conv_w"].shape
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, d_conv - 1, 0))
+    w = p["conv_w"].to(x.dtype).float()
+    out = xp[:, 0:S].float() * w[0]
+    for k in range(1, d_conv):
+        out = out + xp[:, k:k + S].float() * w[k]
+    return out.to(x.dtype) + p["conv_b"]
+
+
+def mamba_scan_ref(u, delta, A, Bc, Cc, D, state=None):
+    """Sequential selective scan (the oracle; ``kernels/mamba_scan`` is the
+    kernel path).
+
+    u, delta: (B, S, di); A: (di, ds); Bc, Cc: (B, S, ds); D: (di,);
+    state: (B, di, ds) or None.  Returns y (B, S, di) fp32, final state.
+    """
+    B, S, di = u.shape
+    if state is None:
+        state = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                            device=u.device)
+    return _scan_ref(u, delta, A, Bc, Cc, D, state)
+
+
+def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
+                conv_state: Optional[torch.Tensor] = None,
+                ssm_state: Optional[torch.Tensor] = None,
+                use_kernel: bool = False):
+    """Full Mamba block over a sequence; with states it is also the decode
+    step (S = 1).  Returns (out, (conv_state, ssm_state)); the new conv
+    state is a view of this call's activations."""
+    m = arch.mamba
+    dtr = m.resolved_dt_rank(arch.d_model)
+
+    xs, z = (x @ p["w_in"]).chunk(2, dim=-1)  # (B, S, di) each
+    if conv_state is not None:
+        xs_ext = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
+        conv = _mamba_conv_train(p, xs_ext)[:, conv_state.shape[1]:]
+    else:
+        xs_ext = xs
+        conv = _mamba_conv_train(p, xs)
+    new_conv_state = xs_ext[:, -(m.d_conv - 1):] if m.d_conv > 1 else None
+    h = F.silu(conv)
+
+    xdbl = h @ p["w_x"]  # (B, S, dtr + 2 ds)
+    dt_r = xdbl[..., :dtr]
+    Bc = xdbl[..., dtr:dtr + m.d_state]
+    Cc = xdbl[..., dtr + m.d_state:]
+    # softplus as JAX writes it, logaddexp(x, 0), with no linear cut-off
+    delta = torch.logaddexp(dt_r @ p["w_dt"] + p["dt_bias"],
+                            xdbl.new_zeros(()))
+    A = -torch.exp(p["A_log"])
+
+    if use_kernel:
+        y, new_ssm = ms_ops.mamba_scan(h, delta, A, Bc, Cc, p["D"],
+                                       state=ssm_state)
+    else:
+        y, new_ssm = mamba_scan_ref(h, delta, A, Bc, Cc, p["D"],
+                                    state=ssm_state)
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["w_out"], (new_conv_state, new_ssm)

@@ -1,15 +1,19 @@
-"""Config-driven model assembly — the dense-attention and RWKV6 subset of
-``repro.models.transformer`` in PyTorch.
+"""Config-driven model assembly — the dense-attention, RWKV6 and hybrid
+(Jamba: Mamba + attention) subset of ``repro.models.transformer`` in
+PyTorch.
 
 The parameter tree is the JAX package's, leaf for leaf and shape for shape:
 layers are stacked over groups (a leading group dim on every ``blocks/``
 leaf), and a Python loop over that dim takes the place of ``lax.scan``.
-Every dense or RWKV group holds one layer, ``blocks/l0``.  MoE, hybrid
-(Mamba) and encoder-decoder families are not ported yet and raise.
+Every dense or RWKV group holds one layer, ``blocks/l0``; a hybrid group
+holds ``attn_every`` layers, ``blocks/l0`` .. ``blocks/l{attn_every-1}``,
+whose kinds follow the within-group offset.  MoE and encoder-decoder
+families are not ported yet and raise.
 
 Modes:
   * prefill — forward returning logits of the last position + the cache
-              (KV for attention layers; token-shift and wkv states for RWKV)
+              (KV for attention layers; token-shift and wkv states for
+              RWKV; conv and ssm states for Mamba)
   * decode  — single-token step over a preallocated cache, updated in place
               (the JAX step returns a new cache; here the one cache is
               written where it lies and returned, to save a copy per step)
@@ -36,7 +40,8 @@ class ModelSettings:
     compute_dtype: str = "bfloat16"
     attn_impl: str = "masked"  # masked | kernel (twin of the JAX "pallas")
     attn_chunk: int = 1024
-    use_kernel_ssm: bool = False  # the wkv6 kernel (twin of use_pallas_ssm)
+    # the wkv6 and mamba_scan kernels (twin of use_pallas_ssm)
+    use_kernel_ssm: bool = False
 
     def pdt(self) -> torch.dtype:
         return _dtype(self.param_dtype)
@@ -54,25 +59,39 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port does not run yet."""
-    if (arch.is_hybrid or arch.moe is not None or arch.is_encdec
+    if (arch.moe is not None or arch.is_encdec
             or arch.positional not in ("rope", "none")):
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: the port runs "
-            f"dense attention and RWKV6 models (ROADMAP.md queue 1)")
+            f"dense attention, RWKV6 and hybrid Mamba models without experts "
+            f"(ROADMAP.md queue 1)")
     if st.pdt() != st.cdt():
         raise NotImplementedError(
             "param_dtype != compute_dtype (mixed precision) is not ported yet")
 
 
+def group_size(arch: ArchConfig) -> int:
+    """Layers per stacked group."""
+    return arch.attn_every if arch.is_hybrid else 1
+
+
 def n_groups(arch: ArchConfig) -> int:
-    """Stacked groups: one layer each in the dense and RWKV families."""
-    return arch.n_layers
+    g = group_size(arch)
+    if arch.n_layers % g:
+        raise ValueError(f"{arch.name}: n_layers {arch.n_layers} is not a "
+                         f"multiple of the group size {g}")
+    return arch.n_layers // g
 
 
-def layer_kind(arch: ArchConfig) -> str:
-    """Every layer of a ported family is of one kind (the JAX function also
-    tells Jamba's attention and Mamba layers apart, by layer id)."""
-    return "rwkv" if arch.attn_free else "attn"
+def layer_kind(arch: ArchConfig, layer_id: int) -> str:
+    """'rwkv', 'mamba' or 'attn'.  Inside a group the within-group offset
+    is the layer id: Jamba's pattern (attention at offset attn_every // 2)
+    is the same in every group."""
+    if arch.attn_free:
+        return "rwkv"
+    if arch.is_hybrid:
+        return "attn" if layer_id in set(arch.attn_layer_ids()) else "mamba"
+    return "attn"
 
 
 def _tree_map(fn, tree):
@@ -86,23 +105,35 @@ def _tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 
 
+def _init_layer(arch: ArchConfig, gen: torch.Generator, layer_id: int,
+                lead: Tuple[int, ...], st: ModelSettings, device) -> Params:
+    dt, d = st.pdt(), arch.d_model
+    kind = layer_kind(arch, layer_id)
+    p: Params = {"ln1": L.init_norm(arch, lead + (d,), dt, device),
+                 "ln2": L.init_norm(arch, lead + (d,), dt, device)}
+    if kind == "rwkv":
+        p["tmix"] = SSM.init_rwkv_time_mix(arch, gen, lead, dt, device)
+        p["cmix"] = SSM.init_rwkv_channel_mix(arch, gen, lead, dt, device)
+        return p
+    if kind == "mamba":
+        p["mamba"] = SSM.init_mamba(arch, gen, lead, dt, device)
+    else:
+        p["attn"] = L.init_attention(arch, gen, lead, dt, device)
+    p["mlp"] = L.init_mlp(arch, gen, lead, dt, device)
+    return p
+
+
 def init_params(arch: ArchConfig, gen: torch.Generator, st: ModelSettings,
                 device) -> Params:
     """The JAX tree (``repro.models.transformer.init_params``), drawn from
-    ``gen``: the same paths, shapes and init scales; other numbers."""
+    ``gen``: the same paths, shapes, dtypes and init scales; other
+    numbers."""
     check_supported(arch, st)
     dt, d = st.pdt(), arch.d_model
     lead = (n_groups(arch),)
     p: Params = {"embed": L.embed_init(gen, (arch.vocab, d), dt, device)}
-    layer = {"ln1": L.init_norm(arch, lead + (d,), dt, device),
-             "ln2": L.init_norm(arch, lead + (d,), dt, device)}
-    if layer_kind(arch) == "rwkv":
-        layer["tmix"] = SSM.init_rwkv_time_mix(arch, gen, lead, dt, device)
-        layer["cmix"] = SSM.init_rwkv_channel_mix(arch, gen, lead, dt, device)
-    else:
-        layer["attn"] = L.init_attention(arch, gen, lead, dt, device)
-        layer["mlp"] = L.init_mlp(arch, gen, lead, dt, device)
-    p["blocks"] = {"l0": layer}
+    p["blocks"] = {f"l{off}": _init_layer(arch, gen, off, lead, st, device)
+                   for off in range(group_size(arch))}
     p["final_norm"] = L.init_norm(arch, (d,), dt, device)
     if not arch.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (d, arch.vocab), d, dt, device)
@@ -115,27 +146,40 @@ def init_params(arch: ArchConfig, gen: torch.Generator, st: ModelSettings,
 
 
 def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
-                 st: ModelSettings, cache: Optional[Params] = None,
-                 pos: Optional[int] = None
+                 st: ModelSettings, layer_id: int,
+                 cache: Optional[Params] = None, pos: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
-    or the new RWKV states, are written into ``cache`` in place).  Returns
-    (x, the layer's cache)."""
-    if layer_kind(arch) == "rwkv":
+    or the new recurrent states, are written into ``cache`` in place).
+    Returns (x, the layer's cache)."""
+    kind = layer_kind(arch, layer_id)
+    if kind == "rwkv":
         return _apply_rwkv_layer(arch, p, x, st, cache)
     h = L.apply_norm(arch, p["ln1"], x)
-    q, k, v = L.attention_qkv(arch, p["attn"], h, positions)
-    if cache is None:
-        o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
-                     q_chunk=st.attn_chunk, kv_chunk=st.attn_chunk)
-        cache = {"k": k, "v": v}
+    if kind == "mamba":
+        state = cache or {}
+        out, (conv, ssm) = SSM.apply_mamba(
+            arch, p["mamba"], h, conv_state=state.get("conv"),
+            ssm_state=state.get("ssm"), use_kernel=st.use_kernel_ssm)
+        if cache is None:  # a copy: the view would keep (B, S, 2 di) alive
+            cache = {"conv": conv.clone(), "ssm": ssm}
+        else:
+            cache["conv"].copy_(conv)
+            cache["ssm"].copy_(ssm)
     else:
-        kc, vc = cache["k"], cache["v"]
-        kc[:, pos:pos + 1] = k.to(kc.dtype)
-        vc[:, pos:pos + 1] = v.to(vc.dtype)
-        lens = torch.full((x.shape[0],), pos + 1, device=x.device)
-        o = L.attend_decode(q, kc, vc, lens)
-    x = x + L.attention_out(p["attn"], o)
+        q, k, v = L.attention_qkv(arch, p["attn"], h, positions)
+        if cache is None:
+            o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
+                         q_chunk=st.attn_chunk, kv_chunk=st.attn_chunk)
+            cache = {"k": k, "v": v}
+        else:
+            kc, vc = cache["k"], cache["v"]
+            kc[:, pos:pos + 1] = k.to(kc.dtype)
+            vc[:, pos:pos + 1] = v.to(vc.dtype)
+            lens = torch.full((x.shape[0],), pos + 1, device=x.device)
+            o = L.attend_decode(q, kc, vc, lens)
+        out = L.attention_out(p["attn"], o)
+    x = x + out
     h = L.apply_norm(arch, p["ln2"], x)
     x = x + L.apply_mlp(arch, p["mlp"], h)
     return x, cache
@@ -172,20 +216,24 @@ def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
 
 def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
             st: ModelSettings) -> Tuple[torch.Tensor, Params]:
-    """Prefill forward.  Returns (hidden (B,S,d), the cache stacked over
-    groups: {'l0': {'k','v': (G,B,S,KV,hd)}} for attention layers,
-    {'l0': {'tshift','cshift': (G,B,d), 'wkv': (G,B,H,hd,hd)}} for RWKV)."""
+    """Prefill forward.  Returns (hidden (B,S,d), the cache: for each
+    within-group offset ``l{off}``, that layer's cache stacked over groups:
+    {'k','v': (G,B,S,KV,hd)} for attention layers, {'tshift','cshift':
+    (G,B,d), 'wkv': (G,B,H,hd,hd)} for RWKV, {'conv': (G,B,d_conv-1,di),
+    'ssm': (G,B,di,ds)} for Mamba)."""
     B, Sq = tokens.shape
     x = params["embed"][tokens].to(st.cdt())
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
-    caches = []
+    caches = [[] for _ in range(group_size(arch))]  # [offset][group]
     for gi in range(n_groups(arch)):
-        lp = _tree_map(lambda a: a[gi], params["blocks"]["l0"])
-        x, c = _apply_layer(arch, lp, x, positions, st)
-        caches.append(c)
+        for off, per_group in enumerate(caches):
+            lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
+            x, c = _apply_layer(arch, lp, x, positions, st, off)
+            per_group.append(c)
     x = L.apply_norm(arch, params["final_norm"], x)
-    return x, {"l0": {name: torch.stack([c[name] for c in caches])
-                      for name in caches[0]}}
+    return x, {f"l{off}": {name: torch.stack([c[name] for c in cs])
+                           for name in cs[0]}
+               for off, cs in enumerate(caches)}
 
 
 def logits_from_hidden(arch: ArchConfig, params: Params,
@@ -201,37 +249,49 @@ def logits_from_hidden(arch: ArchConfig, params: Params,
 
 def init_cache(arch: ArchConfig, batch: int, max_seq: int, st: ModelSettings,
                device) -> Params:
-    """Zeroed cache, stacked over groups: {'l0': {'k','v': (G,B,S,KV,hd)}}
-    for attention layers; {'l0': {'tshift','cshift': (G,B,d) in the compute
-    dtype, 'wkv': (G,B,H,hd,hd) fp32}} for RWKV (``max_seq`` unused)."""
+    """Zeroed cache, stacked over groups, for each within-group offset
+    ``l{off}``: {'k','v': (G,B,S,KV,hd)} for attention layers;
+    {'tshift','cshift': (G,B,d) in the compute dtype, 'wkv': (G,B,H,hd,hd)
+    fp32} for RWKV; {'conv': (G,B,d_conv-1,di) in the compute dtype, 'ssm':
+    (G,B,di,ds) fp32} for Mamba (``max_seq`` is used by attention only)."""
     G, dt = n_groups(arch), st.cdt()
-    if layer_kind(arch) == "rwkv":
-        hs = arch.rwkv.head_size
-        shift = (G, batch, arch.d_model)
-        return {"l0": {
-            "tshift": torch.zeros(shift, dtype=dt, device=device),
-            "wkv": torch.zeros((G, batch, arch.d_model // hs, hs, hs),
-                               dtype=torch.float32, device=device),
-            "cshift": torch.zeros(shift, dtype=dt, device=device)}}
-    shape = (G, batch, max_seq, arch.n_kv_heads, arch.resolved_head_dim)
-    return {"l0": {"k": torch.zeros(shape, dtype=dt, device=device),
-                   "v": torch.zeros(shape, dtype=dt, device=device)}}
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros((G, batch) + shape, dtype=dtype, device=device)
+
+    def layer_cache(off: int) -> Params:
+        kind = layer_kind(arch, off)
+        if kind == "rwkv":
+            hs = arch.rwkv.head_size
+            return {"tshift": zeros((arch.d_model,)),
+                    "wkv": zeros((arch.d_model // hs, hs, hs), torch.float32),
+                    "cshift": zeros((arch.d_model,))}
+        if kind == "mamba":
+            m = arch.mamba
+            di = m.expand * arch.d_model
+            return {"conv": zeros((m.d_conv - 1, di)),
+                    "ssm": zeros((di, m.d_state), torch.float32)}
+        shape = (max_seq, arch.n_kv_heads, arch.resolved_head_dim)
+        return {"k": zeros(shape), "v": zeros(shape)}
+
+    return {f"l{off}": layer_cache(off) for off in range(group_size(arch))}
 
 
 def decode_step(arch: ArchConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, pos: int, st: ModelSettings
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) integer; pos: tokens already in the
-    cache.  Writes the new kv at ``pos`` (or the new RWKV states) in place
-    and returns (logits (B, V) fp32, cache)."""
+    cache.  Writes the new kv at ``pos`` (or the new recurrent states) in
+    place and returns (logits (B, V) fp32, cache)."""
     pos = int(pos)
     B = tokens.shape[0]
     x = params["embed"][tokens].to(st.cdt())
     positions = torch.full((B, 1), pos, device=tokens.device)
     for gi in range(n_groups(arch)):
-        lp = _tree_map(lambda a: a[gi], params["blocks"]["l0"])
-        lc = _tree_map(lambda a: a[gi], cache["l0"])
-        x, _ = _apply_layer(arch, lp, x, positions, st, lc, pos=pos)
+        for off in range(group_size(arch)):
+            lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
+            lc = _tree_map(lambda a: a[gi], cache[f"l{off}"])
+            x, _ = _apply_layer(arch, lp, x, positions, st, off, lc, pos=pos)
     x = L.apply_norm(arch, params["final_norm"], x)
     return logits_from_hidden(arch, params, x)[:, 0], cache
 

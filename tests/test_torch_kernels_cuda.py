@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (flash attention, WKV6) held against their plain
-versions on the card.
+"""The port's CUDA kernels (flash attention, WKV6, the Mamba selective scan)
+held against their plain versions on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 The file imports nothing of JAX, so it runs where only the port is
@@ -15,6 +15,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import kernel as ms_kernel  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.wkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
@@ -166,3 +169,82 @@ def test_wkv6_kernel_rejects_what_it_does_not_take(cuda_device):
         wkv_kernel.wkv6_fwd(r, k, v, w.bfloat16(), u, s0)
     with pytest.raises(ValueError, match="s0 must be"):
         wkv_kernel.wkv6_fwd(r, k, v, w, u, s0.transpose(2, 3))
+
+
+# Mamba scan: the sweep of tests/test_kernels.py::test_mamba_scan (B, S, di,
+# ds; same tolerance), then S = 1 (a decode step), ragged S and di, bf16
+MS_CASES = [
+    (2, 64, 32, 8, "float32"),
+    (1, 128, 64, 4, "float32"),
+    (2, 32, 16, 16, "float32"),
+    (8, 1, 256, 16, "float32"),
+    (2, 100, 200, 16, "bfloat16"),
+    (1, 333, 128, 8, "float32"),
+    (3, 40, 384, 4, "bfloat16"),
+]
+
+
+def _ms_inputs(seed, B, S, di, ds, dtype, device):
+    """Drawn as the JAX test draws them; u, dt, B, C in ``dtype``."""
+    u = _randn(seed, B, S, di, dtype=dtype, device=device)
+    dt = torch.nn.functional.softplus(
+        _randn(seed + 1, B, S, di, device=device) - 2).to(dtype)
+    A = -torch.exp(_randn(seed + 2, di, ds, device=device) * 0.3)
+    Bc = _randn(seed + 3, B, S, ds, dtype=dtype, device=device)
+    Cc = _randn(seed + 4, B, S, ds, dtype=dtype, device=device)
+    D = torch.ones(di, device=device)
+    h0 = _randn(seed + 5, B, di, ds, device=device) * 0.1
+    return u, dt, A, Bc, Cc, D, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,ds,dtype", MS_CASES)
+def test_mamba_scan_kernel_matches_ref_on_card(cuda_device, B, S, di, ds, dtype):
+    args = _ms_inputs(90, B, S, di, ds, getattr(torch, dtype), cuda_device)
+    before = ms_kernel.LAUNCHES
+    y, hT = ms_kernel.mamba_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert ms_kernel.LAUNCHES == before + 1
+    assert y.dtype == hT.dtype == torch.float32 and y.shape == (B, S, di)
+    ey, eh = mamba_scan_ref(*args)
+    torch.testing.assert_close(y, ey, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hT, eh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_model_layout_goes_through_the_kernel(cuda_device):
+    """``ops.mamba_scan`` hands the kernel B and C as column slices of one
+    (B, S, dt_rank + 2 ds) projection, as the model does: one launch."""
+    B, S, di, ds, dtr = 2, 70, 256, 16, 32
+    u, dt, A, _, _, D, _ = _ms_inputs(100, B, S, di, ds, torch.bfloat16,
+                                      cuda_device)
+    xdbl = _randn(106, B, S, dtr + 2 * ds, dtype=torch.bfloat16,
+                  device=cuda_device)
+    Bc, Cc = xdbl[..., dtr:dtr + ds], xdbl[..., dtr + ds:]
+    before = ms_kernel.LAUNCHES
+    y, hT = ms_ops.mamba_scan(u, dt, A, Bc, Cc, D)
+    torch.cuda.synchronize()
+    assert ms_kernel.LAUNCHES == before + 1
+    ey, eh = mamba_scan_ref(u, dt, A, Bc.contiguous(), Cc.contiguous(), D,
+                            torch.zeros(B, di, ds, device=cuda_device))
+    torch.testing.assert_close(y, ey, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hT, eh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    u, dt, A, Bc, Cc, D, h0 = _ms_inputs(110, 2, 8, 64, 4, torch.float32,
+                                         cuda_device)
+    with pytest.raises(ValueError, match="d_state 32"):
+        ms_kernel.mamba_scan_fwd(u, dt, A.repeat(1, 8), Bc.repeat(1, 1, 8),
+                                 Cc.repeat(1, 1, 8), D, h0.repeat(1, 1, 8))
+    with pytest.raises(ValueError, match="dtype"):
+        ms_kernel.mamba_scan_fwd(u.half(), dt.half(), A, Bc.half(), Cc.half(),
+                                 D, h0)
+    with pytest.raises(ValueError, match="A must be float32"):
+        ms_kernel.mamba_scan_fwd(u, dt, A.bfloat16(), Bc, Cc, D, h0)
+    with pytest.raises(ValueError, match="u must be contiguous"):
+        ms_kernel.mamba_scan_fwd(u.transpose(0, 1), dt.transpose(0, 1), A,
+                                 Bc.transpose(0, 1), Cc.transpose(0, 1), D, h0)
+    with pytest.raises(ValueError, match="h0 must be"):
+        ms_kernel.mamba_scan_fwd(u, dt, A, Bc, Cc, D, h0.transpose(1, 2))

@@ -170,11 +170,17 @@ def test_load_jax_params_round_trip(dtype):
 
 
 def test_hybrid_still_raises():
-    """RWKV is let through; Mamba hybrids wait for kernel K4's slice."""
-    hybrid = get_smoke_arch("qwen2-0.5b").replace(mamba=MambaConfig(),
-                                                  attn_every=2)
+    """RWKV and Mamba hybrids without experts are let through; a hybrid
+    with experts (Jamba as published, MoE every 2nd layer) waits for the
+    MoE slice."""
+    jamba = get_smoke_arch("jamba-1.5-large-398b")
+    assert jamba.is_hybrid and jamba.moe is not None
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(hybrid, ModelSettings(**FP32), device="cpu")
+        build_model(jamba, ModelSettings(**FP32), device="cpu")
+    hybrid = get_smoke_arch("qwen2-0.5b").replace(mamba=MambaConfig(d_state=4),
+                                                  attn_every=2)
+    assert count_params(build_model(hybrid, ModelSettings(**FP32),
+                                    device="cpu")) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from torch_harness import (ARCH, ARCHS, FP32, RWKV, jax_model,  # noqa: E402
-                           jax_params, port_model, smoke_weights)
+from torch_harness import (ARCH, ARCHS, FP32, JAMBA, RWKV,  # noqa: E402
+                           jax_model, jax_params, port_model, smoke_weights)
 
 from repro import configs as jax_configs  # noqa: E402
 from repro.runtime.serve_loop import DecodeServer as JaxDecodeServer  # noqa: E402
@@ -66,6 +66,27 @@ def test_rwkv_greedy_tokens_match_jax_server(use_kernel_ssm):
                               make_mesh((1, 1), ("data", "model")),
                               batch_slots=2, max_seq=64)
     server = _server(port_model(weights, arch=RWKV,
+                                use_kernel_ssm=use_kernel_ssm), max_seq=64)
+    for s, req in ((jserver, JaxRequest), (server, Request)):
+        for i in range(5):
+            s.submit(req(uid=i, prompt=np.array([1, 2, 3], np.int32), max_new=4))
+    jouts = jserver.run(jax_params(weights), max_steps=40)
+    outs = server.run(max_steps=40)
+    assert outs == jouts
+    assert len(set(map(tuple, outs.values()))) > 1
+    assert server.stats == {**jserver.stats, "wall": server.stats["wall"]}
+
+
+@pytest.mark.parametrize("use_kernel_ssm", [False, True])
+def test_jamba_greedy_tokens_match_jax_server(use_kernel_ssm):
+    """The same five requests on the jamba smoke model without experts:
+    seven Mamba layers and one attention layer.  As for RWKV6, a slot's
+    conv and ssm states carry over to the next request it takes."""
+    weights = smoke_weights(seed=0, arch=JAMBA)
+    jserver = JaxDecodeServer(jax_model(max_seq=64, arch=JAMBA),
+                              make_mesh((1, 1), ("data", "model")),
+                              batch_slots=2, max_seq=64)
+    server = _server(port_model(weights, arch=JAMBA,
                                 use_kernel_ssm=use_kernel_ssm), max_seq=64)
     for s, req in ((jserver, JaxRequest), (server, Request)):
         for i in range(5):
@@ -168,6 +189,18 @@ def test_cli_smoke_rwkv_on_cpu(capsys):
     assert server.model.settings.use_kernel_ssm
     assert server.model.settings.attn_impl == "kernel"
     assert "throughput:" in capsys.readouterr().out
+
+
+def test_cli_smoke_jamba_on_cpu(capsys):
+    """The CLI serves the one-card cut: no experts."""
+    server = serve_cli.main(["--arch", JAMBA, "--smoke", "--device", "cpu",
+                             "--requests", "3", "--max-new", "2",
+                             "--batch-slots", "2", "--max-seq", "16"])
+    assert server.stats["tokens"] == 6
+    assert server.model.arch.moe is None and server.model.arch.is_hybrid
+    assert server.model.settings.use_kernel_ssm
+    out = capsys.readouterr().out
+    assert "cut to one card: moe" in out and "throughput:" in out
 
 
 @pytest.mark.parametrize("arch", ARCHS)

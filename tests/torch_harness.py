@@ -14,7 +14,7 @@ from repro.configs import get_smoke_arch as jax_smoke_arch
 from repro.models import ModelSettings as JaxSettings
 from repro.models import build_model as jax_build_model
 from repro.utils.trees import tree_from_paths, tree_paths
-from repro_torch.configs import get_smoke_arch
+from repro_torch.configs import one_card_arch
 from repro_torch.convert import load_jax_params
 from repro_torch.models import ModelSettings, build_model
 
@@ -23,7 +23,8 @@ torch.set_num_threads(1)
 
 ARCH = "qwen2-0.5b"  # the dense arch, and the default below
 RWKV = "rwkv6-1.6b"
-ARCHS = (ARCH, RWKV)  # every arch the port registers
+JAMBA = "jamba-1.5-large-398b"  # runs without experts (one_card_arch)
+ARCHS = (JAMBA, ARCH, RWKV)  # every arch the port registers, sorted
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 
 
@@ -46,17 +47,31 @@ def redraw(flat, seed: int):
     return out
 
 
+def smoke_archs(arch: str = ARCH, n_layers=None):
+    """(the JAX smoke config, the port's) with the port's one-card cut
+    (no experts for jamba) and, if given, ``n_layers``."""
+    port, _ = one_card_arch(arch, smoke=True)
+    jarch = jax_smoke_arch(arch)
+    if port.moe is None:
+        jarch = jarch.replace(moe=None)
+    if n_layers is not None:
+        port, jarch = port.replace(n_layers=n_layers), jarch.replace(n_layers=n_layers)
+    return jarch, port
+
+
 def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
-              arch: str = ARCH, use_pallas_ssm: bool = False):
+              arch: str = ARCH, use_pallas_ssm: bool = False, n_layers=None):
     st = JaxSettings(param_dtype=dtype, compute_dtype=dtype, remat="none",
                      attn_impl=attn_impl, max_seq=max_seq,
                      use_pallas_ssm=use_pallas_ssm)
-    return jax_build_model(jax_smoke_arch(arch), st)
+    return jax_build_model(smoke_archs(arch, n_layers)[0], st)
 
 
-def smoke_weights(seed: int = 0, dtype="float32", arch: str = ARCH):
+def smoke_weights(seed: int = 0, dtype="float32", arch: str = ARCH,
+                  n_layers=None):
     """The smoke model's flat JAX tree, every leaf redrawn from ``seed``."""
-    params = jax_model(dtype=dtype, arch=arch).init(jax.random.key(0))
+    params = jax_model(dtype=dtype, arch=arch,
+                       n_layers=n_layers).init(jax.random.key(0))
     return redraw({k: np.asarray(v) for k, v in tree_paths(params).items()},
                   seed)
 
@@ -66,10 +81,10 @@ def jax_params(flat):
 
 
 def port_model(flat, attn_impl: str = "masked", dtype="float32",
-               arch: str = ARCH, use_kernel_ssm: bool = False):
+               arch: str = ARCH, use_kernel_ssm: bool = False, n_layers=None):
     st = ModelSettings(param_dtype=dtype, compute_dtype=dtype,
                        attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm)
-    model = build_model(get_smoke_arch(arch), st, device="cpu")
+    model = build_model(smoke_archs(arch, n_layers)[1], st, device="cpu")
     load_jax_params(model, flat)
     return model
 
