@@ -17,7 +17,13 @@ PyTorch version, then drives the port's three serving paths at full width
   * jamba-1.5-large-398b cut to one card (one 8-layer Jamba block, no
     experts, every width published: ``configs.one_card_arch``), with the
     selective-scan kernel (K4) in its 7 Mamba layers of every prefill and
-    decode step and K1 in its attention layer's prefill.
+    decode step and K1 in its attention layer's prefill;
+
+then the int8 quantize + error-feedback kernel (K2) against its plain
+version, bit for bit, and the training path: ``repro_torch.launch.train``
+with two ranks sharing the card over gloo, mesh (pod, data, model) =
+(2, 1, 1), full-width qwen2-0.5b in fp32 with the int8 slow tier, K1 in
+every layer's forward and K2 in every slow-tier leg, 3 steps.
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -26,6 +32,7 @@ Any failure raises and exits non-zero.  The last lines are the card
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -49,7 +56,11 @@ B_MAIN, S_MAIN = 4, 2048  # the prefill shape of every path
 # the name of its integer template parameter
 PTXAS_ENTRY = {"flash_attention_fwd": ("fa_fwd_kernel", "hd"),
                "wkv6_fwd": ("wkv6_fwd_kernel", "hd"),
-               "mamba_scan_fwd": ("mamba_scan_fwd_kernel", "ds")}
+               "mamba_scan_fwd": ("mamba_scan_fwd_kernel", "ds"),
+               "quantize_ef_fwd": ("quantize_ef_fwd_kernel", "block")}
+# the training phase (``launch.train.ONE_CARD_RUN``): two ranks share the
+# card, 3 steps of a 4 x 2048-token global batch
+TRAIN_RANKS, TRAIN_STEPS, TRAIN_TOKENS = 2, 3, 4 * 2048
 
 
 def log(msg: str) -> None:
@@ -69,9 +80,11 @@ def ptxas_summary(text: str, kernel: str, param: str) -> str:
     -v`` output."""
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", line)
+        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?", line)
         if "Compiling entry function" in line and m:
             name = f"{'fp32' if m.group(1) == 'f' else 'bf16'} {param}{m.group(2)}"
+            if m.group(4) is not None:
+                name += " vec" if m.group(4) == "1" else " scalar"
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif name and "Used" in line and "registers" in line:
@@ -205,6 +218,8 @@ def check_flash_attention(torch, gen, dev, arch, jamba):
     cases = [  # name, B, H, KV, S, hd, causal, dtype
         ("main-bf16", B_MAIN, H, KV, S_MAIN, hd, True, "bfloat16"),
         ("main-fp32", B_MAIN, H, KV, S_MAIN, hd, True, "float32"),
+        # the training path's shape: 2 rows a rank, fp32
+        ("main-train-fp32", 2, H, KV, S_MAIN, hd, True, "float32"),
         ("main-jamba", B_MAIN, jamba.n_heads, jamba.n_kv_heads, S_MAIN,
          jamba.resolved_head_dim, True, "bfloat16"),
         ("hd128", 2, 8, 2, 1024, 128, True, "float32"),
@@ -370,6 +385,191 @@ def check_mamba_scan(torch, gen, dev, arch):
     return results
 
 
+def quantize_bound_ms(n, block, dtype_name):
+    """x read once, q, the scales and err written once; ~3 fp32 FLOPs an
+    element (a division, a rounding, a multiply-subtract)."""
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    return bound(3.0 * n, n * itemsize + n + 4 * (n // block) + 4 * n, "float32")
+
+
+def train_sections():
+    """The padded slow-leg sizes of the training path's 9 sections: the
+    shared planner's plan for full-width qwen2-0.5b on (pod, data, model) =
+    (2, 1, 1) with the int8 codec, built on the meta device (no memory)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.topology import topology_from_mesh_sizes
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import make_sync_plan
+    sizes = {"pod": 2, "data": 1, "model": 1}
+    model = build_model(get_arch("qwen2-0.5b"),
+                        ModelSettings(param_dtype="float32", compute_dtype="float32"),
+                        device="meta")
+    plan, _ = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes),
+                             codec="int8")
+    return {s.name: s.numel + (-s.numel) % s.sync.codec_block
+            for s in plan.sections}
+
+
+def check_quantize(torch, gen, dev):
+    """K2 against its plain version, bit for bit on q, scales and err: the
+    JAX test's sweep, the training path's 9 section sizes, exact halves
+    with an all-zero block, an unaligned view and bf16 input.  Returns the
+    per-case results."""
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.kernels.quantize.ref import quantize_ef_ref
+    sections = train_sections()
+    if len(sections) != 9 or sum(sections.values()) != 494_032_896:
+        raise AssertionError(f"training plan changed: {sections}")
+    cases = [(f"sweep-{n}-{b}", n, b, "float32", "randn") for n, b in
+             ((8192, 512), (4096, 2048), (2048, 128))]
+    cases += [(f"sec-{name}", n, 2048, "float32", "grad")
+              for name, n in sorted(sections.items(), key=lambda kv: -kv[1])]
+    cases += [("halves-512", 16 * 512, 512, "float32", "halves"),
+              ("unaligned-512", 64 * 512, 512, "float32", "unaligned"),
+              ("bf16-8192-512", 8192, 512, "bfloat16", "randn"),
+              ("bf16-embed", sections["embed"], 2048, "bfloat16", "grad")]
+    results = {}
+    for name, n, block, dt_name, kind in cases:
+        dt = getattr(torch, dt_name)
+        if kind == "halves":  # x / scale = k + 0.5 exactly; block 0 all zero
+            c = torch.exp2(torch.randint(-8, 4, (n // block, 1), generator=gen,
+                                         device=dev).float())
+            k = torch.randint(-127, 127, (n // block, block), generator=gen,
+                              device=dev).float() + 0.5
+            k[:, 0] = 127.0
+            x = (k * c).reshape(-1)
+            x[:block] = 0.0
+        elif kind == "unaligned":  # a view 4 bytes past an aligned base
+            x = torch.randn(n + 1, generator=gen, device=dev)[1:]
+        else:  # gradients are small: scale like them
+            x = torch.randn(n, generator=gen, device=dev) * (3.0 if kind == "randn" else 1e-3)
+        x = x.to(dt)
+        got = q_kernel.quantize_ef_fwd(x, block=block)
+        torch.cuda.synchronize()
+        want = quantize_ef_ref(x, block=block)
+        for what, a, b in zip(("q", "scales", "err"), got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"[K2] {name}: {what} not bit-equal to the "
+                                     f"plain version")
+        err = (got[2] - want[2]).abs().max().item()
+        line = (f"[K2] {name:22s} n={n} block={block} {dt_name}: q, scales, err "
+                f"bit-equal (max_abs_err={err:.1e})")
+        if name in ("sec-embed", "bf16-embed"):
+            kernel_ms = time_ms(lambda: q_kernel.quantize_ef_fwd(x, block=block), iters=20)
+            plain_ms = time_ms(lambda: quantize_ef_ref(x, block=block), iters=5)
+            bound_ms, bound_by = quantize_bound_ms(n, block, dt_name)
+            results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=None)
+            line += (f" kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"bound_ms={bound_ms:.4f} ({bound_by})")
+        log(line)
+        del x, got, want
+    return results
+
+
+def train_rank(rank, world, init_method):
+    """One rank of the training phase: the CLI's path (``run_rank``) with
+    hooks that check it.  Before training: the step-0 loss with the masked
+    attention on the same weights and batch, then every launch count set to
+    0.  After each step: its K1 and K2 launches, a finite loss, both ranks'
+    parameters bit-equal, and after the first step a nonzero EF state."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime.train_loop import local_rows
+    from repro_torch.utils.trees import tree_paths
+    args = train_cli.resolve_args(
+        train_cli.build_parser().parse_args(train_cli.ONE_CARD_RUN))
+    rec = {"steps": []}
+
+    def before_train(trainer, params, opt):
+        import dataclasses
+        model = trainer.model
+        batch = {k: torch.from_numpy(v).to(model.device) for k, v in
+                 local_rows(trainer.pipeline.batch_at(0), trainer.mesh).items()}
+        kernel_st = model.settings
+        model.settings = dataclasses.replace(kernel_st, attn_impl="masked")
+        fa_before = fa_kernel.LAUNCHES
+        with torch.no_grad():
+            loss = model.loss(params, batch)
+        model.settings = kernel_st
+        if fa_kernel.LAUNCHES != fa_before:
+            raise AssertionError("the masked path launched K1")
+        dist.all_reduce(loss)
+        rec["masked_loss0"] = loss.item() / TRAIN_RANKS
+        rec["mem_after_init_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        fa_kernel.LAUNCHES = q_kernel.LAUNCHES = 0  # just before the path
+        rec["last"] = (0, 0)
+
+    def on_step(step, params, opt, metrics):
+        torch.cuda.synchronize()
+        launches = (fa_kernel.LAUNCHES - rec["last"][0],
+                    q_kernel.LAUNCHES - rec["last"][1])
+        equal = True
+        for p in tree_paths(params).values():  # the DP invariant, exactly
+            both = torch.empty((TRAIN_RANKS * p.numel(),), dtype=p.dtype,
+                               device=p.device)
+            dist.all_gather_into_tensor(both, p.detach().reshape(-1))
+            both = both.view(TRAIN_RANKS, -1)
+            equal = equal and all(torch.equal(both[0], both[r])
+                                  for r in range(1, TRAIN_RANKS))
+            del both
+        efs = [e["ef"] for e in opt["sections"].values() if "ef" in e]
+        rec["steps"].append(dict(
+            step=step, loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+            dt=metrics["dt"], fa=launches[0], q=launches[1],
+            params_equal=equal, n_ef=len(efs),
+            ef_nonzero=all(bool((e != 0).any()) for e in efs),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        rec["last"] = (fa_kernel.LAUNCHES, q_kernel.LAUNCHES)
+
+    trainer, out = train_cli.run_rank(args, rank, world, init_method,
+                                      on_step=on_step, before_train=before_train)
+    rec["fa_total"], rec["q_total"] = rec.pop("last")
+    rec["n_params"] = sum(p.numel() for p in trainer.model.parameters())
+    rec["n_sections"] = len(trainer.plan.sections)
+    return rec
+
+
+def run_training():
+    """The training phase: two spawned ranks on the one card; returns the
+    per-rank records after checking them."""
+    from repro_torch.launch import train as train_cli
+    recs = train_cli.run_ranks(train_rank, TRAIN_RANKS, timeout=900)
+    qwen_layers = 24
+    for rank, rec in enumerate(recs):
+        for st in rec["steps"]:
+            log(f"[train] rank {rank} step {st['step']}: loss={st['loss']:.6f} "
+                f"grad_norm={st['grad_norm']:.4f} step_s={st['dt']:.3f} "
+                f"tok/s={TRAIN_TOKENS / st['dt']:.0f} (global batch, both ranks) "
+                f"launches flash_attention_fwd={st['fa']} quantize_ef_fwd={st['q']} "
+                f"params_bit_equal={st['params_equal']} ef_nonzero={st['ef_nonzero']} "
+                f"peak_mem_gb={st['peak_gb']:.2f}")
+            if not (st["fa"] == qwen_layers and st["q"] == rec["n_sections"] == 9):
+                raise AssertionError(f"rank {rank} step {st['step']} launched "
+                                     f"K1 {st['fa']}, K2 {st['q']}; expected "
+                                     f"{qwen_layers} and 9")
+            if not (math.isfinite(st["loss"]) and st["params_equal"]
+                    and st["ef_nonzero"] and st["n_ef"] == 9):
+                raise AssertionError(f"rank {rank} step {st['step']}: {st}")
+        if len(rec["steps"]) != TRAIN_STEPS or rec["n_params"] != 494_032_768:
+            raise AssertionError(f"rank {rank}: {rec}")
+        loss0 = rec["steps"][0]["loss"]
+        rel = abs(rec["masked_loss0"] - loss0) / abs(loss0)
+        log(f"[train] rank {rank}: step-0 loss with K1 {loss0!r}, with the masked "
+            f"attention {rec['masked_loss0']!r} (rel diff {rel:.2e}, tol 1e-4); "
+            f"memory after init {rec['mem_after_init_gb']:.2f} GB")
+        if rel > 1e-4:
+            raise AssertionError("the kernel path's step-0 loss is off the masked one")
+    if any(abs(a["loss"] - b["loss"]) > 0 for a, b in zip(recs[0]["steps"], recs[1]["steps"])):
+        raise AssertionError("the ranks disagree on the (pmean) loss")
+    return recs
+
+
 def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
                    n_plain, fp32_layers=None):
     """The full-width bf16 prefill through the kernels, each launched as
@@ -477,6 +677,7 @@ def main() -> None:
     from repro_torch.kernels._build import library_path
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.quantize import kernel as q_kernel
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.models import ModelSettings
 
@@ -486,7 +687,13 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t_start = time.perf_counter()
     counters = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
-                "mamba_scan_fwd": ms_kernel}
+                "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
+    phase_t = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
 
     # ---- card and build: one nvcc per kernel, all started together ---------
     card = card_line()
@@ -503,6 +710,7 @@ def main() -> None:
         if ptxas.exists():
             log(f"[build]   {name} ptxas per instantiation: "
                 f"{ptxas_summary(ptxas.read_text(), *PTXAS_ENTRY[name])}")
+    phase_done("build")
 
     # ---- qwen2-0.5b: K1 vs plain, prefill, consistency, serve --------------
     qwen = get_arch("qwen2-0.5b")
@@ -520,6 +728,7 @@ def main() -> None:
         + " (decode attention is plain PyTorch)")
     del model, server
     torch.cuda.empty_cache()
+    phase_done("qwen2-0.5b: K1, prefill, serve")
 
     # ---- rwkv6-1.6b: K3 vs plain, prefill, consistency, serve --------------
     rwkv = get_arch("rwkv6-1.6b")
@@ -544,6 +753,7 @@ def main() -> None:
     log(serve_line(rwkv.name, server, launches))
     del model, server
     torch.cuda.empty_cache()
+    phase_done("rwkv6-1.6b: K3, prefill, serve")
 
     # ---- jamba (one-card cut): K4 vs plain, prefill, consistency, serve ----
     log(f"[jamba] {jamba.name} cut to one card: {'; '.join(cuts)}")
@@ -561,7 +771,7 @@ def main() -> None:
         torch, gen, dev, jamba, jamba_settings, counters,
         {"mamba_scan_fwd": n_mamba, "flash_attention_fwd": len(jamba.attn_layer_ids())}, 1)
     server, launches = serve(model, jamba, counters)
-    if launches != {"flash_attention_fwd": 0, "wkv6_fwd": 0,
+    if launches != {"flash_attention_fwd": 0, "wkv6_fwd": 0, "quantize_ef_fwd": 0,
                     "mamba_scan_fwd": n_mamba * server.stats["steps"]}:
         raise AssertionError(f"jamba serve launched {launches} in "
                              f"{server.stats['steps']} steps, expected "
@@ -570,6 +780,16 @@ def main() -> None:
         + " (decode attention is plain PyTorch)")
     del model, server
     torch.cuda.empty_cache()
+    phase_done("jamba cut: K4, prefill, serve")
+
+    # ---- K2 vs plain, then the training path on two ranks ------------------
+    q_results = check_quantize(torch, gen, dev)
+    torch.cuda.empty_cache()
+    phase_done("K2")
+    log(f"[train] card memory in use by this process before the ranks start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    recs = run_training()
+    phase_done("train: 2 ranks x 3 steps")
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -586,7 +806,11 @@ def main() -> None:
         {"name": "mamba_scan_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_fwd.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:87",
-         "launches": jamba_launches["mamba_scan_fwd"], **ms_results["main-bf16"]}]}))
+         "launches": jamba_launches["mamba_scan_fwd"], **ms_results["main-bf16"]},
+        {"name": "quantize_ef_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/quantize/csrc/quantize_ef_fwd.cu",
+         "replaces": "src/repro/kernels/quantize/kernel.py:53",
+         "launches": recs[0]["q_total"], **q_results["sec-embed"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

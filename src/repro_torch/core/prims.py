@@ -1,0 +1,221 @@
+"""Collective primitives over the mesh axes, on ``torch.distributed`` — the
+port of ``repro.core.prims``.
+
+The JAX package runs its collectives inside a ``shard_map``, where an axis
+name resolves against the mesh.  Here one process is one mesh member and a
+:class:`Mesh` maps each axis name to a process group of a ``DeviceMesh``
+whose dims are the axes, slowest first (``pod, host, data, model``); the
+flat rank is slowest-axis-major, the layout order of the JAX package's
+batch specs.  ``bind(mesh)`` makes a mesh the one that axis names resolve
+against, as entering a ``shard_map`` does.
+
+A group of size 1 issues no collective.  Every function returns a new
+tensor and leaves its input as it was, as ``lax`` does.
+
+Transport: NCCL groups take CUDA tensors.  Gloo groups take CPU tensors,
+and on torch 2.11 CUDA tensors too (gloo copies them through host memory
+itself): checked on the H100 machine for every collective used here,
+including an async ``all_gather_into_tensor``, so the two ranks that share
+one card in ``chip_smoke.py`` hand gloo their CUDA tensors as they are.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+#: mesh axes in the order the port lays them out, slowest tier first
+MESH_AXES = ("pod", "host", "data", "model")
+
+Axes = Union[str, Sequence[str]]
+
+
+class Mesh:
+    """This process's place in a mesh of ``torch.distributed`` ranks.
+
+    ``sizes``: {axis: size}, axes in ``MESH_AXES`` order (absent axes are
+    not part of the mesh).  The process group must be initialised, with a
+    world size equal to the product of the sizes."""
+
+    def __init__(self, sizes: Dict[str, int]):
+        from torch.distributed.device_mesh import DeviceMesh
+        names = tuple(a for a in MESH_AXES if a in sizes)
+        if set(names) != set(sizes):
+            raise ValueError(f"mesh axes {tuple(sizes)} not in {MESH_AXES}")
+        shape = tuple(int(sizes[a]) for a in names)
+        world = dist.get_world_size()
+        if math.prod(shape) != world:
+            raise ValueError(f"mesh {dict(zip(names, shape))} needs "
+                             f"{math.prod(shape)} ranks, the world has {world}")
+        self.axis_names = names
+        self.sizes = dict(zip(names, shape))
+        self.backend = dist.get_backend()
+        self.device_mesh = DeviceMesh(
+            "cpu" if self.backend == "gloo" else "cuda",
+            torch.arange(world).reshape(shape), mesh_dim_names=names)
+        self.groups = {a: self.device_mesh.get_group(a) for a in names}
+        rem, coords = dist.get_rank(), {}
+        for a in reversed(names):
+            coords[a] = rem % self.sizes[a]
+            rem //= self.sizes[a]
+        self.coords = coords
+
+    def size(self, axis: str) -> int:
+        return self.sizes[axis]
+
+    def rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+    @property
+    def flat_rank(self) -> int:
+        return dist.get_rank()
+
+
+_MESH: Optional[Mesh] = None
+
+# renamed in torch 2.13, where the old names warn; torch 2.11 has the old
+# names only
+_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+@contextlib.contextmanager
+def bind(mesh: Mesh):
+    """Resolve axis names against ``mesh`` inside the block."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def current_mesh() -> Mesh:
+    if _MESH is None:
+        raise RuntimeError("no mesh bound: run collectives inside "
+                           "`with prims.bind(mesh):`")
+    return _MESH
+
+
+def axis_size(axis_name: str) -> int:
+    return current_mesh().size(axis_name)
+
+
+def axis_rank(axis_name: str) -> int:
+    """This member's index along ``axis_name``."""
+    return current_mesh().rank(axis_name)
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+# ---------------------------------------------------------------------------
+# transport
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Pending:
+    """A collective in flight; ``wait()`` returns its result."""
+
+    result: torch.Tensor
+    work: Optional[object] = None
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            self.work = None
+        return self.result
+
+
+def _run(op, out: torch.Tensor, inp: Optional[torch.Tensor], axis: str,
+         async_op: bool = False) -> Pending:
+    """``op(out[, inp], group=, async_op=)`` over ``axis``'s group."""
+    group = current_mesh().groups[axis]
+    args = (out,) if inp is None else (out, inp)
+    return Pending(out, op(*args, group=group, async_op=async_op))
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+
+def psum(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Sum over every axis in ``axes`` (``lax.psum``)."""
+    active = [a for a in _axes(axes) if axis_size(a) > 1]
+    if not active:
+        return x
+    y = x.contiguous().clone()
+    for a in active:
+        _run(dist.all_reduce, y, None, a).wait()
+    return y
+
+
+def psum_async(x: torch.Tensor, axis_name: str) -> Pending:
+    """Start a sum over one axis; ``wait()`` returns it."""
+    if axis_size(axis_name) == 1:
+        return Pending(x)
+    return _run(dist.all_reduce, x.contiguous().clone(), None, axis_name,
+                async_op=True)
+
+
+def pmean(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    n = math.prod(axis_size(a) for a in _axes(axes))
+    return psum(x, axes) / n
+
+
+def reduce_scatter_tiled(x: torch.Tensor, axis_name: str,
+                         dim: int) -> torch.Tensor:
+    """Tiled reduce-scatter along ``dim``: member *i* keeps block *i* of
+    the sum (``lax.psum_scatter(..., tiled=True)``).
+    The collective splits dim 0, so ``dim`` is moved there and
+    back."""
+    n = axis_size(axis_name)
+    if n == 1:
+        return x
+    xm = x.movedim(dim, 0).contiguous()
+    if xm.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} members of {axis_name!r}")
+    out = torch.empty((xm.shape[0] // n,) + xm.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    _run(_reduce_scatter, out, xm, axis_name).wait()
+    return out.movedim(0, dim)
+
+
+def all_gather_tiled(x: torch.Tensor, axis_name: str,
+                     dim: int) -> torch.Tensor:
+    """Tiled all-gather along ``dim`` (member *i*'s block at position
+    *i*)."""
+    n = axis_size(axis_name)
+    if n == 1:
+        return x
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xm.shape[0],) + xm.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    _run(_all_gather, out, xm, axis_name).wait()
+    return out.movedim(0, dim)
+
+
+def all_gather_stacked(x: torch.Tensor, axis_name: str,
+                       async_op: bool = False):
+    """Untiled all-gather: a new leading member dim, (n,) + x.shape.  With
+    ``async_op`` returns a :class:`Pending` instead of the tensor."""
+    n = axis_size(axis_name)
+    if n == 1:
+        out = Pending(x[None])
+    else:
+        # gathered flat (gloo wants dim 0 of the output to be n copies of
+        # the input's), viewed as (n,) + x.shape
+        flat = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
+        out = _run(_all_gather, flat, x.reshape(-1), axis_name,
+                   async_op=async_op)
+        out.result = flat.view((n,) + tuple(x.shape))
+    return out if async_op else out.wait()

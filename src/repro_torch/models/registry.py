@@ -15,12 +15,21 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.planner import ShapeDtype
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ModelSettings
 from repro_torch.utils.trees import tree_from_paths, tree_paths
 
 __all__ = ["ModelSettings", "build_model", "Model", "count_params",
-           "resolve_device"]
+           "resolve_device", "numpy_dtype_name"]
+
+
+def numpy_dtype_name(dtype: torch.dtype) -> str:
+    """The numpy name of a torch dtype (``torch.bfloat16`` -> "bfloat16"):
+    what the planner copy is handed, since ``str(torch.bfloat16)`` prices at
+    4 bytes there."""
+    return str(dtype).removeprefix("torch.")
 
 
 def resolve_device(device) -> torch.device:
@@ -40,7 +49,9 @@ class Model(nn.Module):
         super().__init__()
         self.arch = arch
         self.settings = settings
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # the meta device (shapes only, no memory) has no generator
+        gen = (None if device.type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
         for path, leaf in tree_paths(T.init_params(arch, gen, settings,
                                                    device)).items():
             node = self
@@ -60,7 +71,26 @@ class Model(nn.Module):
         return tree_from_paths({n.replace(".", "/"): p
                                 for n, p in self.named_parameters()})
 
+    def param_shapes(self) -> Dict[str, Any]:
+        """The tree of :class:`ShapeDtype` records (shape, numpy dtype
+        name) — the port of ``jax.eval_shape`` over ``init``."""
+        return tree_from_paths({
+            n.replace(".", "/"): ShapeDtype(tuple(p.shape),
+                                            numpy_dtype_name(p.dtype))
+            for n, p in self.named_parameters()})
+
+    def param_specs(self, mi: sharding.MeshInfo) -> Dict[str, Any]:
+        """The tree of per-dim sharding specs (dense family)."""
+        shapes = {k: v.shape for k, v in tree_paths(self.param_shapes()).items()}
+        return tree_from_paths(sharding.param_specs(self.arch, shapes, mi))
+
     # --- steps ---------------------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token loss of ``batch`` ({'tokens', 'labels'}: (B, S)
+        integer) under ``params`` (a tree like ``params()``); differentiable
+        in ``params``."""
+        return T.train_loss(self.arch, params, batch, self.settings)
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         return T.prefill(self.arch, self.params(), tokens, self.settings)

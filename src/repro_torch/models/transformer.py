@@ -11,6 +11,8 @@ whose kinds follow the within-group offset.  MoE and encoder-decoder
 families are not ported yet and raise.
 
 Modes:
+  * train   — full-sequence causal forward, chunked CE loss (dense
+              attention models only; autograd gives the backward)
   * prefill — forward returning logits of the last position + the cache
               (KV for attention layers; token-shift and wkv states for
               RWKV; conv and ssm states for Mamba)
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -42,6 +45,10 @@ class ModelSettings:
     attn_chunk: int = 1024
     # the wkv6 and mamba_scan kernels (twin of use_pallas_ssm)
     use_kernel_ssm: bool = False
+    # training: recompute each layer in the backward (torch.utils.checkpoint
+    # per layer) — none | full; and the CE loss's sequence chunk
+    remat: str = "full"
+    loss_chunk: int = 2048
 
     def pdt(self) -> torch.dtype:
         return _dtype(self.param_dtype)
@@ -240,6 +247,81 @@ def logits_from_hidden(arch: ArchConfig, params: Params,
                        x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
     return (x @ head.to(x.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
+    """Raise for what the port cannot train yet."""
+    check_supported(arch, st)
+    if arch.attn_free or arch.is_hybrid:
+        raise NotImplementedError(
+            f"training {arch.name} ({arch.family}) is not ported yet: the "
+            f"port trains dense attention models (ROADMAP.md queue 1)")
+    if st.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={st.remat!r} is not ported yet (none | full; "
+            f"ROADMAP.md queue 1)")
+
+
+def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
+                  st: ModelSettings) -> torch.Tensor:
+    """Train-mode forward: the final-normed hidden states (B, S, d), with
+    every layer recomputed in the backward when ``st.remat == "full"`` (the
+    JAX package checkpoints each scanned group)."""
+    check_trainable(arch, st)
+    B, Sq = tokens.shape
+    x = params["embed"][tokens].to(st.cdt())
+    positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
+    g = group_size(arch)
+    # one unbind per stacked leaf: its backward stacks the layers' grads once
+    layers = [_tree_map(lambda a: a.unbind(0), params["blocks"][f"l{off}"])
+              for off in range(g)]
+    for gi in range(n_groups(arch)):
+        for off in range(g):
+            lp = _tree_map(lambda a: a[gi], layers[off])
+
+            def layer(x_, lp=lp, off=off):
+                return _apply_layer(arch, lp, x_, positions, st, off)[0]
+
+            x = (checkpoint(layer, x, use_reentrant=False)
+                 if st.remat == "full" else layer(x))
+    return L.apply_norm(arch, params["final_norm"], x)
+
+
+def _ce_chunk(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):
+    logits = (hc @ head.to(hc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc.clamp_min(0)[..., None])[..., 0]
+    valid = (yc >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def ce_loss_chunked(arch: ArchConfig, params: Params, hidden: torch.Tensor,
+                    labels: torch.Tensor, st: ModelSettings) -> torch.Tensor:
+    """Mean token cross-entropy, chunked over the sequence so the
+    (B, S, V) logits never materialize: each chunk's logits are recomputed
+    in the backward (``jax.checkpoint`` in the JAX package)."""
+    B, Sq, d = hidden.shape
+    chunk = min(st.loss_chunk, Sq)
+    if Sq % chunk:
+        raise ValueError(f"seq {Sq} is not a multiple of loss_chunk {chunk}")
+    head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, Sq, chunk):
+        t, n = checkpoint(_ce_chunk, hidden[:, c:c + chunk],
+                          labels[:, c:c + chunk], head, use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+               st: ModelSettings) -> torch.Tensor:
+    hidden = forward_train(arch, params, batch["tokens"], st)
+    return ce_loss_chunked(arch, params, hidden, batch["labels"], st)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,390 @@
+"""DFabric gradient synchronization — the paper's DDP port, plus ZeRO-1;
+the port of ``repro.optim.grad_sync``.
+
+This module executes a :class:`repro_torch.core.planner.SyncPlan` on every
+member of the DP domain, with axis names resolved against the mesh bound by
+``prims.bind``.  Each Section carries the planner-built
+:class:`~repro_torch.core.schedule.CommSchedule`, which goes straight into
+the executor (``collectives``).  The fast side of the domain is an ORDERED
+tuple of tiers (``SyncSettings.fast_axes``, fastest first); the slowest
+tier (``slow_axis`` == "pod") is where the NIC pool stripes.
+
+Two modes, as in the JAX package:
+
+  * ``paper`` — every gradient Section is all-reduced with the
+    hierarchical striped collective, then a replicated AdamW update runs.
+  * ``zero1`` — the sync stops at the shard after the slow leg, AdamW
+    updates the 1/n_fast parameter shard with moments that live sharded
+    over the fast tiers, and the final fast-tier all-gather carries updated
+    parameters.
+
+Optional int8 compression with error feedback runs on the slow tier only.
+
+State layout.  The JAX package holds the sync state as global arrays with
+``PartitionSpec``s (:func:`sync_state_specs`); here each rank holds only
+its local block of each array, the shard its spec assigns to this member.
+:func:`local_block` and :func:`assemble` map between the two (for tests
+and, later, checkpoints).  Parameters are updated in place.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import prims
+from repro_torch.core.collectives import (dfabric_all_gather,
+                                          dfabric_all_reduce,
+                                          dfabric_reduce_scatter)
+from repro_torch.core.planner import Section, SyncPlan
+from repro_torch.optim.adamw import AdamWConfig, adamw_leaf, clip_coefficient
+from repro_torch.utils.trees import tree_paths
+
+#: one entry per dim: None, an axis name, or a tuple of axis names (major
+#: first) — the JAX ``PartitionSpec`` of a state array
+Spec = Tuple[Any, ...]
+
+
+# ---------------------------------------------------------------------------
+# Section <-> tensors packing
+# ---------------------------------------------------------------------------
+
+
+def _bucket_pack(flat: Dict[str, torch.Tensor], sec: Section,
+                 n_fast: int) -> torch.Tensor:
+    parts = [flat[p].reshape(-1).float() for p in sec.leaf_paths]
+    pad = (-sum(t.numel() for t in parts)) % n_fast
+    if pad:
+        parts.append(parts[0].new_zeros(pad))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _bucket_unpack(x: torch.Tensor, sec: Section,
+                   templates: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    out = {}
+    off = 0
+    for p in sec.leaf_paths:
+        t = templates[p]
+        n = t.numel()
+        out[p] = x[off:off + n].reshape(t.shape).to(t.dtype)
+        off += n
+    return out
+
+
+def bucket_padded_numel(sec: Section, n_fast: int) -> int:
+    return sec.numel + ((-sec.numel) % n_fast)
+
+
+# ---------------------------------------------------------------------------
+# Settings and section kinds
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SyncSettings:
+    """DP-domain axis layout of one sync plan.  ``fast_axes`` is the
+    ordered fast-tier axis list (fastest first); when None, the legacy
+    single ``fast_axis`` is used.  ``n_fast`` is the PRODUCT of all
+    fast-tier sizes (ZeRO-1 shards are 1/n_fast)."""
+
+    mode: str = "zero1"  # "paper" | "zero1"
+    fast_axis: str = "data"
+    slow_axis: Optional[str] = "pod"
+    n_fast: int = 1
+    n_slow: int = 1
+    # TP-sharded sections' sq-norms psum over this axis (not ported: the
+    # port runs DP only)
+    model_axis: Optional[str] = None
+    fast_axes: Optional[Tuple[str, ...]] = None  # ordered, fastest first
+
+    @property
+    def fast(self) -> Tuple[str, ...]:
+        return self.fast_axes if self.fast_axes else (self.fast_axis,)
+
+    @property
+    def fast_entry(self):
+        """Spec entry for a dim scattered over the fast tiers: the bare
+        axis name for one tier, the ordered tuple for several
+        (fastest-major, matching dfabric_reduce_scatter ownership)."""
+        f = self.fast
+        return f if len(f) > 1 else f[0]
+
+    @property
+    def dp_total(self) -> int:
+        return self.n_fast * self.n_slow
+
+
+def flat_fast_index(ss: SyncSettings) -> int:
+    """This rank's flattened index over the fast tiers, fastest-tier-major
+    (the ownership order of ``dfabric_reduce_scatter``)."""
+    idx = 0
+    for a in ss.fast:
+        idx = idx * prims.axis_size(a) + prims.axis_rank(a)
+    return idx
+
+
+def full_depth(sec: Section, ss: SyncSettings) -> bool:
+    """The ZeRO-1 fused path owns a 1/n_fast shard, which requires the
+    section's tier plan to scatter over EVERY fast tier."""
+    return sec.sync.scatter_depth < 0 or sec.sync.scatter_depth >= len(ss.fast)
+
+
+def section_kind(sec: Section, ss: SyncSettings) -> str:
+    """'shard' (fused ZeRO-1 path), 'full_tensor' (whole-tensor all-reduce +
+    replicated update) or 'bucket' (flat pack of small leaves)."""
+    if len(sec.leaf_paths) > 1:
+        return "bucket"
+    if ss.mode == "zero1" and sec.sync.strategy == "hier_striped" \
+            and sec.scatter_dim >= 0 and full_depth(sec, ss):
+        return "shard"
+    return "full_tensor"
+
+
+def _zero1_path(sec: Section, ss: SyncSettings) -> bool:
+    bucket = len(sec.leaf_paths) > 1
+    return (ss.mode == "zero1" and sec.sync.strategy == "hier_striped"
+            and (bucket or (sec.scatter_dim >= 0 and full_depth(sec, ss))))
+
+
+def init_entry_has_ef(sec: Section) -> bool:
+    return sec.sync.codec is not None and sec.sync.error_feedback
+
+
+def _scattered_axes(sec: Section, ss: SyncSettings) -> Tuple[str, ...]:
+    """The fast-tier axes a hier_striped section actually scatters over —
+    the first ``scatter_depth`` entries of the ordered fast-axis list."""
+    if sec.sync.strategy != "hier_striped" or sec.scatter_dim < 0:
+        return ()
+    d = len(ss.fast) if sec.sync.scatter_depth < 0 else sec.sync.scatter_depth
+    return ss.fast[:d]
+
+
+# ---------------------------------------------------------------------------
+# State: global shapes, specs, local blocks
+# ---------------------------------------------------------------------------
+
+
+def _global_shape(sec: Section, flat_shapes: Dict[str, Any],
+                  ss: SyncSettings) -> Tuple[int, ...]:
+    if section_kind(sec, ss) == "bucket":
+        return (bucket_padded_numel(sec, ss.n_fast),)
+    return tuple(flat_shapes[sec.leaf_paths[0]].shape)
+
+
+def sync_state_specs(plan: SyncPlan, param_shapes: Dict[str, Any],
+                     ss: SyncSettings) -> Dict[str, Any]:
+    """The JAX package's shard_map specs of the sync state, as tuples."""
+    flat = tree_paths(param_shapes)
+    specs: Dict[str, Any] = {"step": (), "sections": {}}
+    for sec in plan.sections:
+        kind = section_kind(sec, ss)
+        nd = len(_global_shape(sec, flat, ss))
+
+        def along(dim: int, entry) -> Spec:
+            sp = [None] * nd
+            sp[dim] = entry
+            return tuple(sp)
+
+        replicated = (None,) * nd
+        zero1 = _zero1_path(sec, ss)
+        if kind == "bucket":
+            mv = along(0, ss.fast_entry) if zero1 else replicated
+        elif zero1:  # shard
+            mv = along(sec.scatter_dim, ss.fast_entry)
+        else:
+            mv = replicated
+        entry = {"m": mv, "v": mv}
+        if init_entry_has_ef(sec):
+            # EF feeds the slow leg, which operates on the shard scattered
+            # over the section's fast-tier PREFIX (its scatter_depth)
+            scattered = _scattered_axes(sec, ss)
+            if sec.sync.strategy != "hier_striped":
+                entry["ef"] = replicated
+            elif kind == "bucket":
+                entry["ef"] = along(0, ss.fast_entry)
+            elif sec.scatter_dim >= 0 and scattered:
+                entry["ef"] = along(sec.scatter_dim, scattered
+                                    if len(scattered) > 1 else scattered[0])
+            else:
+                entry["ef"] = replicated
+        specs["sections"][sec.name] = entry
+    return specs
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """The block of a global ``shape`` that one member holds under
+    ``spec``."""
+    out = []
+    for d, n in enumerate(shape):
+        parts = math.prod(sizes[a] for a in _entry_axes(spec[d]))
+        assert n % parts == 0, (shape, spec, sizes)
+        out.append(n // parts)
+    return tuple(out)
+
+
+def _block_index(entry, coords: Dict[str, int], sizes: Dict[str, int]) -> int:
+    idx = 0
+    for a in _entry_axes(entry):  # major first
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
+def local_block(x, spec: Spec, coords: Dict[str, int],
+                sizes: Dict[str, int]):
+    """The member at ``coords``'s block of a global array ``x`` (numpy or
+    torch) under ``spec``."""
+    for d, entry in enumerate(spec):
+        parts = math.prod(sizes[a] for a in _entry_axes(entry))
+        if parts > 1:
+            blk = x.shape[d] // parts
+            i = _block_index(entry, coords, sizes)
+            x = x[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
+    return x
+
+
+def assemble(blocks: Dict[Tuple, Any], spec: Spec, shape: Sequence[int],
+             sizes: Dict[str, int], concat: Callable):
+    """The global array from every member's block: ``blocks`` maps a
+    member's coords (a tuple of (axis, index) pairs) to its block;
+    ``concat(parts, dim)`` joins numpy arrays or tensors.  Replicated dims
+    take any member's block (they are equal)."""
+    by_index: Dict[Tuple[int, ...], Any] = {}
+    for key, blk in blocks.items():
+        coords = dict(key)
+        by_index.setdefault(tuple(_block_index(e, coords, sizes)
+                                  for e in spec), blk)
+
+    def build(prefix: Tuple[int, ...]):
+        d = len(prefix)
+        if d == len(spec):
+            return by_index[prefix]
+        parts = math.prod(sizes[a] for a in _entry_axes(spec[d]))
+        pieces = [build(prefix + (i,)) for i in range(parts)]
+        return pieces[0] if parts == 1 else concat(pieces, d)
+
+    return build(())
+
+
+def init_sync_state(plan: SyncPlan, param_shapes: Dict[str, Any],
+                    ss: SyncSettings, device) -> Dict[str, Any]:
+    """This member's local block of the optimizer state: moments per
+    Section (+EF when the Section uses a codec), zero."""
+    flat = tree_paths(param_shapes)
+    specs = sync_state_specs(plan, param_shapes, ss)
+    sizes = {a: prims.axis_size(a) for a in prims.current_mesh().axis_names}
+    state: Dict[str, Any] = {"step": 0, "sections": {}}
+    for sec in plan.sections:
+        shape = _global_shape(sec, flat, ss)
+        state["sections"][sec.name] = {
+            k: torch.zeros(local_shape(shape, sp, sizes), dtype=torch.float32,
+                           device=device)
+            for k, sp in specs["sections"][sec.name].items()}
+    return state
+
+
+# ---------------------------------------------------------------------------
+# The sync + update pass
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def sync_and_update(params, grads, sync_state, plan: SyncPlan,
+                    ss: SyncSettings, lr, opt_cfg: AdamWConfig
+                    ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+    """Execute the plan; returns (params, new_sync_state, metrics).  The
+    parameter tensors of ``params`` are updated in place (and returned);
+    ``lr`` is a float or a 0-d fp32 tensor."""
+    if ss.model_axis is not None and prims.axis_size(ss.model_axis) > 1:
+        raise NotImplementedError("tensor parallelism (a model axis > 1) is "
+                                  "not ported yet (ROADMAP.md queue 1)")
+    pflat = tree_paths(params)
+    gflat = tree_paths(grads)
+    step = sync_state["step"]
+    n_fast = ss.n_fast
+    inv_dp = 1.0 / ss.dp_total
+
+    # ---- pass 1: communicate ------------------------------------------------
+    synced: Dict[str, Any] = {}
+    new_sections: Dict[str, Any] = {}
+    sqnorm = None
+    for sec in plan.sections:
+        entry = dict(sync_state["sections"][sec.name])
+        ef = entry.get("ef")
+        bucket = len(sec.leaf_paths) > 1
+        if bucket:
+            g = _bucket_pack(gflat, sec, n_fast)
+            k = 0
+        else:
+            g = gflat[sec.leaf_paths[0]].float()
+            k = max(sec.scatter_dim, 0)
+        lane_off = sec.schedule.lane_offset if sec.schedule is not None else 0
+        staging = sec.schedule.staging if sec.schedule is not None else None
+        if _zero1_path(sec, ss):
+            shard, new_ef = dfabric_reduce_scatter(
+                g, ss.fast, ss.slow_axis, sec.sync, scatter_dim=k, ef=ef,
+                schedule=sec.schedule, lane_offset=lane_off, staging=staging)
+            shard = shard * inv_dp
+            synced[sec.name] = ("shard", shard, k)
+            sq = prims.psum(torch.sum(torch.square(shard)), ss.fast)
+        else:
+            full, new_ef = dfabric_all_reduce(
+                g, ss.fast, ss.slow_axis, sec.sync, scatter_dim=k, ef=ef,
+                schedule=sec.schedule, lane_offset=lane_off, staging=staging)
+            full = full * inv_dp
+            synced[sec.name] = ("full", full, k)
+            sq = torch.sum(torch.square(full))
+        sqnorm = sq if sqnorm is None else sqnorm + sq
+        if new_ef is not None:
+            entry["ef"] = new_ef
+        new_sections[sec.name] = entry
+        del g
+
+    gnorm = torch.sqrt(sqnorm)
+    clip = clip_coefficient(gnorm, opt_cfg)
+
+    # ---- pass 2: update -----------------------------------------------------
+    for sec in plan.sections:
+        kind, g, k = synced.pop(sec.name)
+        entry = new_sections[sec.name]
+        bucket = len(sec.leaf_paths) > 1
+        if kind == "shard":
+            # parameter shard owned by this fast-tier rank (flattened
+            # fastest-tier-major over all fast axes)
+            idx = flat_fast_index(ss)
+            if bucket:
+                p_full = _bucket_pack(pflat, sec, n_fast)
+                blk = p_full.shape[0] // n_fast
+                p_sh = p_full.narrow(0, idx * blk, blk)
+            else:
+                p = pflat[sec.leaf_paths[0]]
+                blk = p.shape[k] // n_fast
+                p_sh = p.narrow(k, idx * blk, blk)
+            new_p_sh, entry["m"], entry["v"] = adamw_leaf(
+                p_sh, g, entry["m"], entry["v"], step, lr, opt_cfg, clip)
+            # the all-gather carries UPDATED PARAMETERS (fused ZeRO-1);
+            # gathers run up the fast tiers in reverse scatter order
+            new = dfabric_all_gather(new_p_sh, ss.fast,
+                                     gather_dim=(0 if bucket else k))
+        else:
+            p_full = (_bucket_pack(pflat, sec, n_fast) if bucket
+                      else pflat[sec.leaf_paths[0]])
+            new, entry["m"], entry["v"] = adamw_leaf(
+                p_full, g, entry["m"], entry["v"], step, lr, opt_cfg, clip)
+        if bucket:
+            for path, t in _bucket_unpack(new, sec, pflat).items():
+                pflat[path].copy_(t)
+        else:
+            pflat[sec.leaf_paths[0]].copy_(new)
+        del g, new
+
+    new_state = {"step": step + 1, "sections": new_sections}
+    return params, new_state, {"grad_norm": gnorm}

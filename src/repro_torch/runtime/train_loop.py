@@ -1,0 +1,365 @@
+"""Training runtime — the port of ``repro.runtime.train_loop``'s DFabric
+explicit-DP step, its ``Trainer`` (train loop, preemption handler, metrics)
+and the straggler watchdog.
+
+One process is one member of the DP mesh (pod [, host], data; the model
+axis must have size 1).  Each member runs the model's forward and backward
+on its rows of the global batch, then the gradient sync and the (ZeRO-1)
+AdamW update through the paper's hierarchical striped collectives
+(``optim.grad_sync``), with axis names resolved against the bound
+:class:`~repro_torch.core.prims.Mesh`.
+
+Not ported yet (they raise, naming ROADMAP.md): the GSPMD step
+(``mode="gspmd"``), tensor parallelism (a model axis > 1) and checkpoints
+(``ckpt_every`` with a ``ckpt_dir``; the checkpoint manager is the next
+slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import prims
+from repro_torch.core.planner import Planner, SyncPlan
+from repro_torch.core.topology import topology_from_mesh_sizes
+from repro_torch.models.registry import Model
+from repro_torch.models.sharding import MeshInfo
+from repro_torch.obs.metrics import MetricsLogger
+from repro_torch.optim import grad_sync
+from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+from repro_torch.optim.grad_sync import SyncSettings, sync_and_update
+from repro_torch.utils.trees import tree_from_paths, tree_paths
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Mesh helpers
+# ---------------------------------------------------------------------------
+
+
+#: DP mesh axes, slowest tier first (the order batch rows are laid out in);
+#: "host" is the optional mid tier of a 3-tier fabric (rack-level CXL).
+DP_MESH_AXES = ("pod", "host", "data")
+
+
+def dp_axes_of(sizes) -> Tuple[str, ...]:
+    return tuple(a for a in DP_MESH_AXES if a in sizes)
+
+
+def fast_axes_of(sizes) -> Tuple[str, ...]:
+    """Fast-tier DP axes ordered FASTEST first (the reduce-scatter order);
+    the slowest tier ("pod") is excluded."""
+    return tuple(a for a in ("data", "host") if a in sizes)
+
+
+def mesh_info(sizes: Dict[str, int], *, embed_tp: bool = True) -> MeshInfo:
+    """The rule inputs of a mesh (``embed_tp`` as the JAX package's modern
+    stack sets it: vocab-sharded tables)."""
+    return MeshInfo(sizes, tp_axis="model" if "model" in sizes else None,
+                    dp_axes=dp_axes_of(sizes), embed_tp=embed_tp)
+
+
+def dp_rank(mesh: prims.Mesh) -> int:
+    """This member's flat index over the DP axes, slowest-axis-major (the
+    row order of the global batch)."""
+    r = 0
+    for a in dp_axes_of(mesh.sizes):
+        r = r * mesh.size(a) + mesh.rank(a)
+    return r
+
+
+def local_rows(batch: Dict[str, np.ndarray], mesh: prims.Mesh
+               ) -> Dict[str, np.ndarray]:
+    """This member's rows of a global batch."""
+    n_dp = int(np.prod([mesh.size(a) for a in dp_axes_of(mesh.sizes)]))
+    r = dp_rank(mesh)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n_dp:
+            raise ValueError(f"batch {v.shape[0]} does not split over the "
+                             f"{n_dp} DP members")
+        lb = v.shape[0] // n_dp
+        out[k] = v[r * lb:(r + 1) * lb]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DFabric explicit-DP step
+# ---------------------------------------------------------------------------
+
+
+def make_sync_plan(model: Model, sizes: Dict[str, int], topo, *,
+                   codec: Optional[str] = None, strategy: str = "auto",
+                   bucket_bytes: int = 4 << 20,
+                   embed_tp: bool = True,
+                   pipeline: bool = True,
+                   mid_codec: Optional[str] = None
+                   ) -> Tuple[SyncPlan, SyncSettings]:
+    """The shared planner's plan for ``model`` on a mesh of ``sizes``
+    ({axis: size}), and the sync settings — the reference's, input for
+    input."""
+    if mid_codec is not None:
+        _not_ported("the mid-tier codec (mid_codec)")
+    mi = mesh_info(sizes, embed_tp=embed_tp)
+    fast_axes = fast_axes_of(sizes) or ("data",)
+    fast_sizes = tuple(sizes.get(a, 1) for a in fast_axes)
+    n_fast = int(np.prod(fast_sizes))
+    n_slow = sizes.get("pod", 1)
+    ss = SyncSettings(mode="zero1", fast_axis=fast_axes[0],
+                      slow_axis="pod" if "pod" in sizes else None,
+                      n_fast=n_fast, n_slow=n_slow,
+                      model_axis="model" if "model" in sizes else None,
+                      fast_axes=fast_axes)
+    shapes = tree_paths(model.param_shapes())
+    specs = tree_paths(model.param_specs(mi))
+    # the planner keeps its scatter off dims the TP rules shard, even when
+    # the model axis has size 1
+    avoid = {p: frozenset(i for i, s in enumerate(sp) if s is not None)
+             for p, sp in specs.items()}
+    ntp = sizes.get("model", 1)
+
+    def local_shape(path):
+        sh = list(shapes[path].shape)
+        for d, ax in enumerate(specs[path]):
+            if ax is not None and d < len(sh):
+                sh[d] //= ntp
+        return tuple(sh)
+
+    local = {p: local_shape(p) for p in shapes}
+    planner = Planner(topo, fast_axis_sizes=fast_sizes, codec=codec,
+                      strategy=strategy, pipeline=pipeline)
+    plan = planner.plan(shapes, bucket_bytes=bucket_bytes, avoid_dims=avoid,
+                        local_shapes=local)
+    return plan, ss
+
+
+def make_dfabric_train_step(model: Model, mesh: prims.Mesh, plan: SyncPlan,
+                            ss: SyncSettings, opt_cfg: AdamWConfig,
+                            lr_fn: Callable, *, microbatches: int = 1,
+                            zero1: bool = True):
+    """Returns (step_fn(params, sync_state, batch, step_idx) -> (params,
+    sync_state, metrics), init_sync_state_fn).
+
+    ``batch`` holds this member's rows (tensors on the model's device);
+    ``params`` is the model's parameter tree, updated in place.  The loss
+    is averaged over the DP members (``pmean``) and the gradients over the
+    microbatches, as in the JAX step."""
+    if mesh.sizes.get("model", 1) > 1:
+        _not_ported("tensor parallelism (a model axis > 1)")
+    if not zero1:
+        ss = dataclasses.replace(ss, mode="paper")
+    dp_axes = dp_axes_of(mesh.sizes)
+    pshapes = model.param_shapes()
+
+    def grads_of(params, batch):
+        flat = tree_paths(params)
+        leaves = list(flat.values())
+        loss = model.loss(params, batch)
+        gs = torch.autograd.grad(loss, leaves)
+        return loss.detach(), dict(zip(flat, gs))
+
+    def step_fn(params, sync_state, batch, step_idx):
+        with prims.bind(mesh):
+            if microbatches > 1:
+                loss, grads = None, None
+                for i in range(microbatches):
+                    mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                    l, g = grads_of(params, mb)
+                    if grads is None:
+                        loss, grads = l, g
+                    else:
+                        loss = loss + l
+                        grads = {k: grads[k] + g[k] for k in grads}
+                loss = loss / microbatches
+                grads = {k: g / microbatches for k, g in grads.items()}
+            else:
+                loss, grads = grads_of(params, batch)
+            loss = prims.pmean(loss, dp_axes)
+            lr = lr_fn(step_idx).to(loss.device)
+            params, new_state, metrics = sync_and_update(
+                params, tree_from_paths(grads), sync_state, plan, ss, lr,
+                opt_cfg)
+        metrics = dict(metrics)
+        metrics["loss"] = loss
+        metrics["lr"] = lr
+        return params, new_state, metrics
+
+    def init_state():
+        with prims.bind(mesh):
+            return grad_sync.init_sync_state(plan, pshapes, ss, model.device)
+
+    return step_fn, init_state
+
+
+# ---------------------------------------------------------------------------
+# Straggler watchdog (EWMA z-score on step times)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StragglerWatchdog:
+    """Detects slow steps; on a real fleet the mitigation hook triggers
+    hot-spare swap / data rebalancing — here it records the event."""
+
+    alpha: float = 0.2
+    z_threshold: float = 3.0
+    warmup: int = 5
+    mean: float = 0.0
+    var: float = 0.0
+    n: int = 0
+    events: List[Dict[str, Any]] = field(default_factory=list)
+    mitigation_hook: Optional[Callable[[Dict[str, Any]], None]] = None
+
+    def update(self, step: int, dt: float) -> Optional[Dict[str, Any]]:
+        self.n += 1
+        if self.n <= self.warmup:
+            # prime the EWMA
+            self.mean = dt if self.n == 1 else (1 - self.alpha) * self.mean + self.alpha * dt
+            self.var = max(self.var, (dt - self.mean) ** 2)
+            return None
+        std = max(self.var ** 0.5, 1e-6, 0.05 * self.mean)
+        z = (dt - self.mean) / std
+        event = None
+        if z > self.z_threshold:
+            event = {"step": step, "dt": dt, "z": z, "mean": self.mean,
+                     "action": "flag-straggler (hot-spare swap on real fleet)"}
+            self.events.append(event)
+            if self.mitigation_hook:
+                self.mitigation_hook(event)
+        else:
+            self.mean = (1 - self.alpha) * self.mean + self.alpha * dt
+            self.var = (1 - self.alpha) * self.var + self.alpha * (dt - self.mean) ** 2
+        return event
+
+
+class SimulatedFailure(RuntimeError):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TrainerConfig:
+    steps: int = 100
+    lr: float = 3e-4
+    warmup: int = 10
+    ckpt_every: int = 0  # 0 = no checkpointing
+    ckpt_dir: Optional[str] = None
+    ckpt_keep: int = 3
+    log_every: int = 10
+    microbatches: int = 1
+    mode: str = "dfabric"  # dfabric (gspmd is not ported)
+    zero1: bool = True
+    codec: Optional[str] = None
+    pipeline: bool = True  # overlap slow-leg chunks with fast all-gathers
+    fail_at_step: Optional[int] = None  # failure injection (tests)
+    seed: int = 0
+    metrics_path: Optional[str] = None  # JSONL sink (obs.metrics)
+
+
+class Trainer:
+    """End-to-end training driver (one per mesh member) with preemption
+    handling.  ``mesh`` is this process's :class:`prims.Mesh`; the model's
+    weights are the initial parameters (every member must build them from
+    the same seed, or load the same weights)."""
+
+    def __init__(self, model: Model, mesh: prims.Mesh, shape: ShapeConfig,
+                 cfg: TrainerConfig, topo=None,  # TwoTierTopology | FabricSpec
+                 data_pipeline=None):
+        from repro_torch.data.pipeline import DataConfig, TokenPipeline
+
+        if cfg.mode != "dfabric":
+            _not_ported(f"mode={cfg.mode!r} (the GSPMD step)")
+        if mesh.sizes.get("model", 1) > 1:
+            _not_ported("tensor parallelism (a model axis > 1)")
+        if cfg.ckpt_every and cfg.ckpt_dir:
+            _not_ported("checkpointing (the checkpoint manager)")
+        self.model, self.mesh, self.shape, self.cfg = model, mesh, shape, cfg
+        self.topo = topo if topo is not None else topology_from_mesh_sizes(mesh.sizes)
+        self.pipeline = data_pipeline or TokenPipeline(
+            model.arch, shape, DataConfig(seed=cfg.seed))
+        opt_cfg = AdamWConfig()
+        lr_fn = cosine_schedule(cfg.lr, cfg.warmup, cfg.steps)
+        self.plan, self.ss = make_sync_plan(model, mesh.sizes, self.topo,
+                                            codec=cfg.codec,
+                                            pipeline=cfg.pipeline)
+        self.step_fn, self._init_state = make_dfabric_train_step(
+            model, mesh, self.plan, self.ss, opt_cfg, lr_fn,
+            microbatches=cfg.microbatches, zero1=cfg.zero1)
+        self.watchdog = StragglerWatchdog()
+        self._preempted = False
+        self.metrics_log: List[Dict[str, float]] = []
+        # one member prints; every member keeps its records (and its JSONL
+        # sink when cfg.metrics_path is set)
+        self.metrics = MetricsLogger(path=cfg.metrics_path,
+                                     echo=mesh.flat_rank == 0, run="train",
+                                     mode=cfg.mode)
+
+    # ---- preemption ------------------------------------------------------------
+    def install_preemption_handler(self, signals=(signal.SIGTERM,)):
+        def handler(signum, frame):
+            self._preempted = True
+        for s in signals:
+            signal.signal(s, handler)
+
+    # ---- init ----------------------------------------------------------------------
+    def init_state(self):
+        """(the model's parameter tree, differentiable, zero sync state,
+        step 0)."""
+        self.model.requires_grad_(True)
+        return self.model.params(), self._init_state(), 0
+
+    # ---- the loop -------------------------------------------------------------------
+    def train(self, params=None, opt=None, start_step: int = 0,
+              on_step: Optional[Callable] = None) -> Dict[str, Any]:
+        """Train to ``cfg.steps``.  ``on_step(step, params, opt, metrics)``,
+        when given, runs after each step."""
+        if params is None:
+            params, opt, start_step = self.init_state()
+        dev = self.model.device
+        step = start_step
+        try:
+            while step < self.cfg.steps:
+                t0 = time.perf_counter()
+                host_batch = local_rows(self.pipeline.batch_at(step), self.mesh)
+                batch = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                         for k, v in host_batch.items()}
+                params, opt, metrics = self.step_fn(params, opt, batch, step)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                self.watchdog.update(step, dt)
+                metrics.update(step=step, dt=dt)
+                self.metrics_log.append(metrics)
+                self.metrics.log("train_step", **metrics)
+                self.metrics.inc("steps")
+                self.metrics.gauge("loss", metrics["loss"])
+                if self.cfg.log_every and step % self.cfg.log_every == 0:
+                    self.metrics.info(
+                        f"step {step:5d} loss {metrics['loss']:.4f} "
+                        f"gnorm {metrics['grad_norm']:.3f} dt {dt*1e3:.1f}ms")
+                if on_step is not None:
+                    on_step(step, params, opt, metrics)
+                step += 1
+                if self.cfg.fail_at_step is not None and step >= self.cfg.fail_at_step:
+                    raise SimulatedFailure(f"injected failure at step {step}")
+                if self._preempted:
+                    break
+        finally:
+            # emit the final 'summary' record and release the JSONL handle
+            self.metrics.close()
+        return {"params": params, "opt": opt, "step": step,
+                "metrics": self.metrics_log,
+                "straggler_events": self.watchdog.events}

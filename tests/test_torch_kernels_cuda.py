@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (flash attention, WKV6, the Mamba selective scan)
-held against their plain versions on the card.
+"""The port's CUDA kernels (flash attention, WKV6, the Mamba selective scan,
+the int8 quantize + error feedback) held against their plain versions on
+the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 The file imports nothing of JAX, so it runs where only the port is
@@ -18,6 +19,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as ms_kernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
+from repro_torch.kernels.quantize import kernel as q_kernel  # noqa: E402
+from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
+from repro_torch.kernels.quantize.ref import quantize_ef_ref  # noqa: E402
 from repro_torch.kernels.wkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
@@ -248,3 +252,58 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda_device):
                                  Bc.transpose(0, 1), Cc.transpose(0, 1), D, h0)
     with pytest.raises(ValueError, match="h0 must be"):
         ms_kernel.mamba_scan_fwd(u, dt, A, Bc, Cc, D, h0.transpose(1, 2))
+
+
+# the sweep of tests/test_kernels.py::test_quantize_ef, then the section
+# sizes of the training path (qwen2-0.5b on (pod, data, model) = (2, 1, 1):
+# embed, mlp, wq/wo, wk/wv and the padded bucket of small leaves)
+Q_CASES = [(8192, 512), (4096, 2048), (2048, 128), (136_134_656, 2048),
+           (104_595_456, 2048), (19_267_584, 2048), (2_752_512, 2048),
+           (71_680, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,block", Q_CASES)
+def test_quantize_kernel_bit_equal_on_card(cuda_device, n, block, dtype):
+    """q, scales and err bit for bit: the kernel divides (never multiplies
+    by a reciprocal), rounds half to even and rounds q * scale before the
+    subtraction, as the plain version does."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + block)
+    x = (torch.randn(n, generator=g, device=cuda_device) * 1e-3).to(getattr(torch, dtype))
+    before = q_kernel.LAUNCHES
+    got = q_ops.quantize_ef(x, block=block)
+    torch.cuda.synchronize()
+    assert q_kernel.LAUNCHES == before + 1
+    for a, b in zip(got, quantize_ef_ref(x, block=block)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_ties_zeros_and_unaligned(cuda_device):
+    block = 512
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    c = torch.exp2(torch.randint(-8, 4, (16, 1), generator=g, device=cuda_device).float())
+    k = torch.randint(-127, 127, (16, block), generator=g, device=cuda_device).float() + 0.5
+    k[:, 0] = 127.0  # scale = c exactly, so x / scale are exact halves
+    x = (k * c).reshape(-1)
+    x[:block] = 0.0
+    for xin in (x, torch.cat([x.new_zeros(1), x])[1:]):  # aligned, offset by 4 B
+        for a, b in zip(q_kernel.quantize_ef_fwd(xin, block=block),
+                        quantize_ef_ref(xin, block=block)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(4096, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple"):
+        q_kernel.quantize_ef_fwd(x[:4000], block=512)
+    with pytest.raises(ValueError, match="CUDA"):
+        q_kernel.quantize_ef_fwd(x.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        q_kernel.quantize_ef_fwd(x.half())
+    with pytest.raises(ValueError, match="block"):
+        q_kernel.quantize_ef_fwd(x, block=1024)
+    with pytest.raises(ValueError, match="1-D"):
+        q_kernel.quantize_ef_fwd(x.reshape(2, 2048))

@@ -1,0 +1,78 @@
+"""The port's training CLI (``python -m repro_torch.launch.train``): the
+3-tier run on 8 gloo CPU ranks that it spawns itself, its mesh rules (the
+JAX CLI's), and what it refuses."""
+import json
+import os
+import subprocess
+import sys
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+
+from repro_torch.configs import get_smoke_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import ModelSettings, build_model  # noqa: E402
+from repro_torch.runtime.train_loop import Trainer, TrainerConfig  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_cli_trains_3tier_on_cpu(tmp_path):
+    out = tmp_path / "metrics.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-0.5b", "--smoke", "--mesh", "2,2,2,1", "--steps", "6",
+         "--batch", "8", "--seq", "32", "--device", "cpu", "--backend",
+         "gloo", "--metrics-out", str(out)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "finished at step 6" in proc.stdout
+    losses = [m["loss"] for m in json.loads(out.read_text())]
+    assert len(losses) == 6 and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("spec", ["2,2,2,1", "2,4,1", "2,1,1", "4,2", "8", None])
+def test_mesh_rules_match_jax_cli(spec):
+    """``repro.launch.train``'s rules: 4 dims (pod, host, data, model), 3
+    (pod, data, model), fewer the trailing ones; none (1, cards, 1)."""
+    sizes = launch_mesh.parse_mesh(spec, default_data=8)
+    if spec is None:
+        assert sizes == {"pod": 1, "data": 8, "model": 1}
+        return
+    dims = tuple(int(x) for x in spec.split(","))
+    want = {4: ("pod", "host", "data", "model"),
+            3: ("pod", "data", "model")}.get(len(dims),
+                                             ("pod", "data", "model")[-len(dims):])
+    assert sizes == dict(zip(want, dims))
+
+
+def test_cli_refusals():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", "qwen2-0.5b", "--smoke"])
+    with pytest.raises(ValueError, match="nccl"):
+        train_cli.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+                        "--backend", "nccl"])
+    with pytest.raises(ValueError, match="cards"):
+        launch_mesh.rank_device("cuda", "nccl", 0, 2)
+
+
+@pytest.mark.parametrize("cfg,sizes", [
+    (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}),
+    (dict(), {"pod": 1, "data": 2, "model": 2}),
+    (dict(ckpt_every=2, ckpt_dir="/nonexistent"), {"pod": 2, "data": 1, "model": 1}),
+])
+def test_trainer_refuses_what_is_not_ported(cfg, sizes):
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32")
+    model = build_model(get_smoke_arch("qwen2-0.5b"), st, device="meta")
+    mesh = types.SimpleNamespace(sizes=sizes)  # refused before any collective
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(model, mesh, ShapeConfig("t", 32, 8, "train"), TrainerConfig(**cfg))

@@ -2,18 +2,20 @@
 
 The same seeded numpy arrays go through the JAX package (the reference)
 and its port.  Import this after ``pytest.importorskip("torch")``.
+
+The JAX package is imported inside the helpers that use it, so that the
+port's rank processes (``spawn_ranks``), which import this module to find
+their entry point, load torch only.
 """
+import multiprocessing
+import os
+import tempfile
+import traceback
+
 import ml_dtypes
 import numpy as np
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from repro.configs import get_smoke_arch as jax_smoke_arch
-from repro.models import ModelSettings as JaxSettings
-from repro.models import build_model as jax_build_model
-from repro.utils.trees import tree_from_paths, tree_paths
 from repro_torch.configs import one_card_arch
 from repro_torch.convert import load_jax_params
 from repro_torch.models import ModelSettings, build_model
@@ -50,6 +52,7 @@ def redraw(flat, seed: int):
 def smoke_archs(arch: str = ARCH, n_layers=None):
     """(the JAX smoke config, the port's) with the port's one-card cut
     (no experts for jamba) and, if given, ``n_layers``."""
+    from repro.configs import get_smoke_arch as jax_smoke_arch
     port, _ = one_card_arch(arch, smoke=True)
     jarch = jax_smoke_arch(arch)
     if port.moe is None:
@@ -60,16 +63,24 @@ def smoke_archs(arch: str = ARCH, n_layers=None):
 
 
 def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
-              arch: str = ARCH, use_pallas_ssm: bool = False, n_layers=None):
-    st = JaxSettings(param_dtype=dtype, compute_dtype=dtype, remat="none",
+              arch: str = ARCH, use_pallas_ssm: bool = False, n_layers=None,
+              **settings):
+    """The JAX smoke model; ``settings`` override its ``ModelSettings``
+    (remat "none" unless given)."""
+    from repro.models import ModelSettings as JaxSettings
+    from repro.models import build_model as jax_build_model
+    settings.setdefault("remat", "none")
+    st = JaxSettings(param_dtype=dtype, compute_dtype=dtype,
                      attn_impl=attn_impl, max_seq=max_seq,
-                     use_pallas_ssm=use_pallas_ssm)
+                     use_pallas_ssm=use_pallas_ssm, **settings)
     return jax_build_model(smoke_archs(arch, n_layers)[0], st)
 
 
 def smoke_weights(seed: int = 0, dtype="float32", arch: str = ARCH,
                   n_layers=None):
     """The smoke model's flat JAX tree, every leaf redrawn from ``seed``."""
+    import jax
+    from repro.utils.trees import tree_paths
     params = jax_model(dtype=dtype, arch=arch,
                        n_layers=n_layers).init(jax.random.key(0))
     return redraw({k: np.asarray(v) for k, v in tree_paths(params).items()},
@@ -77,13 +88,17 @@ def smoke_weights(seed: int = 0, dtype="float32", arch: str = ARCH,
 
 
 def jax_params(flat):
+    import jax.numpy as jnp
+    from repro.utils.trees import tree_from_paths
     return tree_from_paths({k: jnp.asarray(v) for k, v in flat.items()})
 
 
 def port_model(flat, attn_impl: str = "masked", dtype="float32",
-               arch: str = ARCH, use_kernel_ssm: bool = False, n_layers=None):
+               arch: str = ARCH, use_kernel_ssm: bool = False, n_layers=None,
+               **settings):
     st = ModelSettings(param_dtype=dtype, compute_dtype=dtype,
-                       attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm)
+                       attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm,
+                       **settings)
     model = build_model(smoke_archs(arch, n_layers)[1], st, device="cpu")
     load_jax_params(model, flat)
     return model
@@ -94,3 +109,312 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# several processes: the JAX package on fake devices, the port on gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def run_jax_devices(script: str, inputs: dict, n_devices: int = 8,
+                    timeout: int = 600) -> dict:
+    """Run ``script`` (Python source) in a subprocess that sees
+    ``n_devices`` fake CPU devices, as ``conftest.run_multi_device`` does.
+    The script reads ``np.load(os.environ["JAX_IN"], allow_pickle=True)``
+    and writes its results with ``np.savez(os.environ["JAX_OUT"], ...)``;
+    returns them as a dict."""
+    from conftest import run_multi_device
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "script.py")
+        with open(path, "w") as f:
+            f.write(script)
+        np.savez(os.path.join(tmp, "in.npz"), **inputs)
+        run_multi_device(path, n_devices=n_devices, timeout=timeout,
+                         extra_env={"JAX_IN": os.path.join(tmp, "in.npz"),
+                                    "JAX_OUT": os.path.join(tmp, "out.npz")})
+        with np.load(os.path.join(tmp, "out.npz"), allow_pickle=True) as z:
+            return {k: z[k] for k in z.files}
+
+
+def _rank_main(rank, world, store, fn, payload_path, queue):
+    import pickle
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        with open(payload_path, "rb") as f:
+            payload = pickle.load(f)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        out = fn(rank, payload)
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:  # reported to the parent, which raises
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def spawn_ranks(world: int, fn, payload, timeout: float = 300) -> list:
+    """``fn(rank, payload)`` in each of ``world`` spawned processes joined
+    in one gloo group through a tmp-file store (no fixed port, so parallel
+    test workers do not collide); returns the results in rank order.
+    ``fn`` must be a module-level function of a module that imports no
+    jax (this one)."""
+    import pickle
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        # through a file: a start() whose pickled arguments overflow the
+        # pipe blocks until that child has imported everything, so the
+        # ranks would start one after another
+        with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
+            pickle.dump(payload, f)
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, os.path.join(tmp, "store"), fn,
+                                   os.path.join(tmp, "payload.pkl"), queue))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        results, errors = [None] * world, []
+        try:
+            for _ in range(world):
+                rank, out, err = queue.get(timeout=timeout)
+                results[rank] = out
+                if err:
+                    errors.append(f"rank {rank}:\n{err}")
+                    break
+        finally:
+            for p in procs:
+                p.join(timeout=5 if errors else 30)
+                if p.is_alive():
+                    p.kill()
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# rank programs (run by spawn_ranks; torch only)
+# ---------------------------------------------------------------------------
+
+#: the collectives grid's meshes: (shape, axes slowest first, fast axes
+#: fastest first, slow axis) — tests/batteries/schedule_battery.py's
+COLLECTIVE_MESHES = {
+    "1tier": ((8,), ("data",), ("data",), None),
+    "2tier": ((2, 4), ("pod", "data"), ("data",), "pod"),
+    "3tier": ((2, 2, 2), ("pod", "host", "data"), ("data", "host"), "pod"),
+}
+
+
+def collective_cfg(sched_mod, case):
+    """The case's ``SyncConfig``, built by either package's ``schedule``."""
+    mesh, chunks, codec, pipeline, op, shape, dim = case
+    return sched_mod.SyncConfig("hier_striped", chunks=chunks, codec=codec,
+                                codec_block=128, pipeline=pipeline)
+
+
+def collective_schedule(sched_mod, case, sizes):
+    """The case's schedule, built by either package's ``schedule``."""
+    mesh, chunks, codec, pipeline, op, shape, dim = case
+    _, _, fast, slow = COLLECTIVE_MESHES[mesh]
+    return sched_mod.schedule_from_axes(fast, slow, collective_cfg(sched_mod, case),
+                                        shape, dim, sizes)
+
+
+def rank_collectives(rank, payload):
+    """Each case of ``payload["cases"]`` on this rank: its input row
+    (``payload["x"][shape][rank]``) through ``lower_all_reduce``,
+    ``lower_reduce_scatter`` + ``dfabric_all_gather``, or ``pod_psum`` (the
+    bare slow leg, its EF the size of the input); returns {case index:
+    (output, new EF or None, gathered or None, leg log == schedule legs)}."""
+    from repro_torch.core import prims, schedule
+    from repro_torch.core.collectives import (dfabric_all_gather,
+                                              lower_all_reduce,
+                                              lower_reduce_scatter, pod_psum)
+    meshes = {name: prims.Mesh(dict(zip(axes, shape)))
+              for name, (shape, axes, _, _) in COLLECTIVE_MESHES.items()}
+    out = {}
+    for i, case in enumerate(payload["cases"]):
+        mesh_name, chunks, codec, pipeline, op, shape, dim = case
+        mesh = meshes[mesh_name]
+        x = torch.from_numpy(payload["x"][str(shape)][rank])
+        ef_key = mesh_name + ("/full" if op == "pod_psum" else "")
+        ef = torch.from_numpy(payload["ef"][str(shape)][ef_key][rank]) \
+            if codec else None
+        with prims.bind(mesh):
+            sched = collective_schedule(schedule, case, mesh.sizes)
+            log = []
+            if op == "pod_psum":
+                y, nef = pod_psum(x, COLLECTIVE_MESHES[mesh_name][3],
+                                  collective_cfg(schedule, case), ef=ef)
+                out[i] = (y.numpy(), None if nef is None else nef.numpy(),
+                          None, True)
+                continue
+            if op == "all_reduce":
+                y, nef = lower_all_reduce(sched, x, ef=ef, leg_log=log)
+                gathered = None
+            else:
+                y, nef = lower_reduce_scatter(sched, x, ef=ef, leg_log=log)
+                gathered = dfabric_all_gather(
+                    y, COLLECTIVE_MESHES[mesh_name][2], gather_dim=dim).numpy()
+            legs = list(sched.legs) if op == "all_reduce" else \
+                list(sched.down_legs) + list(sched.slow_legs)
+        out[i] = (y.numpy(), None if nef is None else nef.numpy(), gathered,
+                  log == legs)
+    return out
+
+
+#: the Trainer comparison's settings, shared by both packages' runs
+TRAIN = dict(steps=4, lr=8e-3, warmup=2, log_every=0, seed=3)
+TRAIN_SHAPE = dict(global_batch=8, seq_len=32)
+TRAIN_LOSS_CHUNK = 16
+
+
+def rank_trainer(rank, payload):
+    """The port's ``Trainer`` on this rank, from ``payload["weights"]`` (a
+    flat JAX tree of numpy arrays) on the mesh ``payload["sizes"]`` with
+    ``payload["cfg"]`` (TrainerConfig fields beside ``TRAIN``).  Returns
+    (losses, final params flat as numpy, {section: {m, v[, ef]: this
+    rank's local block}}, this rank's mesh coords as a sorted tuple)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    from repro_torch.utils.trees import tree_paths
+    mesh = prims.Mesh(payload["sizes"])
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
+    model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+    load_jax_params(model, payload["weights"])
+    shape = ShapeConfig("t", TRAIN_SHAPE["seq_len"], TRAIN_SHAPE["global_batch"],
+                        "train")
+    trainer = Trainer(model, mesh, shape,
+                      TrainerConfig(**TRAIN, **payload["cfg"]))
+    out = trainer.train()
+    params = {k: v.detach().numpy().copy()
+              for k, v in tree_paths(out["params"]).items()}
+    state = {name: {k: t.numpy().copy() for k, t in e.items()}
+             for name, e in out["opt"]["sections"].items()}
+    return ([m["loss"] for m in out["metrics"]], params, state,
+            tuple(sorted(mesh.coords.items())))
+
+
+TRAINER_JAX_SCRIPT = r'''
+import os, json
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_arch
+from repro.models import ModelSettings, build_model
+from repro.runtime.train_loop import Trainer, TrainerConfig
+from repro.utils.jax_compat import make_mesh
+from repro.utils.trees import tree_from_paths, tree_paths
+
+z = np.load(os.environ["JAX_IN"], allow_pickle=True)
+runs, weights = json.loads(str(z["runs"])), z["weights"].item()
+train, shp = json.loads(str(z["train"])), json.loads(str(z["shape"]))
+
+class Shape:
+    global_batch, seq_len = shp["global_batch"], shp["seq_len"]
+    name, kind = "t", "train"
+
+st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                   remat="none", loss_chunk=int(z["loss_chunk"]), max_seq=64)
+model = build_model(get_smoke_arch(str(z["arch"])), st)
+res = {}
+for name, (sizes, cfg) in runs.items():
+    mesh = make_mesh(tuple(sizes.values()), tuple(sizes))
+    tr = Trainer(model, mesh, Shape(), TrainerConfig(**train, **cfg))
+    params = jax.device_put(tree_from_paths({k: jnp.asarray(v) for k, v in weights.items()}),
+                            NamedSharding(mesh, P()))
+    opt = jax.device_put(tr._init_state(), tr.state_sharding)
+    out = tr.train(params, opt, 0)
+    res[f"{name}/loss"] = np.array([m["loss"] for m in out["metrics"]])
+    for k, v in tree_paths(out["params"]).items():
+        res[f"{name}/p/{k}"] = np.asarray(v)
+    for sec, entry in out["opt"]["sections"].items():
+        for k, v in entry.items():
+            res[f"{name}/s/{sec}/{k}"] = np.asarray(v)
+np.savez(os.environ["JAX_OUT"], **res)
+'''
+
+
+def jax_trainer_runs(runs, weights):
+    """The JAX ``Trainer`` on 8 fake devices for each of ``runs`` ({name:
+    (mesh sizes, TrainerConfig fields)}) from the flat ``weights``."""
+    import json
+    return run_jax_devices(TRAINER_JAX_SCRIPT, {
+        "runs": np.array(json.dumps(runs)), "weights": np.array(weights, dtype=object),
+        "train": np.array(json.dumps(TRAIN)), "shape": np.array(json.dumps(TRAIN_SHAPE)),
+        "loss_chunk": np.array(TRAIN_LOSS_CHUNK), "arch": np.array(ARCH)})
+
+
+def check_trainer_run(name, sizes, cfg, jax_out, per_rank):
+    """The port's run (``rank_trainer``'s result on each rank) against the
+    JAX one, to the tolerances set out in ``test_torch_trainer.py``: losses,
+    final parameters, and the sync state (each rank's local blocks put
+    together with ``grad_sync.assemble`` against the JAX global arrays)."""
+    losses, params, _, _ = per_rank[0]
+    jloss = jax_out[f"{name}/loss"]
+    int8 = cfg.get("codec") == "int8"
+    assert len(losses) == TRAIN["steps"] and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, jloss, rtol=1e-3 if int8 else 1e-4)
+    for rank, (_, p, _, _) in enumerate(per_rank[1:], 1):  # the DP invariant
+        for k in params:
+            np.testing.assert_array_equal(p[k], params[k], err_msg=f"rank {rank} {k}")
+    far = total = 0
+    bound = 2 * TRAIN["lr"] * TRAIN["steps"]
+    for k, v in params.items():
+        d = np.abs(v - jax_out[f"{name}/p/{k}"])
+        if k.endswith("attn/bk"):  # zero gradient but for rounding
+            assert d.max() <= bound, (k, d.max())
+        elif int8:
+            assert d.max() <= bound, (k, d.max())
+            far += int((d > 2e-5).sum())
+            total += d.size
+        else:
+            np.testing.assert_allclose(v, jax_out[f"{name}/p/{k}"], atol=2e-5,
+                                       rtol=0, err_msg=k)
+    assert far <= 1e-2 * total, (far, total)
+    check_sync_state(name, sizes, cfg, jax_out, per_rank)
+
+
+def check_sync_state(name, sizes, cfg, jax_out, per_rank):
+    """Every section's m, v (and EF) put together from the ranks' local
+    blocks by the port's specs equals the JAX global array: m and v to
+    1e-4 of their range (in 99% of the elements with int8: the flips of
+    ``test_torch_trainer.py``).  The EF state is the quantization residual
+    of the gradient plus the old EF, ~127x smaller than that sum, so it
+    carries the gradients' absolute differences (summation order) at ~250x
+    its own range, and a flip moves an element by a whole scale (~2x its
+    range): it is held to 1e-2 of its range in 99% of the elements."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core.topology import topology_from_mesh_sizes
+    from repro_torch.optim import grad_sync
+    from repro_torch.runtime.train_loop import make_sync_plan
+    import dataclasses
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32")
+    model = build_model(get_smoke_arch(ARCH), st, device="meta")
+    plan, ss = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes),
+                              codec=cfg.get("codec"))
+    if not cfg.get("zero1", True):
+        ss = dataclasses.replace(ss, mode="paper")
+    specs = grad_sync.sync_state_specs(plan, model.param_shapes(), ss)
+    int8 = cfg.get("codec") == "int8"
+    for sec in plan.sections:
+        for k, spec in specs["sections"][sec.name].items():
+            want = jax_out[f"{name}/s/{sec.name}/{k}"]
+            blocks = {coords: state[sec.name][k]
+                      for _, _, state, coords in per_rank}
+            for coords, blk in blocks.items():  # each block is its spec's
+                np.testing.assert_array_equal(
+                    grad_sync.local_shape(want.shape, spec, sizes), blk.shape)
+            got = grad_sync.assemble(blocks, spec, want.shape, sizes,
+                                     lambda parts, d: np.concatenate(parts, d))
+            assert got.shape == want.shape, (sec.name, k)
+            rel = 1e-2 if k == "ef" else 1e-4
+            close = np.abs(got - want) <= rel * np.abs(want).max() + 1e-12
+            if int8:
+                assert close.mean() >= 0.99, (sec.name, k, close.mean())
+            else:
+                assert close.all(), (sec.name, k, np.abs(got - want).max())
+            blk = grad_sync.local_block(want, spec, dict(per_rank[0][3]), sizes)
+            assert blk.shape == per_rank[0][2][sec.name][k].shape
