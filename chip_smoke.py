@@ -52,9 +52,11 @@ SEED = 0
 # 132 SMs at the 1.98 GHz boost clock
 SFU_EXP_RATE = 16 * 132 * 1.98e9
 B_MAIN, S_MAIN = 4, 2048  # the prefill shape of every path
-# each kernel's CUDA entry point, as ptxas names its instantiations, and
-# the name of its integer template parameter
-PTXAS_ENTRY = {"flash_attention_fwd": ("fa_fwd_kernel", "hd"),
+# each kernel's CUDA entry points (a regex), as ptxas names their
+# instantiations, and the name of their integer template parameter; K1 has
+# two bodies, the bf16 one on the tensor cores and the fp32 one on the CUDA
+# cores
+PTXAS_ENTRY = {"flash_attention_fwd": ("fa_(?:bf16_wgmma|f32_simt)_kernel", "hd"),
                "wkv6_fwd": ("wkv6_fwd_kernel", "hd"),
                "mamba_scan_fwd": ("mamba_scan_fwd_kernel", "ds"),
                "quantize_ef_fwd": ("quantize_ef_fwd_kernel", "block")}
@@ -77,14 +79,15 @@ def card_line() -> str:
 def ptxas_summary(text: str, kernel: str, param: str) -> str:
     """'<dtype> <param><N>: <regs> regs, <spill> B spilled' for each
     instantiation of the ``kernel<dtype, N>`` template in ``nvcc -Xptxas
-    -v`` output."""
+    -v`` output (the kernel's own name where the template has no dtype)."""
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(Lb([01])E)?", line)
+        m = re.search("(" + kernel + r")I(f|13__nv_bfloat16)?Li(\d+)E(Lb([01])E)?", line)
         if "Compiling entry function" in line and m:
-            name = f"{'fp32' if m.group(1) == 'f' else 'bf16'} {param}{m.group(2)}"
-            if m.group(4) is not None:
-                name += " vec" if m.group(4) == "1" else " scalar"
+            dtype = {"f": "fp32", "13__nv_bfloat16": "bf16", None: m.group(1)}[m.group(2)]
+            name = f"{dtype} {param}{m.group(3)}"
+            if m.group(5) is not None:
+                name += " vec" if m.group(5) == "1" else " scalar"
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif name and "Used" in line and "registers" in line:
@@ -92,6 +95,39 @@ def ptxas_summary(text: str, kernel: str, param: str) -> str:
             out.append(f"{name}: {regs} regs, {spill} B spilled")
             name = None
     return "; ".join(out)
+
+
+def k1_sass_check(lib) -> str:
+    """Count, in K1's compiled library (``cuobjdump -sass``), the tensor-core
+    (HGMMA, HMMA), TMA-load (UTMALDG), async-copy (LDGSTS) and FFMA
+    instructions of each instantiation; raises unless every bf16 one issues
+    wgmma and TMA loads and no fp32 one touches a tensor core."""
+    from repro_torch.kernels._build import find_nvcc
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA")
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*(fa_(?:bf16_wgmma|f32_simt))_kernelILi(\d+)E", line)
+        if m:
+            fn = f"{m.group(1)} hd{m.group(2)}"
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif "Function :" in line:
+            fn = None
+        elif fn:
+            for op in ops:
+                counts[fn][op] += len(re.findall(r"\b" + op + r"\b", line))
+    if len(counts) != 14:
+        raise AssertionError(f"K1's library holds {sorted(counts)}, not 7 head "
+                             f"dims x 2 bodies")
+    for fn, c in counts.items():
+        bf16 = fn.startswith("fa_bf16")
+        if (bf16 and not (c["HGMMA"] and c["UTMALDG"])) or \
+                (not bf16 and (c["HGMMA"] or c["HMMA"])):
+            raise AssertionError(f"K1 {fn}: {c}")
+    return "; ".join(f"{fn} " + " ".join(f"{op}={n}" for op, n in c.items() if n)
+                     for fn, c in sorted(counts.items()))
 
 
 def time_ms(fn, iters: int, warmup: int = 2, repeats: int = 3) -> float:
@@ -230,6 +266,14 @@ def check_flash_attention(torch, gen, dev, arch, jamba):
         ("ragged-S200", 2, H, KV, 200, hd, True, "float32"),
         ("noncausal", 2, H, KV, 512, hd, False, "bfloat16"),
         ("G1", 2, 4, 4, 333, hd, True, "float32"),
+        # the bf16 body's other swizzle widths and its padded head dims
+        ("hd16-bf16", 2, 4, 2, 256, 16, True, "bfloat16"),
+        ("hd24-bf16", 1, 4, 2, 100, 24, False, "bfloat16"),
+        ("hd32-bf16", 2, 8, 2, 333, 32, True, "bfloat16"),
+        ("hd128-bf16", 2, 8, 2, 1024, 128, True, "bfloat16"),
+        # ragged S just past a 64-row q tile and a 128-key kv tile
+        ("ragged-S65", 2, H, KV, 65, hd, True, "bfloat16"),
+        ("ragged-S129", 2, H, KV, 129, hd, True, "bfloat16"),
     ]
     results = {}
     for name, B, Hc, KVc, S, d, causal, dt_name in cases:
@@ -269,7 +313,8 @@ def check_flash_attention(torch, gen, dev, arch, jamba):
             f"kv={KVc} causal={causal} "
             f"{dt_name}: max_err={err:.3e} (tol {tol[dt_name]}) "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            f"library_ms={library_ms:.4f} ratio_to_library={kernel_ms / library_ms:.3f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
         del q, k, v, kr, vr, out, ref
     return results
 
@@ -710,6 +755,8 @@ def main() -> None:
         if ptxas.exists():
             log(f"[build]   {name} ptxas per instantiation: "
                 f"{ptxas_summary(ptxas.read_text(), *PTXAS_ENTRY[name])}")
+    log(f"[build]   flash_attention_fwd SASS: "
+        f"{k1_sass_check(library_path('flash_attention_fwd', fa_kernel.SOURCES))}")
     phase_done("build")
 
     # ---- qwen2-0.5b: K1 vs plain, prefill, consistency, serve --------------

@@ -3,10 +3,12 @@
 ``flash_attention`` takes the model's (B, S, KV, G, hd) grouped layout,
 runs the CUDA kernel on CUDA tensors and the plain version on CPU tensors,
 and is differentiable: its backward is autograd through ``attention_ref``,
-the twin of the JAX custom VJP (forward-optimized prefill is the kernel's
-job; a backward kernel comes with the training slice).  The choice follows
-the tensor's device only; a CUDA tensor never reaches the plain version in
-the forward.
+the twin of the JAX custom VJP.  The choice follows the tensor's device
+only; a CUDA tensor never reaches the plain version in the forward.  On the
+card the dtype picks the kernel's body: bf16 (serving prefill) runs on the
+tensor cores, fp32 (the training forward) exactly in fp32 on the CUDA
+cores.  The model's separate, contiguous q/k/v projections meet the
+kernel's 16-byte layout rules (``kernel.layout_error``) as they are.
 """
 from __future__ import annotations
 

@@ -5,6 +5,8 @@ On the CPU the wrapper runs the plain version; the CUDA kernel itself is
 checked on the card by ``tests/test_torch_kernels_cuda.py`` and
 ``chip_smoke.py``.
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -138,3 +140,73 @@ def test_library_path_tracks_source_content(tmp_path):
     assert _build.library_path("k", (src,)) != first
     assert first.parent == _build.BUILD_DIR
 
+
+
+def _model_views(B, S, heads, hd, dtype):
+    """The (B, heads, S, hd) view of (B, S, heads, hd) memory that prefill
+    hands the kernel (meta tensors: shapes and strides, no memory)."""
+    return torch.empty(B, S, heads, hd, dtype=dtype, device="meta").transpose(1, 2)
+
+
+def _registered_attention_shapes():
+    from repro_torch.configs import get_arch, get_smoke_arch, list_archs, one_card_arch
+    out = {"jamba-one-card-cut": one_card_arch("jamba-1.5-large-398b")[0]}
+    for name in list_archs():
+        out[name] = get_arch(name)
+        out[f"{name}-smoke"] = get_smoke_arch(name)
+    return sorted(out.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,arch", _registered_attention_shapes(),
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_layout_rules_accept_every_config_model_layout(name, arch, dtype):
+    """q, k and v of every registered config, full width and smoke, at the
+    prefill shape (B=4, S=2048) and at S=1 and a ragged S, in both dtypes."""
+    hd = arch.resolved_head_dim
+    assert hd in kernel.SUPPORTED_HEAD_DIMS, name
+    for B, S in ((4, 2048), (1, 1), (2, 129)):
+        for label, heads in (("q", arch.n_heads), ("k", arch.n_kv_heads)):
+            t = _model_views(B, S, heads, hd, dtype)
+            assert kernel.layout_error(label, t.shape, t.stride(),
+                                       t.element_size(), 256) is None
+
+
+@pytest.mark.parametrize("hd", kernel.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_rules_accept_every_head_dim(hd, dtype):
+    for t in (torch.empty(2, 3, 77, hd, dtype=dtype, device="meta"),
+              _model_views(2, 77, 3, hd, dtype)):
+        assert kernel.layout_error("q", t.shape, t.stride(), t.element_size(),
+                                   4096) is None
+
+
+@pytest.mark.parametrize("case", ["ptr+2", "ptr+8", "seq-stride-68", "head-stride",
+                                  "hd-not-contiguous", "stride-2**40"])
+def test_layout_rules_reject_what_tma_cannot_address(case):
+    t = _model_views(2, 64, 4, 64, torch.bfloat16)
+    shape, strides, ptr = list(t.shape), list(t.stride()), 1024
+    if case == "ptr+2":  # a view one bf16 element into an aligned buffer
+        ptr, match = 1026, "2 bytes past"
+    elif case == "ptr+8":
+        ptr, match = 1032, "8 bytes past"
+    elif case == "seq-stride-68":  # (2, 4, 64, 68)[..., :64]: 136-byte rows
+        strides, match = [4 * 64 * 68, 64 * 68, 68, 1], "dim 2 is 136 bytes"
+    elif case == "head-stride":  # heads 36 elements (72 bytes) apart
+        strides[1], match = 36, "dim 1 is 72 bytes"
+    elif case == "hd-not-contiguous":
+        strides[3], match = 2, "contiguous"
+    else:
+        strides[0], match = 2 ** 39, "2\\*\\*40"
+    err = kernel.layout_error("q", shape, strides, 2, ptr)
+    assert err is not None and re.search(match, err), err
+
+
+def test_layout_rules_ignore_strides_of_unit_dims():
+    """A dim of size 1 is never stepped along: its stride does not count,
+    and the kernel is handed the contiguous one."""
+    shape, strides = (1, 1, 5, 24), (7, 3, 24, 1)
+    assert kernel.layout_error("k", shape, strides, 2, 0) is None
+    assert kernel.kernel_strides(shape, strides) == [120, 120, 24]
+    t = _model_views(2, 64, 4, 64, torch.bfloat16)
+    assert kernel.kernel_strides(t.shape, t.stride()) == list(t.stride()[:3])

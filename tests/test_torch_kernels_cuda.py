@@ -70,6 +70,61 @@ def test_kernel_matches_ref_on_card(cuda_device, B, H, KV, S, hd, causal,
                                rtol=tol * 10)
 
 
+# Both bodies (bf16: wgmma + TMA; fp32: CUDA cores) at every head_dim, with
+# G = 1 and G = 8, causal and not, in the model's strided layout and
+# contiguous; then S at and around the 64-row q tiles and the 128-key (hd
+# <= 64) and 64-key (hd > 64) kv tiles.  Tolerances: fp32 1e-5, bf16 2e-2.
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SWEEP = [(hd, dtype, 130, G, causal, layout)
+         for hd in kernel.SUPPORTED_HEAD_DIMS
+         for dtype in ("float32", "bfloat16")
+         for G, causal, layout in ((1, True, "model"), (8, False, "contiguous"))]
+SWEEP += [(hd, dtype, S, G, True, "model")
+          for hd, G in ((64, 7), (128, 4))
+          for dtype in ("float32", "bfloat16")
+          for S in (1, 63, 64, 65, 127, 129, 2049)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype,S,G,causal,layout", SWEEP)
+def test_kernel_sweep_on_card(cuda_device, hd, dtype, S, G, causal, layout):
+    dt = getattr(torch, dtype)
+    B, KV = 2, 2
+    if layout == "model":  # (B, S, heads, hd) memory seen as (B, heads, S, hd)
+        q, k, v = (_randn(120 + i, B, S, n, hd, dtype=dt, device=cuda_device)
+                   .transpose(1, 2) for i, n in enumerate((KV * G, KV, KV)))
+    else:
+        q, k, v = (_randn(120 + i, B, n, S, hd, dtype=dt, device=cuda_device)
+                   for i, n in enumerate((KV * G, KV, KV)))
+    before = kernel.LAUNCHES
+    out = kernel.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    exp = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_rejects_views_tma_cannot_address(cuda_device, dtype):
+    """A data pointer one element (2 bytes in bf16) past a 16-byte boundary,
+    or a row stride that is not a multiple of 16 bytes: ValueError, and
+    nothing is launched."""
+    dt = getattr(torch, dtype)
+    n = 2 * 8 * 64
+    good = torch.zeros(1, 2, 8, 64, dtype=dt, device=cuda_device)
+    offset = torch.zeros(n + 1, dtype=dt, device=cuda_device)[1:].view(1, 2, 8, 64)
+    padded = torch.zeros(1, 2, 8, 66, dtype=dt, device=cuda_device)[..., :64]
+    assert offset.data_ptr() % 16 and (padded.stride(2) * padded.element_size()) % 16
+    before = kernel.LAUNCHES
+    for q, k in ((offset, good), (good, offset), (padded, good), (good, padded)):
+        with pytest.raises(ValueError, match="bytes"):
+            kernel.flash_attention_fwd(q, k[:, :1], k[:, :1])
+    assert kernel.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_model_layout_goes_through_the_kernel(cuda_device):
     """``ops.flash_attention`` hands the kernel strided views of the
