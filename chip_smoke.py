@@ -77,17 +77,21 @@ def card_line() -> str:
 
 
 def ptxas_summary(text: str, kernel: str, param: str) -> str:
-    """'<dtype> <param><N>: <regs> regs, <spill> B spilled' for each
-    instantiation of the ``kernel<dtype, N>`` template in ``nvcc -Xptxas
-    -v`` output (the kernel's own name where the template has no dtype)."""
+    """'<dtype> <param><N>[ <R>x<C>]: <regs> regs, <spill> B spilled' for
+    each instantiation of the ``kernel<dtype, N, ...>`` template in ``nvcc
+    -Xptxas -v`` output (the kernel's own name where the template has no
+    dtype; further integer parameters, K3's micro-tile, joined by 'x')."""
     out, name = [], None
     for line in text.splitlines():
-        m = re.search("(" + kernel + r")I(f|13__nv_bfloat16)?Li(\d+)E(Lb([01])E)?", line)
+        m = re.search("(" + kernel + r")I(f|13__nv_bfloat16)?Li(\d+)E((?:Li\d+E)*)(Lb([01])E)?",
+                      line)
         if "Compiling entry function" in line and m:
             dtype = {"f": "fp32", "13__nv_bfloat16": "bf16", None: m.group(1)}[m.group(2)]
             name = f"{dtype} {param}{m.group(3)}"
-            if m.group(5) is not None:
-                name += " vec" if m.group(5) == "1" else " scalar"
+            if m.group(4):
+                name += " " + "x".join(re.findall(r"Li(\d+)E", m.group(4)))
+            if m.group(6) is not None:
+                name += " vec" if m.group(6) == "1" else " scalar"
         elif name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif name and "Used" in line and "registers" in line:
@@ -95,6 +99,17 @@ def ptxas_summary(text: str, kernel: str, param: str) -> str:
             out.append(f"{name}: {regs} regs, {spill} B spilled")
             name = None
     return "; ".join(out)
+
+
+def k3_spill_check(summary: str) -> None:
+    """Raise unless every hd-64 instantiation of K3 (the rwkv6 path's)
+    compiled without spilling."""
+    entries = [e for e in summary.split("; ") if " hd64 " in e]
+    if not entries:
+        raise AssertionError(f"no hd-64 K3 instantiation in ptxas' output: {summary}")
+    spilled = [e for e in entries if not e.endswith(" 0 B spilled")]
+    if spilled:
+        raise AssertionError(f"K3 hd-64 instantiations spill: {spilled}")
 
 
 def k1_sass_check(lib) -> str:
@@ -320,9 +335,9 @@ def check_flash_attention(torch, gen, dev, arch, jamba):
 
 
 def check_wkv6(torch, gen, dev, arch):
-    """K3 against its plain version at the rwkv6 path's shapes (prefill and
-    decode), ragged S and the other head sizes.  Returns the per-case
-    results."""
+    """K3 against its plain version at the rwkv6 path's shapes (prefill at
+    B=4 and B=1, and decode), ragged S and the other head sizes.  Returns
+    the per-case results."""
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     H, hd = arch.d_model // arch.rwkv.head_size, arch.rwkv.head_size
@@ -330,6 +345,7 @@ def check_wkv6(torch, gen, dev, arch):
         ("main-bf16", B_MAIN, H, S_MAIN, hd, "bfloat16"),
         ("main-fp32", B_MAIN, H, S_MAIN, hd, "float32"),
         ("decode-S1", 8, H, 1, hd, "bfloat16"),
+        ("prefill-B1", 1, H, S_MAIN, hd, "bfloat16"),  # splits each head's columns
         ("ragged-S40", 2, H, 40, hd, "float32"),
         ("ragged-S100", 2, H, 100, hd, "bfloat16"),
         ("ragged-S333", 2, H, 333, hd, "float32"),
@@ -367,10 +383,14 @@ def check_wkv6(torch, gen, dev, arch):
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=None)
+        cfg = wkv_kernel.launch_config(B, Hc, S, d, dt)
         log(f"[K3] {name:12s} (B,H,S,hd)=({B},{Hc},{S},{d}) strided r/k/v "
             f"{dt_name}: max_err={err:.3e} (atol {atol:.2e}, rtol 1e-4) "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"ratio_to_bound={kernel_ms / bound_ms:.2f} | {cfg.rows}x{cfg.cols} "
+            f"nj={cfg.nj} tile={cfg.tile} stages={cfg.stages} "
+            f"threads={cfg.threads} blocks={cfg.blocks}")
         del r, k, v, w, u, s0, y, sT, ey, es
     return results
 
@@ -753,8 +773,10 @@ def main() -> None:
     for name, mod in counters.items():
         ptxas = library_path(name, mod.SOURCES).with_suffix(".log")
         if ptxas.exists():
-            log(f"[build]   {name} ptxas per instantiation: "
-                f"{ptxas_summary(ptxas.read_text(), *PTXAS_ENTRY[name])}")
+            summary = ptxas_summary(ptxas.read_text(), *PTXAS_ENTRY[name])
+            log(f"[build]   {name} ptxas per instantiation: {summary}")
+            if name == "wkv6_fwd":
+                k3_spill_check(summary)
     log(f"[build]   flash_attention_fwd SASS: "
         f"{k1_sass_check(library_path('flash_attention_fwd', fa_kernel.SOURCES))}")
     phase_done("build")

@@ -154,7 +154,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 # WKV6: the sweep of tests/test_kernels.py::test_wkv6 (B, H, S, hd), then
-# S = 1 (a decode step) and ragged S, in fp32 and bf16 r/k/v
+# S = 1 (a decode step) and ragged S, in fp32 and bf16 r/k/v; then grids
+# small enough that launch_config splits a head's columns (NJ > 1), S = 1,
+# S below one tile and one tile +- 1, and hd 16 and 32 in bf16
 WKV_CASES = [
     (2, 2, 128, 16, "float32"),
     (1, 4, 64, 32, "float32"),
@@ -163,6 +165,15 @@ WKV_CASES = [
     (8, 4, 1, 64, "float32"),
     (2, 3, 333, 64, "bfloat16"),
     (1, 2, 40, 32, "bfloat16"),
+    (1, 4, 333, 64, "bfloat16"),
+    (1, 4, 333, 64, "float32"),
+    (4, 32, 1, 64, "bfloat16"),
+    (2, 8, 20, 64, "float32"),
+    (2, 8, 31, 64, "bfloat16"),
+    (2, 8, 33, 64, "bfloat16"),
+    (3, 40, 17, 64, "float32"),
+    (2, 4, 100, 16, "bfloat16"),
+    (2, 4, 100, 32, "bfloat16"),
 ]
 
 
@@ -190,6 +201,33 @@ def test_wkv6_kernel_matches_ref_on_card(cuda_device, B, H, S, hd, dtype):
     torch.cuda.synchronize()
     assert wkv_kernel.LAUNCHES == before + 1
     assert y.dtype == sT.dtype == torch.float32 and y.shape == (B, H, S, hd)
+    ey, es = wkv6_ref(*args)
+    _wkv_close(y, ey)
+    _wkv_close(sT, es)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [("bfloat16", 1), ("bfloat16", 2),
+                                          ("bfloat16", 4), ("float32", 1),
+                                          ("float32", 2)])
+def test_wkv6_kernel_takes_views_aligned_below_16_bytes(cuda_device, dtype,
+                                                        offset):
+    """r, k, v, w as views that start ``offset`` elements into wider rows,
+    so the tile ring is filled in 2-, 4- or 8-byte chunks."""
+    B, H, S, hd = 2, 3, 45, 64
+    r, k, v, w, u, s0 = _wkv_inputs(90, B, H, S, hd, getattr(torch, dtype),
+                                    cuda_device)
+
+    def shifted(a):
+        wide = torch.zeros(B, S, H, hd + 8, dtype=a.dtype, device=cuda_device)
+        view = wide[..., offset:offset + hd].transpose(1, 2)
+        view.copy_(a)
+        return view
+
+    args = [shifted(a) for a in (r, k, v, w)] + [u, s0]
+    assert wkv_kernel.copy_bytes(*args[:4]) < 16
+    y, sT = wkv_kernel.wkv6_fwd(*args)
+    torch.cuda.synchronize()
     ey, es = wkv6_ref(*args)
     _wkv_close(y, ey)
     _wkv_close(sT, es)

@@ -93,6 +93,86 @@ def test_ops_model_layout_matches_jax(dtype, with_state):
     _close(sT.numpy(), js)
 
 
+# launch_config over the shapes the kernel takes: B*H from 1*1 to 8*32
+GRIDS = [(1, 1), (1, 4), (2, 3), (1, 32), (2, 32), (4, 32), (8, 32)]
+LENGTHS = [1, 31, 32, 33, 2048]
+
+
+@pytest.mark.parametrize("hd", kernel.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_config_fits_the_card(hd, dtype):
+    for B, H in GRIDS:
+        for S in LENGTHS:
+            cfg = kernel.launch_config(B, H, S, hd, dtype)
+            R, C = cfg.rows, cfg.cols
+            assert (R, C) in kernel.MICRO_TILES
+            assert hd % cfg.nj == 0 and (hd // cfg.nj) % C == 0
+            assert (hd // cfg.nj) % 4 == 0  # y is written 4 columns a thread
+            compute = (hd // R) * (hd // cfg.nj // C)
+            assert cfg.threads == -(-compute // 32) * 32 + kernel.HELPERS <= 1024
+            assert cfg.smem == kernel.smem_bytes(hd, dtype.itemsize, R, cfg.nj,
+                                                 cfg.tile, cfg.stages)
+            assert cfg.smem <= 232_448
+            assert cfg.tile == min(S, kernel.TILE) and cfg.stages in (3, 4)
+            assert cfg.blocks == B * H * cfg.nj
+            if B * H * (hd // 4) >= 128:
+                assert cfg.blocks >= 128
+            if B * H >= 128:  # the grid is full without a split
+                assert cfg.nj == 1
+
+
+def test_launch_config_main_path():
+    """rwkv6-1.6b's prefill (4, 32, 2048, 64) bf16 takes the preferred
+    micro-tile unsplit, two tiles in flight; one long prompt (B = 1) splits
+    each head's columns over 4 blocks."""
+    main = kernel.launch_config(4, 32, 2048, 64, torch.bfloat16)
+    assert (main.rows, main.cols) == kernel.MICRO_TILES[0]
+    assert (main.nj, main.blocks, main.stages, main.tile) == (1, 128, 4, 32)
+    assert main.threads == 128 + kernel.HELPERS
+    one = kernel.launch_config(1, 32, 2048, 64, torch.bfloat16)
+    assert (one.nj, one.blocks) == (4, 128)
+    assert one.threads >= kernel.MIN_THREADS + kernel.HELPERS
+
+
+def test_launch_config_raises_on_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="head_dim 48"):
+        kernel.launch_config(1, 2, 8, 48, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.launch_config(1, 2, 8, 64, torch.float16)
+    with pytest.raises(ValueError, match="empty"):
+        kernel.launch_config(1, 2, 0, 64, torch.float32)
+    with pytest.raises(ValueError, match="micro-tile"):
+        kernel.make_config(1, 2, 64, torch.float32, (2, 2), 1, 8, 4)
+    with pytest.raises(ValueError, match="nj"):
+        kernel.make_config(1, 2, 16, torch.float32, (8, 4), 8, 8, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.make_config(4, 32, 64, torch.float32, (4, 2), 1, 32, 4)
+
+
+def test_copy_bytes_is_the_widest_chunk_every_row_starts_on():
+    """r, k, v, w as the kernel takes them: (B, H, S, hd) views of wider
+    (B, S, H, .) rows; the chunk is the largest power of two up to 16 that
+    divides every data pointer and every outer byte stride."""
+    x = torch.zeros(2, 40, 4, 80, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 40, 4, 66)  # fp32 rows 264 bytes apart
+    assert x.data_ptr() % 16 == 0 and wide.data_ptr() % 16 == 0
+
+    def views(off, w_off=0, w_src=None):
+        rkv = x[..., off:off + 64].transpose(1, 2)
+        w = (w_src if w_src is not None else torch.zeros(2, 40, 4, 64))
+        return rkv, rkv, rkv, w[..., w_off:w_off + 64].transpose(1, 2)
+
+    assert kernel.copy_bytes(*views(0)) == 16
+    assert kernel.copy_bytes(*views(4)) == 8
+    assert kernel.copy_bytes(*views(2)) == 4
+    assert kernel.copy_bytes(*views(1)) == 2
+    assert kernel.copy_bytes(*views(0, 0, wide)) == 8
+    assert kernel.copy_bytes(*views(0, 1, wide)) == 4
+    # a dim of length 1 constrains nothing: a decode step's S stride
+    one = torch.zeros(3, 64).as_strided((1, 3, 1, 64), (7, 64, 7, 1))
+    assert kernel.copy_bytes(one, one, one, one) == 16
+
+
 def test_kernel_takes_cuda_tensors_only():
     r, k, v, w, u, s0 = _port(_inputs(30, 1, 2, 8, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):
