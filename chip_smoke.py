@@ -48,9 +48,10 @@ SRC = os.path.join(HERE, "src")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 SEED = 0
-# exps a second on the special-function units: 16 a clock on each of the
-# 132 SMs at the 1.98 GHz boost clock
-SFU_EXP_RATE = 16 * 132 * 1.98e9
+# exps a clock on the special-function units: 16 on each of the 132 SMs;
+# at the 1.98 GHz boost clock unless a clock is measured
+SFU_EXPS_PER_CLOCK = 16 * 132
+BOOST_HZ = 1.98e9
 B_MAIN, S_MAIN = 4, 2048  # the prefill shape of every path
 # each kernel's CUDA entry points (a regex), as ptxas names their
 # instantiations, and the name of their integer template parameter; K1 has
@@ -101,15 +102,65 @@ def ptxas_summary(text: str, kernel: str, param: str) -> str:
     return "; ".join(out)
 
 
+def spill_check(summary: str, key: str, what: str) -> None:
+    """Raise unless every instantiation in ``summary`` (``ptxas_summary``)
+    whose name holds ``key`` compiled without spilling."""
+    entries = [e for e in summary.split("; ") if key in e]
+    if not entries:
+        raise AssertionError(f"no {what} instantiation in ptxas' output: {summary}")
+    spilled = [e for e in entries if not e.endswith(" 0 B spilled")]
+    if spilled:
+        raise AssertionError(f"{what} instantiations spill: {spilled}")
+
+
 def k3_spill_check(summary: str) -> None:
     """Raise unless every hd-64 instantiation of K3 (the rwkv6 path's)
     compiled without spilling."""
-    entries = [e for e in summary.split("; ") if " hd64 " in e]
-    if not entries:
-        raise AssertionError(f"no hd-64 K3 instantiation in ptxas' output: {summary}")
-    spilled = [e for e in entries if not e.endswith(" 0 B spilled")]
-    if spilled:
-        raise AssertionError(f"K3 hd-64 instantiations spill: {spilled}")
+    spill_check(summary, " hd64 ", "K3 hd-64")
+
+
+def k4_spill_check(summary: str) -> None:
+    """Raise unless every d_state-16 instantiation of K4 (the jamba path's)
+    compiled without spilling."""
+    spill_check(summary, " ds16 ", "K4 ds-16")
+
+
+def sm_clock_mhz(fn, dev, seconds: float = 0.5) -> list:
+    """The SM clock of the card ``dev`` names (``nvidia-smi`` clocks.sm,
+    MHz, the card found by its UUID), sampled every ~50 ms while ``fn``
+    runs back to back for ``seconds``."""
+    import threading
+    import torch
+    uuid = str(torch.cuda.get_device_properties(dev).uuid).removeprefix("GPU-")
+
+    def read() -> int:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=uuid,clocks.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout
+        rows = [r.split(",") for r in out.strip().splitlines()]
+        mhz = [int(c) for u, c in rows if u.strip().removeprefix("GPU-") == uuid]
+        if len(mhz) != 1:
+            raise RuntimeError(f"no card of UUID {uuid} in nvidia-smi's {out!r}")
+        return mhz[0]
+
+    read()  # the card is found before the sampling starts
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(read())
+            time.sleep(0.05)
+
+    thread = threading.Thread(target=sample)
+    thread.start()
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        fn()
+        torch.cuda.synchronize()
+    stop.set()
+    thread.join()
+    return samples
 
 
 def k1_sass_check(lib) -> str:
@@ -205,18 +256,18 @@ def wkv6_bound_ms(B, H, S, hd, dtype_name):
     return bound(5.0 * n * hd, nbytes, "float32")
 
 
-def mamba_scan_bound_ms(B, S, di, ds, dtype_name):
+def mamba_scan_bound_ms(B, S, di, ds, dtype_name, clock_hz=BOOST_HZ):
     """u, dt, B, C in ``dtype_name`` and A, D, h0 fp32 read once, y fp32 and
     hT written once; 6 fp32 FLOPs per (b, t, d, s): dt*A, the state's
     multiply-add, dt*u*B's multiply, and y's multiply-add over the state.
-    Also returns the SFU floor: one exp per (b, t, d, s) on the
-    special-function units (not part of the bound)."""
+    Also returns the SFU floor at ``clock_hz``: one exp per (b, t, d, s) on
+    the special-function units (not part of the bound)."""
     itemsize = 2 if dtype_name == "bfloat16" else 4
     n = B * S * di
     nbytes = (2 * n + 2 * B * S * ds) * itemsize + 4 * n \
         + 2 * B * di * ds * 4 + di * ds * 4 + di * 4
     bound_ms, bound_by = bound(6.0 * n * ds, nbytes, "float32")
-    return bound_ms, bound_by, n * ds / SFU_EXP_RATE * 1e3
+    return bound_ms, bound_by, n * ds / (SFU_EXPS_PER_CLOCK * clock_hz) * 1e3
 
 
 def drive_path(counters: dict, fn):
@@ -414,13 +465,20 @@ def check_mamba_scan(torch, gen, dev, arch):
         ("ragged-S333", 2, 333, di, m.d_state, "float32"),
         ("ds4", 2, 256, 4096, 4, "float32"),
         ("ds8", 2, 256, 4096, 8, "bfloat16"),
+        # the model's long-memory draw (models/ssm.py's init: A = -(1..16),
+        # dt ~ 0.018), where the exps' errors are summed longest
+        ("long-memory", 2, S_MAIN, di, m.d_state, "float32"),
     ]
     results = {}
     for name, B, S, d, ds, dt_name in cases:
         dt = getattr(torch, dt_name)
         u = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
-        delta = F.softplus(torch.randn(B, S, d, generator=gen, device=dev) - 2).to(dt)
-        A = -torch.exp(torch.randn(d, ds, generator=gen, device=dev) * 0.3)
+        if name == "long-memory":
+            delta = F.softplus(-4 + 0.1 * torch.randn(B, S, d, generator=gen, device=dev)).to(dt)
+            A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).repeat(d, 1)
+        else:
+            delta = F.softplus(torch.randn(B, S, d, generator=gen, device=dev) - 2).to(dt)
+            A = -torch.exp(torch.randn(d, ds, generator=gen, device=dev) * 0.3)
         # B and C: column slices of a (B, S, dt_rank + 2 ds) projection
         xdbl = torch.randn(B, S, dtr + 2 * ds, generator=gen, device=dev).to(dt)
         Bc, Cc = xdbl[..., dtr:dtr + ds], xdbl[..., dtr + ds:]
@@ -442,11 +500,31 @@ def check_mamba_scan(torch, gen, dev, arch):
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=None)
-        log(f"[K4] {name:12s} (B,S,di,ds)=({B},{S},{d},{ds}) strided B/C "
-            f"{dt_name}: max_err={err:.3e} (atol=rtol=1e-4) "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) sfu_floor_ms={sfu_ms:.4f}")
+        cfg = ms_kernel.launch_config(B, S, d, ds, dt)
+        line = (f"[K4] {name:12s} (B,S,di,ds)=({B},{S},{d},{ds}) strided B/C "
+                f"{dt_name}: max_err={err:.3e} (atol=rtol=1e-4) "
+                f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"ratio_to_bound={kernel_ms / bound_ms:.2f} "
+                f"sfu_floor_ms={sfu_ms:.4f} (at 1.98 GHz)")
+        if name.startswith("main"):
+            # the SM clock the kernel runs at, and the SFU floor there
+            mhz = sm_clock_mhz(lambda: ms_kernel.mamba_scan_fwd(*args), dev)
+            clock = statistics.median(mhz)
+            at_clock = mamba_scan_bound_ms(B, S, d, ds, dt_name, clock * 1e6)[2]
+            line += (f" sm_clock_mhz median={clock:.0f} samples={mhz} "
+                     f"sfu_floor_ms_at_clock={at_clock:.4f}")
+        log(line + f" | KP={cfg.poly} threads={cfg.threads} "
+            f"tile={cfg.tile} smem={cfg.smem} blocks={cfg.blocks}")
         del u, delta, A, xdbl, Bc, Cc, D, h0, y, hT, ey, eh
+    x = torch.linspace(-126.0, 127.0, 2_000_001, device=dev)
+    rel = ((ms_kernel.exp2_poly(x).double() - torch.exp2(x.double())).abs()
+           / torch.exp2(x.double())).max().item()
+    ends = ms_kernel.exp2_poly(torch.tensor([128.0, -127.0, 0.0], device=dev)).tolist()
+    log(f"[K4] exp2_poly on the card: max rel err {rel:.3e} over [-126, 127] "
+        f"(limit 3e-7); 2^128, 2^-127, 2^0 = {ends}")
+    if rel > 3e-7 or ends != [float("inf"), 0.0, 1.0]:
+        raise AssertionError("the kernel's polynomial exp2 is off")
     return results
 
 
@@ -777,6 +855,8 @@ def main() -> None:
             log(f"[build]   {name} ptxas per instantiation: {summary}")
             if name == "wkv6_fwd":
                 k3_spill_check(summary)
+            if name == "mamba_scan_fwd":
+                k4_spill_check(summary)
     log(f"[build]   flash_attention_fwd SASS: "
         f"{k1_sass_check(library_path('flash_attention_fwd', fa_kernel.SOURCES))}")
     phase_done("build")

@@ -347,6 +347,116 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda_device):
         ms_kernel.mamba_scan_fwd(u, dt, A, Bc, Cc, D, h0.transpose(1, 2))
 
 
+# K4's edges: odd di and di around one and two 128-thread blocks'
+# channels; S around the 16- and 32-step ring stages and B/C tiles
+MS_EDGE_CASES = [
+    (2, 100, 333, 16, "float32"), (2, 100, 333, 16, "bfloat16"),
+    (2, 64, 127, 16, "bfloat16"), (2, 64, 129, 16, "float32"),
+    (2, 64, 255, 16, "bfloat16"), (2, 64, 257, 16, "float32"),
+    (2, 64, 254, 16, "float32"), (2, 64, 258, 16, "bfloat16"),
+    (2, 15, 512, 16, "bfloat16"), (2, 16, 512, 16, "float32"),
+    (2, 17, 512, 16, "bfloat16"), (2, 31, 512, 16, "float32"),
+    (2, 32, 512, 16, "bfloat16"), (2, 33, 512, 16, "float32"),
+]
+
+
+def _ms_check(args, got):
+    y, hT = got
+    torch.cuda.synchronize()
+    ey, eh = mamba_scan_ref(*args)
+    torch.testing.assert_close(y, ey, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hT, eh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,ds,dtype", MS_EDGE_CASES)
+def test_mamba_scan_kernel_edges_on_card(cuda_device, B, S, di, ds, dtype):
+    args = _ms_inputs(120, B, S, di, ds, getattr(torch, dtype), cuda_device)
+    _ms_check(args, ms_kernel.mamba_scan_fwd(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cand", ms_kernel.CANDIDATES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_every_instantiation_on_card(cuda_device, cand, dtype):
+    """Each instantiated (d_state, KP, threads) through ``launch``, at a
+    shape with a ragged last stage (S = 333) and a partial last block."""
+    ds, poly, threads = cand
+    dt = getattr(torch, dtype)
+    args = _ms_inputs(130, 2, 333, 640, ds, dt, cuda_device)
+    cfg = ms_kernel.make_config(2, 640, ds, dt, poly, threads, 16)
+    _ms_check(args, ms_kernel.launch(*args, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_long_memory_on_card(cuda_device, dtype):
+    """The model's long-memory draw, where the exps' errors are summed
+    longest: A = -(1..16), dt = softplus(-4 + 0.1 noise), S = 2048."""
+    B, S, di, ds = 2, 2048, 512, 16
+    dt_ = getattr(torch, dtype)
+    u = _randn(140, B, S, di, dtype=dt_, device=cuda_device)
+    dt = torch.nn.functional.softplus(
+        -4 + 0.1 * _randn(141, B, S, di, device=cuda_device)).to(dt_)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=cuda_device).repeat(di, 1)
+    Bc = _randn(142, B, S, ds, dtype=dt_, device=cuda_device)
+    Cc = _randn(143, B, S, ds, dtype=dt_, device=cuda_device)
+    D = _randn(144, di, device=cuda_device)
+    h0 = _randn(145, B, di, ds, device=cuda_device)
+    args = (u, dt, A, Bc, Cc, D, h0)
+    _ms_check(args, ms_kernel.mamba_scan_fwd(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cand", [c for c in ms_kernel.CANDIDATES if c[1] > 0])
+def test_mamba_scan_extreme_exponents_on_card(cuda_device, cand):
+    """dt A far below -127 (the decay flushes to 0) and dt = 0 (x = 0: the
+    decay is exactly 1), on every instantiation with polynomial exps."""
+    ds, poly, threads = cand
+    u, dt, A, Bc, Cc, D, h0 = _ms_inputs(150, 2, 64, 512, ds, torch.float32,
+                                         cuda_device)
+    A = A * 400.0
+    zero = torch.from_numpy(np.random.default_rng(151).random(dt.shape) < 0.3
+                            ).to(cuda_device)
+    dt = torch.where(zero, torch.zeros_like(dt), dt + 1.0)
+    args = (u, dt, A, Bc, Cc, D, h0)
+    cfg = ms_kernel.make_config(2, 512, ds, torch.float32, poly, threads, 16)
+    _ms_check(args, ms_kernel.launch(*args, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_unaligned_views_on_card(cuda_device, dtype):
+    """u and dt one element into wider buffers: rows copied in chunks
+    narrower than 16 bytes, by the picked launch and by the launch with a
+    polynomial exp."""
+    dt_ = getattr(torch, dtype)
+    args = list(_ms_inputs(160, 2, 100, 4096, 16, dt_, cuda_device))
+    for i in (0, 1):
+        wide = torch.empty(args[i].numel() + 1, dtype=dt_, device=cuda_device)
+        view = wide[1:].view(args[i].shape)
+        view.copy_(args[i])
+        args[i] = view
+    assert ms_kernel.copy_bytes(args[0], args[1]) < 16
+    _ms_check(args, ms_kernel.mamba_scan_fwd(*args))
+    cfg = ms_kernel.make_config(2, 4096, 16, dt_, 1, 512, 16)
+    _ms_check(args, ms_kernel.launch(*args, cfg))
+
+
+@pytest.mark.cuda
+def test_exp2_poly_on_card(cuda_device):
+    """The kernel's polynomial 2^x on the card: within 3e-7 of exp2 in
+    fp64 over [-126, 127]; +inf from 128 on, 0 from -127 down, 1 at 0."""
+    x = torch.linspace(-126.0, 127.0, 2_000_001, device=cuda_device)
+    got = ms_kernel.exp2_poly(x)
+    want = torch.exp2(x.double())
+    assert ((got.double() - want).abs() / want).max().item() <= 3e-7
+    ends = ms_kernel.exp2_poly(torch.tensor(
+        [128.0, 1e30, -127.0, -1e30, 0.0], device=cuda_device)).tolist()
+    assert ends == [float("inf"), float("inf"), 0.0, 0.0, 1.0]
+
+
 # the sweep of tests/test_kernels.py::test_quantize_ef, then the section
 # sizes of the training path (qwen2-0.5b on (pod, data, model) = (2, 1, 1):
 # embed, mlp, wq/wo, wk/wv and the padded bucket of small leaves)

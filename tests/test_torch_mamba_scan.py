@@ -139,3 +139,150 @@ def test_non_cpu_tensor_never_reaches_the_plain_version():
     assert mamba_scan_ref(seq, seq, A, bc, bc, D, h0)[0].is_meta
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.mamba_scan(seq, seq, A, bc, bc, D, h0)
+
+
+# ---- the kernel's polynomial exp2 and its launch configuration -------------
+
+CU_SOURCE = kernel.SOURCES[0].read_text()
+
+
+def test_exp2_poly_matches_exp2_in_fp64():
+    """``exp2_poly`` (the kernel's polynomial, step for step in fp32)
+    against ``torch.exp2`` in fp64: at most 3e-7 relative over
+    [-126, 127], the reach of a normal fp32 result."""
+    x = torch.cat([torch.linspace(-126.0, 127.0, 2_000_001, dtype=torch.float64).float(),
+                   torch.linspace(-0.5, 0.5, 100_001).float(),
+                   torch.from_numpy(np.random.default_rng(0).uniform(
+                       -126.0, 127.0, 200_000).astype(np.float32))])
+    got = kernel.exp2_poly(x)
+    assert got.dtype == torch.float32
+    want = torch.exp2(x.double())
+    assert ((got.double() - want).abs() / want).max().item() <= 3e-7
+
+
+def test_exp2_poly_ends():
+    """+inf from x = 128 on, 0 from x = -127 down, and exactly 1 at 0 (a
+    zero dt leaves the state as it was)."""
+    x = torch.tensor([128.0, 128.5, 1e30, float("inf"), -127.0, -127.5, -1e30,
+                      float("-inf"), 0.0, -0.0])
+    got = kernel.exp2_poly(x)
+    assert torch.equal(got[:4], torch.full((4,), float("inf")))
+    assert torch.equal(got[4:8], torch.zeros(4))
+    assert got[8].item() == 1.0 and got[9].item() == 1.0
+
+
+def test_exp2_poly_coefficients_match_the_cuda_source():
+    """The literals EXP2_C1..EXP2_C5 and the rounding constant in
+    ``csrc/mamba_scan_fwd.cu`` are ``kernel.EXP2_POLY`` and
+    ``kernel.ROUND_MAGIC``, as fp32."""
+    import re
+    lits = dict(re.findall(r"constexpr float (EXP2_C\d|ROUND_MAGIC) = ([0-9.e+-]+)f;",
+                           CU_SOURCE))
+    got = [np.float32(lits[f"EXP2_C{i}"]) for i in range(1, 6)]
+    assert got == [np.float32(c) for c in kernel.EXP2_POLY]
+    assert np.float32(lits["ROUND_MAGIC"]) == np.float32(kernel.ROUND_MAGIC)
+
+
+def test_candidates_match_the_cuda_dispatch():
+    """``kernel.CANDIDATES`` lists exactly the (d_state, KP, threads) that
+    the .cu's dispatch instantiates, in its order."""
+    import re
+    cases = re.findall(r"^\s*MS_CASE\((\d+), (\d+), (\d+)\)$", CU_SOURCE, flags=re.M)
+    assert tuple(tuple(int(v) for v in c) for c in cases) == kernel.CANDIDATES
+
+
+def _poly_scan(u, dt, A, Bc, Cc, D, h0, k):
+    """The plain scan with the kernel's exps: exp(dt A) = 2^(dt (A log2 e))
+    in fp32, the last k of each channel's d_state through ``exp2_poly`` and
+    the rest through ``torch.exp2``."""
+    a2 = (A * np.float32(1.4426950408889634)).float()
+    x = dt[..., None] * a2  # (B, S, di, ds)
+    ds = A.shape[1]
+    dA = torch.cat([torch.exp2(x[..., :ds - k]), kernel.exp2_poly(x[..., ds - k:])], -1)
+    h, ys = h0, []
+    for t in range(u.shape[1]):
+        h = dA[:, t] * h + (dt[:, t] * u[:, t])[..., None] * Bc[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]) + D * u[:, t])
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_poly_exps_hold_the_long_memory_draw(k):
+    """The model's long-memory draw, where an exp's error is summed longest:
+    A = -(1..16) (S4D-real, ``models/ssm.py``), dt = softplus(-4 + 0.1
+    noise) (a decay of 0.982 a step on state 0), S = 2048, fp32.  A scan
+    with k of the 16 exps on the polynomial stays within rtol = atol =
+    1e-4 of ``mamba_scan_ref``."""
+    B, S, di, ds = 2, 2048, 8, 16
+    rng = np.random.default_rng(50)
+    u = torch.from_numpy(rng.standard_normal((B, S, di)).astype(np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        (-4 + 0.1 * rng.standard_normal((B, S, di))).astype(np.float32)))
+    A = -torch.arange(1, ds + 1, dtype=torch.float32).repeat(di, 1)
+    Bc, Cc = (torch.from_numpy(rng.standard_normal((B, S, ds)).astype(np.float32))
+              for _ in range(2))
+    D = torch.from_numpy(rng.standard_normal(di).astype(np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((B, di, ds)).astype(np.float32))
+    y, hT = _poly_scan(u, dt, A, Bc, Cc, D, h0, k)
+    ey, eh = mamba_scan_ref(u, dt, A, Bc, Cc, D, h0)
+    torch.testing.assert_close(y, ey, **TOL)
+    torch.testing.assert_close(hT, eh, **TOL)
+
+
+@pytest.mark.parametrize("B,S,di,dtype,want", [
+    # jamba's prefill: one 512-thread block an SM (128 of 132), one wave
+    # (one exp a channel on the polynomial at bf16)
+    (4, 2048, 16384, torch.bfloat16, (1, 512, 32, 163_840, 128)),
+    (4, 2048, 16384, torch.float32, (0, 512, 16, 163_840, 128)),
+    # B = 1 would leave 100 SMs idle with 512-thread blocks
+    (1, 2048, 16384, torch.bfloat16, (0, 128, 32, 40_960, 128)),
+    # a decode step (S = 1) and a scan no longer than a B/C tile
+    (8, 1, 16384, torch.bfloat16, (0, 128, 32, 40_960, 1024)),
+    (4, 128, 16384, torch.float32, (0, 128, 16, 40_960, 512)),
+    # odd di, and di below one block's 128 channels
+    (2, 333, 333, torch.float32, (0, 128, 16, 40_960, 6)),
+    (3, 7, 6, torch.bfloat16, (0, 128, 32, 40_960, 3)),
+])
+def test_launch_config_picks(B, S, di, dtype, want):
+    cfg = kernel.launch_config(B, S, di, 16, dtype)
+    assert tuple(cfg) == want
+    assert (16, cfg.poly, cfg.threads) in kernel.CANDIDATES
+    assert cfg.smem == kernel.smem_bytes(cfg.threads, dtype.itemsize, 16, cfg.tile)
+    assert cfg.smem <= kernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ds", [4, 8])
+def test_launch_config_small_d_state(ds):
+    cfg = kernel.launch_config(2, 256, 4096, ds, torch.float32)
+    assert (ds, cfg.poly, cfg.threads) in kernel.CANDIDATES
+    assert cfg.poly == 0 and cfg.threads == 128
+
+
+def test_launch_config_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="d_state 32"):
+        kernel.launch_config(1, 8, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.launch_config(1, 8, 64, 16, torch.float16)
+    with pytest.raises(ValueError, match="empty"):
+        kernel.launch_config(1, 0, 64, 16, torch.float32)
+    with pytest.raises(ValueError, match="not instantiated"):
+        kernel.make_config(1, 64, 16, torch.float32, 2, 512, 16)
+    with pytest.raises(ValueError, match="not instantiated"):
+        kernel.make_config(1, 64, 8, torch.float32, 0, 512, 16)
+    with pytest.raises(ValueError, match="tile"):
+        kernel.make_config(1, 64, 16, torch.float32, 0, 128, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.make_config(1, 64, 16, torch.float32, 0, 512, 32)
+
+
+def test_copy_bytes():
+    """16-byte chunks for aligned rows; narrower ones for a view that
+    starts one element in, or rows of an odd number of bf16 channels."""
+    u = torch.zeros(2, 4, 64, dtype=torch.bfloat16)
+    assert kernel.copy_bytes(u, u) == 16
+    wide = torch.zeros(2 * 4 * 64 + 1, dtype=torch.bfloat16)
+    view = wide[1:].view(2, 4, 64)
+    assert kernel.copy_bytes(view, u) == 2
+    odd = torch.zeros(2, 4, 33, dtype=torch.bfloat16)
+    assert kernel.copy_bytes(odd, odd) == 2
+    assert kernel.copy_bytes(odd.float(), odd.float()) == 4
