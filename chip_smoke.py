@@ -23,7 +23,13 @@ then the int8 quantize + error-feedback kernel (K2) against its plain
 version, bit for bit, and the training path: ``repro_torch.launch.train``
 with two ranks sharing the card over gloo, mesh (pod, data, model) =
 (2, 1, 1), full-width qwen2-0.5b in fp32 with the int8 slow tier, K1 in
-every layer's forward and K2 in every slow-tier leg, 3 steps.
+every layer's forward and K2 in every slow-tier leg, 4 steps with a
+checkpoint every 2 (``[train]``, run (a)); then ``[ckpt]``: (b) the same
+run with a failure injected after the step-2 save and a restart in new
+ranks that restores step 2 and runs steps 2-3, held to (a); (c) that
+step-2 checkpoint restored on one rank (mesh (1, 1, 1)) for one step.
+The checkpoints (≈ 7.9 GB a step) go under ``build/ckpt_smoke`` and are
+deleted after the phase; too little free disk there raises.
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -35,6 +41,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,8 +69,10 @@ PTXAS_ENTRY = {"flash_attention_fwd": ("fa_(?:bf16_wgmma|f32_simt)_kernel", "hd"
                "mamba_scan_fwd": ("mamba_scan_fwd_kernel", "ds"),
                "quantize_ef_fwd": ("quantize_ef_fwd_kernel", "block")}
 # the training phase (``launch.train.ONE_CARD_RUN``): two ranks share the
-# card, 3 steps of a 4 x 2048-token global batch
-TRAIN_RANKS, TRAIN_STEPS, TRAIN_TOKENS = 2, 3, 4 * 2048
+# card, 4 steps of a 4 x 2048-token global batch, a checkpoint every 2; the
+# checkpoint phase's crash comes right after the step-2 save
+TRAIN_RANKS, TRAIN_STEPS, TRAIN_TOKENS = 2, 4, 4 * 2048
+CKPT_EVERY, FAIL_AT = 2, 2
 
 
 def log(msg: str) -> None:
@@ -535,6 +544,22 @@ def quantize_bound_ms(n, block, dtype_name):
     return bound(3.0 * n, n * itemsize + n + 4 * (n // block) + 4 * n, "float32")
 
 
+def plan_slow_chunks(sizes) -> int:
+    """The int8 slow chunks (K2 launches) of one training step: the shared
+    planner's plan for full-width qwen2-0.5b on a mesh of ``sizes``, built
+    on the meta device."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.topology import topology_from_mesh_sizes
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import make_sync_plan
+    model = build_model(get_arch("qwen2-0.5b"),
+                        ModelSettings(param_dtype="float32", compute_dtype="float32"),
+                        device="meta")
+    plan, _ = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes),
+                             codec="int8")
+    return sum(len(s.schedule.slow_legs) for s in plan.sections)
+
+
 def train_sections():
     """The padded slow-leg sizes of the training path's 9 sections: the
     shared planner's plan for full-width qwen2-0.5b on (pod, data, model) =
@@ -611,95 +636,149 @@ def check_quantize(torch, gen, dev):
     return results
 
 
-def train_rank(rank, world, init_method):
-    """One rank of the training phase: the CLI's path (``run_rank``) with
-    hooks that check it.  Before training: the step-0 loss with the masked
-    attention on the same weights and batch, then every launch count set to
-    0.  After each step: its K1 and K2 launches, a finite loss, both ranks'
-    parameters bit-equal, and after the first step a nonzero EF state."""
+def train_args(ckpt_dir, mode):
+    """The CLI arguments of a training-phase run: ``launch.train``'s
+    ``ONE_CARD_RUN`` for 4 steps, checkpointing every 2 into ``ckpt_dir``
+    (the elastic run on one rank, mesh (1, 1, 1))."""
+    from repro_torch.launch import train as train_cli
+    argv = train_cli.ONE_CARD_RUN + ["--steps", str(TRAIN_STEPS), "--ckpt-dir",
+                                     ckpt_dir, "--ckpt-every", str(CKPT_EVERY)]
+    if mode == "elastic":
+        argv += ["--mesh", "1,1,1"]
+    return train_cli.resolve_args(train_cli.build_parser().parse_args(argv))
+
+
+def train_rank(rank, world, init_method, ckpt_dir, mode):
+    """One rank of a training-phase run, the CLI's path (``run_rank``) with
+    hooks that check it.  ``mode``: "ref" (the uninterrupted run), "crash"
+    (``fail_at_step`` 2: ``SimulatedFailure`` after the step-2 save),
+    "restart" (new ranks, which restore step 2) or "elastic" (one rank
+    restores step 2 and runs one step).  Before training ("ref" only): the
+    step-0 loss with the masked attention on the same weights and batch;
+    then every launch count set to 0.  After each step: its K1 and K2
+    launches, a finite loss, every rank's parameters bit-equal and a
+    nonzero EF state."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quantize import kernel as q_kernel
     from repro_torch.launch import train as train_cli
-    from repro_torch.runtime.train_loop import local_rows
+    from repro_torch.runtime.train_loop import SimulatedFailure, local_rows
     from repro_torch.utils.trees import tree_paths
-    args = train_cli.resolve_args(
-        train_cli.build_parser().parse_args(train_cli.ONE_CARD_RUN))
-    rec = {"steps": []}
+    args = train_args(ckpt_dir, mode)
+    rec = {"steps": [], "error": None}
+    live = {}
 
     def before_train(trainer, params, opt):
-        import dataclasses
-        model = trainer.model
-        batch = {k: torch.from_numpy(v).to(model.device) for k, v in
-                 local_rows(trainer.pipeline.batch_at(0), trainer.mesh).items()}
-        kernel_st = model.settings
-        model.settings = dataclasses.replace(kernel_st, attn_impl="masked")
-        fa_before = fa_kernel.LAUNCHES
-        with torch.no_grad():
-            loss = model.loss(params, batch)
-        model.settings = kernel_st
-        if fa_kernel.LAUNCHES != fa_before:
-            raise AssertionError("the masked path launched K1")
-        dist.all_reduce(loss)
-        rec["masked_loss0"] = loss.item() / TRAIN_RANKS
+        live["trainer"] = trainer
+        if mode == "crash":
+            trainer.cfg = dataclasses.replace(trainer.cfg, fail_at_step=FAIL_AT)
+        if mode == "ref":
+            model = trainer.model
+            batch = {k: torch.from_numpy(v).to(model.device) for k, v in
+                     local_rows(trainer.pipeline.batch_at(0), trainer.mesh).items()}
+            kernel_st = model.settings
+            model.settings = dataclasses.replace(kernel_st, attn_impl="masked")
+            fa_before = fa_kernel.LAUNCHES
+            with torch.no_grad():
+                loss = model.loss(params, batch)
+            model.settings = kernel_st
+            if fa_kernel.LAUNCHES != fa_before:
+                raise AssertionError("the masked path launched K1")
+            dist.all_reduce(loss)
+            rec["masked_loss0"] = loss.item() / world
         rec["mem_after_init_gb"] = torch.cuda.memory_allocated() / 1e9
+        rec["restore_s"] = trainer.restore_s
         torch.cuda.reset_peak_memory_stats()
         fa_kernel.LAUNCHES = q_kernel.LAUNCHES = 0  # just before the path
         rec["last"] = (0, 0)
+        live["t"] = time.perf_counter()
 
     def on_step(step, params, opt, metrics):
         torch.cuda.synchronize()
+        now = time.perf_counter()
         launches = (fa_kernel.LAUNCHES - rec["last"][0],
                     q_kernel.LAUNCHES - rec["last"][1])
         equal = True
         for p in tree_paths(params).values():  # the DP invariant, exactly
-            both = torch.empty((TRAIN_RANKS * p.numel(),), dtype=p.dtype,
+            both = torch.empty((world * p.numel(),), dtype=p.dtype,
                                device=p.device)
             dist.all_gather_into_tensor(both, p.detach().reshape(-1))
-            both = both.view(TRAIN_RANKS, -1)
+            both = both.view(world, -1)
             equal = equal and all(torch.equal(both[0], both[r])
-                                  for r in range(1, TRAIN_RANKS))
+                                  for r in range(1, world))
             del both
         efs = [e["ef"] for e in opt["sections"].values() if "ef" in e]
         rec["steps"].append(dict(
             step=step, loss=metrics["loss"], grad_norm=metrics["grad_norm"],
-            dt=metrics["dt"], fa=launches[0], q=launches[1],
-            params_equal=equal, n_ef=len(efs),
+            dt=metrics["dt"], wall=now - live["t"], fa=launches[0],
+            q=launches[1], params_equal=equal, n_ef=len(efs),
             ef_nonzero=all(bool((e != 0).any()) for e in efs),
             peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         rec["last"] = (fa_kernel.LAUNCHES, q_kernel.LAUNCHES)
+        if mode == "elastic":  # one step, then stop (no save: step 3 is odd)
+            live["trainer"].cfg = dataclasses.replace(live["trainer"].cfg,
+                                                      steps=step + 1)
+        live["t"] = time.perf_counter()
 
-    trainer, out = train_cli.run_rank(args, rank, world, init_method,
-                                      on_step=on_step, before_train=before_train)
+    try:
+        train_cli.run_rank(args, rank, world, init_method, on_step=on_step,
+                           before_train=before_train)
+    except SimulatedFailure as exc:
+        if mode != "crash":
+            raise
+        rec["error"] = type(exc).__name__
+    trainer = live.pop("trainer")
     rec["fa_total"], rec["q_total"] = rec.pop("last")
     rec["n_params"] = sum(p.numel() for p in trainer.model.parameters())
     rec["n_sections"] = len(trainer.plan.sections)
+    rec["slow_chunks"] = sum(len(s.schedule.slow_legs) for s in trainer.plan.sections)
+    rec["ckpt_log"] = trainer.ckpt_log
+    rec["writes"] = trainer.ckpt.stats  # member 0's
     return rec
 
 
-def run_training():
-    """The training phase: two spawned ranks on the one card; returns the
-    per-rank records after checking them."""
-    from repro_torch.launch import train as train_cli
-    recs = train_cli.run_ranks(train_rank, TRAIN_RANKS, timeout=900)
+def check_train_steps(tag, recs, world, slow_chunks):
+    """Log and check each step of a training-phase run: 24 K1 launches a
+    rank a step, ``slow_chunks`` K2 launches (9 on the two-rank mesh),
+    finite losses, parameters bit-equal over the ranks, 9 nonzero EF
+    states, and every rank agreeing on the (pmean) loss."""
     qwen_layers = 24
     for rank, rec in enumerate(recs):
         for st in rec["steps"]:
-            log(f"[train] rank {rank} step {st['step']}: loss={st['loss']:.6f} "
+            log(f"[{tag}] rank {rank} step {st['step']}: loss={st['loss']:.6f} "
                 f"grad_norm={st['grad_norm']:.4f} step_s={st['dt']:.3f} "
-                f"tok/s={TRAIN_TOKENS / st['dt']:.0f} (global batch, both ranks) "
+                f"tok/s={TRAIN_TOKENS / st['dt']:.0f} (global batch, "
+                f"{world} rank{'s' if world > 1 else ''}) "
                 f"launches flash_attention_fwd={st['fa']} quantize_ef_fwd={st['q']} "
                 f"params_bit_equal={st['params_equal']} ef_nonzero={st['ef_nonzero']} "
                 f"peak_mem_gb={st['peak_gb']:.2f}")
-            if not (st["fa"] == qwen_layers and st["q"] == rec["n_sections"] == 9):
-                raise AssertionError(f"rank {rank} step {st['step']} launched "
-                                     f"K1 {st['fa']}, K2 {st['q']}; expected "
-                                     f"{qwen_layers} and 9")
+            if not (st["fa"] == qwen_layers and st["q"] == slow_chunks
+                    and rec["slow_chunks"] == slow_chunks):
+                raise AssertionError(f"[{tag}] rank {rank} step {st['step']} "
+                                     f"launched K1 {st['fa']}, K2 {st['q']}; "
+                                     f"expected {qwen_layers} and {slow_chunks}")
             if not (math.isfinite(st["loss"]) and st["params_equal"]
-                    and st["ef_nonzero"] and st["n_ef"] == 9):
-                raise AssertionError(f"rank {rank} step {st['step']}: {st}")
-        if len(rec["steps"]) != TRAIN_STEPS or rec["n_params"] != 494_032_768:
+                    and st["ef_nonzero"] and st["n_ef"] == rec["n_sections"] == 9):
+                raise AssertionError(f"[{tag}] rank {rank} step {st['step']}: {st}")
+        if rec["n_params"] != 494_032_768:
+            raise AssertionError(f"[{tag}] rank {rank}: {rec}")
+    if any(abs(a["loss"] - b["loss"]) > 0
+           for r in recs[1:] for a, b in zip(recs[0]["steps"], r["steps"])):
+        raise AssertionError(f"[{tag}] the ranks disagree on the (pmean) loss")
+
+
+def run_training(ckpt_root):
+    """The training phase, run (a) of the checkpoint phase: two spawned
+    ranks on the one card, 4 steps, a checkpoint every 2; returns the
+    per-rank records after checking them."""
+    from repro_torch.launch import train as train_cli
+    recs = train_cli.run_ranks(train_rank, TRAIN_RANKS, os.path.join(ckpt_root, "ref"),
+                               "ref", timeout=900)
+    check_train_steps("train", recs, TRAIN_RANKS, 9)
+    for rank, rec in enumerate(recs):
+        if [st["step"] for st in rec["steps"]] != list(range(TRAIN_STEPS)):
             raise AssertionError(f"rank {rank}: {rec}")
         loss0 = rec["steps"][0]["loss"]
         rel = abs(rec["masked_loss0"] - loss0) / abs(loss0)
@@ -708,9 +787,142 @@ def run_training():
             f"memory after init {rec['mem_after_init_gb']:.2f} GB")
         if rel > 1e-4:
             raise AssertionError("the kernel path's step-0 loss is off the masked one")
-    if any(abs(a["loss"] - b["loss"]) > 0 for a, b in zip(recs[0]["steps"], recs[1]["steps"])):
-        raise AssertionError("the ranks disagree on the (pmean) loss")
     return recs
+
+
+def dir_bytes(path) -> int:
+    return sum(e.stat().st_size for e in os.scandir(os.path.join(path, "arrays"))) \
+        + os.path.getsize(os.path.join(path, "index.json"))
+
+
+def compare_checkpoints(a, b):
+    """{kind: (elements that differ, all elements, max |a - b|)} over the
+    leaves of two checkpoint step dirs, by kind: params, m, v, ef (the
+    data state's integers under their own names)."""
+    import numpy as np
+    out = {}
+    for name in sorted(os.listdir(os.path.join(a, "arrays"))):
+        kind = ("params" if name.startswith("params__") else
+                name.rsplit("__", 1)[-1][:-len(".npy")])
+        x = np.load(os.path.join(a, "arrays", name), mmap_mode="r")
+        y = np.load(os.path.join(b, "arrays", name), mmap_mode="r")
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{name}: {x.shape} {x.dtype} vs {y.shape} {y.dtype}")
+        d = np.subtract(x, y)
+        n, tot, mx = out.get(kind, (0, 0, 0.0))
+        out[kind] = (n + int(np.count_nonzero(d)), tot + x.size,
+                     max(mx, float(np.abs(d).max())))
+        del x, y, d
+    return out
+
+
+def run_checkpoint_phase(ckpt_root, ref_recs, card):
+    """The checkpoint phase, after the training phase (run a): (b) the
+    same run with a failure injected after the step-2 save, then a restart
+    in new ranks that restores step 2 and runs steps 2-3; (c) an elastic
+    restart of that step-2 checkpoint on one rank (mesh (1, 1, 1), the
+    whole global batch) for one step.  Checks and prints what each
+    restored, its losses against (a), the checkpoint's bytes on disk and
+    its save and restore seconds."""
+    import numpy as np
+    from repro_torch.launch import train as train_cli
+    ref_dir, ft_dir = (os.path.join(ckpt_root, d) for d in ("ref", "ft"))
+    ref_loss = {st["step"]: st["loss"] for st in ref_recs[0]["steps"]}
+    n_params = ref_recs[0]["n_params"]
+    want_bytes = 4 * n_params * 4  # params, m, v, EF in fp32
+
+    # the uninterrupted run's saves: size, blocking part, writer, step time
+    for w, blk in zip(ref_recs[0]["writes"], ref_recs[0]["ckpt_log"]):
+        log(f"[ckpt] (a) save of step {w['step']}: {w['bytes']} bytes snapshot "
+            f"(expected ≈ 4 x {n_params} x 4 = {want_bytes}); blocking "
+            f"{blk['blocking_s']:.3f} s (gather {blk['gather_s']:.3f} s, host "
+            f"snapshot {w['snapshot_s']:.3f} s); writer thread {w['write_s']:.3f} s "
+            f"({w['bytes'] / w['write_s'] / 1e9:.2f} GB/s) | {card}")
+    on_disk = dir_bytes(os.path.join(ref_dir, f"step_{TRAIN_STEPS:08d}"))
+    log(f"[ckpt] (a) bytes on disk of step {TRAIN_STEPS}: {on_disk} ({on_disk / 1e9:.2f} GB)")
+    if abs(on_disk - want_bytes) > 0.01 * want_bytes:
+        raise AssertionError(f"checkpoint holds {on_disk} bytes, expected ≈ {want_bytes}")
+    steps = ref_recs[0]["steps"]
+    for st in steps:
+        saved = st["step"] + 1 in {w["step"] for w in ref_recs[0]["writes"]}
+        log(f"[ckpt] (a) step {st['step']}: step_s {st['dt']:.3f}, wall from the "
+            f"previous step's end {st['wall']:.3f} s"
+            + (" (ends in a save)" if saved else ""))
+    shutil.rmtree(os.path.join(ref_dir, f"step_{CKPT_EVERY:08d}"))  # disk
+
+    # (b) the crash: SimulatedFailure right after the step-2 save
+    t0 = time.perf_counter()
+    crash = train_cli.run_ranks(train_rank, TRAIN_RANKS, ft_dir, "crash", timeout=900)
+    log(f"[ckpt] (b) crash run: {time.perf_counter() - t0:.1f} s wall, ranks "
+        f"started, two steps, the save and its drain")
+    check_train_steps("ckpt crash", crash, TRAIN_RANKS, 9)
+    if not all(r["error"] == "SimulatedFailure" and len(r["steps"]) == FAIL_AT
+               for r in crash):
+        raise AssertionError(f"the injected failure did not fire after step {FAIL_AT}")
+    with open(os.path.join(ft_dir, "LATEST")) as f:
+        latest = f.read().strip()
+    if latest != f"step_{FAIL_AT:08d}" or dir_bytes(os.path.join(ft_dir, latest)) != on_disk:
+        raise AssertionError(f"the crash left LATEST={latest!r}, not a complete step {FAIL_AT}")
+    log(f"[ckpt] (b) crash: SimulatedFailure after the step-{FAIL_AT} save on both "
+        f"ranks; the write was drained first: {latest} complete, "
+        f"{dir_bytes(os.path.join(ft_dir, latest))} bytes")
+
+    # (c) elastic: restore step 2 on one rank, the whole global batch, one step
+    t0 = time.perf_counter()
+    el = train_cli.run_ranks(train_rank, 1, ft_dir, "elastic", timeout=900)
+    log(f"[ckpt] (c) elastic run: {time.perf_counter() - t0:.1f} s wall")
+    check_train_steps("ckpt elastic", el, 1,
+                      plan_slow_chunks({"pod": 1, "data": 1, "model": 1}))
+    st = el[0]["steps"]
+    if [s["step"] for s in st] != [FAIL_AT] or el[0]["restore_s"] is None:
+        raise AssertionError(f"the elastic run did not restore step {FAIL_AT}: {st}")
+    ok = abs(st[0]["loss"] - ref_loss[FAIL_AT]) <= 1e-4 + 5e-3 * abs(ref_loss[FAIL_AT])
+    log(f"[ckpt] (c) elastic: mesh (1,1,1) restored step {FAIL_AT} in "
+        f"{el[0]['restore_s']:.3f} s and ran it: loss {st[0]['loss']!r} vs (a) "
+        f"{ref_loss[FAIL_AT]!r} (rel {abs(st[0]['loss'] / ref_loss[FAIL_AT] - 1):.2e}; "
+        f"tol rtol 5e-3 atol 1e-4: {'ok' if ok else 'FAIL'}); K1 {st[0]['fa']}, "
+        f"K2 {st[0]['q']} (the plan's slow chunks on one rank: "
+        f"{el[0]['slow_chunks']}); step_s {st[0]['dt']:.3f}, peak "
+        f"{st[0]['peak_gb']:.2f} GB | {card}")
+    if not ok:
+        raise AssertionError("the elastic step's loss is off the reference")
+
+    # (b) the restart in new ranks: restore step 2, run steps 2-3
+    t0 = time.perf_counter()
+    out = train_cli.run_ranks(train_rank, TRAIN_RANKS, ft_dir, "restart", timeout=900)
+    log(f"[ckpt] (b) restart run: {time.perf_counter() - t0:.1f} s wall")
+    check_train_steps("ckpt restart", out, TRAIN_RANKS, 9)
+    for rank, rec in enumerate(out):
+        if [s["step"] for s in rec["steps"]] != [FAIL_AT, FAIL_AT + 1]:
+            raise AssertionError(f"rank {rank} did not resume at step {FAIL_AT}")
+        log(f"[ckpt] (b) restart rank {rank}: restored step {FAIL_AT} in "
+            f"{rec['restore_s']:.3f} s | {card}")
+    for s in out[0]["steps"]:
+        diff = abs(s["loss"] - ref_loss[s["step"]])
+        log(f"[ckpt] (b) step {s['step']}: loss {s['loss']!r} vs (a) "
+            f"{ref_loss[s['step']]!r} (abs diff {diff:.3e}, "
+            f"{'bit-equal' if diff == 0 else 'differs'})")
+        if diff > 1e-5 + 1e-4 * abs(ref_loss[s["step"]]):  # the JAX test's
+            raise AssertionError(f"restart step {s['step']} loss is off the reference")
+    if out[0]["steps"][0]["loss"] != ref_loss[FAIL_AT]:
+        raise AssertionError("the restored parameters give another step-2 loss")
+    final = f"step_{TRAIN_STEPS:08d}"
+    t0 = time.perf_counter()
+    diff = compare_checkpoints(os.path.join(ref_dir, final), os.path.join(ft_dir, final))
+    log(f"[ckpt] (b) step-{TRAIN_STEPS} checkpoints compared in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kind, (n, tot, mx) in diff.items():
+        log(f"[ckpt] (b) step-{TRAIN_STEPS} checkpoint vs (a): {kind} "
+            f"{'bit-equal' if n == 0 else f'{n} of {tot} elements differ, max abs diff {mx:.3e}'}")
+    bound = 2 * train_args(ft_dir, "restart").lr * TRAIN_STEPS  # as the trainer tests
+    if diff["params"][2] > bound:
+        raise AssertionError(f"restart parameters moved {diff['params'][2]} from (a)")
+    if any(n for n, _, _ in diff.values()):
+        log("[ckpt] (b) cause: the checkpoint holds pod 0's int8 error feedback "
+            "only (the JAX format: the EF spec names no pod axis), so rank 1 "
+            "restarts with rank 0's residual and its step-2 slow leg rounds "
+            "differently; the step-2 loss, before that sync, is bit-equal")
+    return el, out
 
 
 def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
@@ -937,8 +1149,23 @@ def main() -> None:
     phase_done("K2")
     log(f"[train] card memory in use by this process before the ranks start: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    recs = run_training()
-    phase_done("train: 2 ranks x 3 steps")
+    # checkpoints go under build/ in the checkout, ≈ 7.9 GB a step: (a)'s
+    # step 4 stays until (b)'s restart has written its own step 4 beside
+    # its step 2, so three are on disk at most
+    ckpt_root = os.path.join(HERE, "build", "ckpt_smoke")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    os.makedirs(ckpt_root)
+    need = int(3.15 * 4 * 494_032_768 * 4)
+    free = shutil.disk_usage(ckpt_root).free
+    log(f"[ckpt] free disk under {ckpt_root}: {free / 1e9:.1f} GB (need {need / 1e9:.1f})")
+    if free < need:
+        raise RuntimeError(f"{free} bytes free under {ckpt_root}; the "
+                           f"checkpoint phase needs {need}")
+    recs = run_training(ckpt_root)
+    phase_done(f"train: 2 ranks x {TRAIN_STEPS} steps, checkpoints at 2 and 4 (a)")
+    run_checkpoint_phase(ckpt_root, recs, card)
+    shutil.rmtree(ckpt_root)
+    phase_done("ckpt: crash, elastic restart, restart")
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,8 +2,8 @@
 
 A copy of ``repro.core.planner`` (framework-free): leaf shapes come as
 :class:`ShapeDtype` records with numpy dtype names instead of
-``jax.ShapeDtypeStruct``, and the candidate report (``keep_report``,
-``replan``) raises until ``obs/plan_report`` is copied.
+``jax.ShapeDtypeStruct``; the candidate report (``keep_report``,
+``replan``) comes from the port's copy of ``obs/plan_report``.
 
 The paper's LPPU owns the NIC pool's control plane — it maps sub-flows to
 NICs by queue depth and allocates pool memory (Sections / Buffers).  XLA
@@ -33,7 +33,7 @@ from __future__ import annotations
 import json
 import math
 from dataclasses import dataclass, field, replace
-from typing import (Dict, List, Optional, Sequence, Tuple,
+from typing import (TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
 import numpy as np
@@ -43,6 +43,10 @@ from repro_torch.core.nicpool import NicPool
 from repro_torch.core.schedule import (CommSchedule, SyncConfig, build_all_to_all,
                                  build_schedule)
 from repro_torch.core.topology import FabricSpec, TwoTierTopology, as_fabric
+
+if TYPE_CHECKING:  # import-time cycle: obs/__init__ -> audit -> fabric_sim
+    from repro_torch.obs.plan_report import PlanReport
+
 
 class DtypeName(str):
     """A numpy dtype name (``"float32"``, ``"bfloat16"``) with the
@@ -65,12 +69,6 @@ class ShapeDtype:
     def __post_init__(self):
         object.__setattr__(self, "shape", tuple(int(d) for d in self.shape))
         object.__setattr__(self, "dtype", DtypeName(self.dtype))
-
-
-def _plan_report_missing():
-    raise NotImplementedError(
-        "PlanReport (repro.obs.plan_report) is not copied into the port "
-        "yet: ROADMAP.md queue 1")
 
 
 @dataclass(frozen=True)
@@ -300,7 +298,7 @@ class Planner:
         shapes on the healthy fabric; None diffs against nothing and
         reports every section as added).  ``plan_kw`` forwards to
         :meth:`plan` (``bucket_bytes``, ``avoid_dims``, ...)."""
-        diff_plans = _plan_report_missing()
+        from repro_torch.obs.plan_report import diff_plans
         new_plan = self.for_fabric(degraded).plan(shapes, **plan_kw)
         return new_plan, diff_plans(old_plan, new_plan, reason=reason)
 
@@ -441,7 +439,7 @@ class Planner:
                        priced: List[Tuple[float, dict, object]]) -> None:
         if not self.keep_report or name is None:
             return
-        PlanReport = _plan_report_missing()
+        from repro_torch.obs.plan_report import PlanReport
         if self.report is None:
             self.report = PlanReport()
         self.report.sections.append(
@@ -668,7 +666,8 @@ class Planner:
         avoid_dims = avoid_dims or {}
         local_shapes = local_shapes or {}
         if self.keep_report:
-            _plan_report_missing()
+            from repro_torch.obs.plan_report import PlanReport
+            self.report = PlanReport()
         sections: List[Section] = []
         small: List[Tuple[str, ShapeDtype]] = []
         for path, sds in sorted(shapes.items()):

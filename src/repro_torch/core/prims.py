@@ -58,11 +58,15 @@ class Mesh:
             "cpu" if self.backend == "gloo" else "cuda",
             torch.arange(world).reshape(shape), mesh_dim_names=names)
         self.groups = {a: self.device_mesh.get_group(a) for a in names}
-        rem, coords = dist.get_rank(), {}
-        for a in reversed(names):
-            coords[a] = rem % self.sizes[a]
-            rem //= self.sizes[a]
-        self.coords = coords
+        self.coords = self.coords_of(dist.get_rank())
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """A member's index along each axis, by its flat rank."""
+        coords = {}
+        for a in reversed(self.axis_names):
+            coords[a] = rank % self.sizes[a]
+            rank //= self.sizes[a]
+        return coords
 
     def size(self, axis: str) -> int:
         return self.sizes[axis]

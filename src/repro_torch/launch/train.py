@@ -6,6 +6,9 @@ kernel (K1) in every layer's forward and, with ``--codec int8``, the
 quantize kernel (K2) on every slow-tier leg.  One process per mesh rank:
 run it under ``torchrun`` (which sets ``WORLD_SIZE``), or let it spawn the
 ranks itself.  ``--device cuda`` (the default) raises without a card.
+With ``--ckpt-dir`` and ``--ckpt-every`` member 0 checkpoints every that
+many steps (and on SIGTERM), and a second run with the same ``--ckpt-dir``
+resumes from the newest one, on this mesh or another.
 
 Examples::
 
@@ -99,10 +102,11 @@ def run_rank(args: argparse.Namespace, rank: int, world: int,
              keep_group: bool = False):
     """One rank of a training run: join the process group, build the mesh,
     the model (weights from seed 0, as every rank draws them alike) and the
-    ``Trainer``, and train.  ``before_train(trainer, params, opt)`` and
-    ``on_step`` are hooks for callers that check the run; with
-    ``keep_group`` the process group stays up for the caller to use and
-    destroy.  Returns (trainer, the result of ``Trainer.train``)."""
+    ``Trainer``, restore the newest checkpoint if there is one, and train.
+    ``before_train(trainer, params, opt)`` and ``on_step`` are hooks for
+    callers that check the run; with ``keep_group`` the process group stays
+    up for the caller to use and destroy.  Returns (trainer, the result of
+    ``Trainer.train``)."""
     dev = rank_device(args.device, args.backend, rank, world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -128,7 +132,8 @@ def run_rank(args: argparse.Namespace, rank: int, world: int,
                                           else args.metrics_path))
         trainer = Trainer(model, mesh, shape, cfg)
         trainer.install_preemption_handler()
-        params, opt, start = trainer.init_state()
+        # a second run with the same --ckpt-dir resumes from its newest step
+        params, opt, start = trainer.try_restore() or trainer.init_state()
         if before_train is not None:
             before_train(trainer, params, opt)
         out = trainer.train(params, opt, start, on_step=on_step)

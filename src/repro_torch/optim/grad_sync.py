@@ -24,7 +24,8 @@ State layout.  The JAX package holds the sync state as global arrays with
 ``PartitionSpec``s (:func:`sync_state_specs`); here each rank holds only
 its local block of each array, the shard its spec assigns to this member.
 :func:`local_block` and :func:`assemble` map between the two (for tests
-and, later, checkpoints).  Parameters are updated in place.
+and for checkpoints, which hold the global arrays).  Parameters are
+updated in place.
 """
 from __future__ import annotations
 
@@ -173,6 +174,13 @@ def _global_shape(sec: Section, flat_shapes: Dict[str, Any],
     return tuple(flat_shapes[sec.leaf_paths[0]].shape)
 
 
+def state_shapes(plan: SyncPlan, param_shapes: Dict[str, Any],
+                 ss: SyncSettings) -> Dict[str, Tuple[int, ...]]:
+    """{section: the global shape of its m, v (and EF)}."""
+    flat = tree_paths(param_shapes)
+    return {sec.name: _global_shape(sec, flat, ss) for sec in plan.sections}
+
+
 def sync_state_specs(plan: SyncPlan, param_shapes: Dict[str, Any],
                      ss: SyncSettings) -> Dict[str, Any]:
     """The JAX package's shard_map specs of the sync state, as tuples."""
@@ -255,10 +263,19 @@ def assemble(blocks: Dict[Tuple, Any], spec: Spec, shape: Sequence[int],
              sizes: Dict[str, int], concat: Callable):
     """The global array from every member's block: ``blocks`` maps a
     member's coords (a tuple of (axis, index) pairs) to its block;
-    ``concat(parts, dim)`` joins numpy arrays or tensors.  Replicated dims
-    take any member's block (they are equal)."""
+    ``concat(parts, dim)`` joins numpy arrays or tensors.  Where several
+    members hold the same block (a dim replicated over an axis), the block
+    of the first of them in mesh order (slowest axis major, the order of
+    ``sizes``) is taken: the copy ``jax.device_get`` returns, that of the
+    device with ``replica_id`` 0.  It matters for a state that differs
+    across an axis its spec does not name: the int8 error feedback of the
+    pod members (ROADMAP.md queue 3)."""
+    def mesh_order(item):
+        coords = dict(item[0])
+        return tuple(coords.get(a, 0) for a in sizes)
+
     by_index: Dict[Tuple[int, ...], Any] = {}
-    for key, blk in blocks.items():
+    for key, blk in sorted(blocks.items(), key=mesh_order):
         coords = dict(key)
         by_index.setdefault(tuple(_block_index(e, coords, sizes)
                                   for e in spec), blk)

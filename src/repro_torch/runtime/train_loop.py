@@ -1,6 +1,6 @@
 """Training runtime — the port of ``repro.runtime.train_loop``'s DFabric
-explicit-DP step, its ``Trainer`` (train loop, preemption handler, metrics)
-and the straggler watchdog.
+explicit-DP step, its ``Trainer`` (train loop, checkpoint/restart,
+preemption, failure injection, metrics) and the straggler watchdog.
 
 One process is one member of the DP mesh (pod [, host], data; the model
 axis must have size 1).  Each member runs the model's forward and backward
@@ -9,10 +9,16 @@ AdamW update through the paper's hierarchical striped collectives
 (``optim.grad_sync``), with axis names resolved against the bound
 :class:`~repro_torch.core.prims.Mesh`.
 
+Checkpoints are the reference's format (``checkpoint.manager``): the
+parameters, the sync state as the JAX package's *global* arrays and the
+data pipeline's state.  Member 0 writes them: the other members' blocks
+are gathered to it on the main thread (the writer thread issues no
+collective), and every member restores by cutting its own block of the
+global arrays under the current mesh's specs — so a job may restart on
+another mesh (elastic restart).
+
 Not ported yet (they raise, naming ROADMAP.md): the GSPMD step
-(``mode="gspmd"``), tensor parallelism (a model axis > 1) and checkpoints
-(``ckpt_every`` with a ``ckpt_dir``; the checkpoint manager is the next
-slice).
+(``mode="gspmd"``) and tensor parallelism (a model axis > 1).
 """
 from __future__ import annotations
 
@@ -24,11 +30,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import prims
 from repro_torch.core.planner import Planner, SyncPlan
 from repro_torch.core.topology import topology_from_mesh_sizes
+from repro_torch.convert import load_jax_params
 from repro_torch.models.registry import Model
 from repro_torch.models.sharding import MeshInfo
 from repro_torch.obs.metrics import MetricsLogger
@@ -271,10 +280,19 @@ class TrainerConfig:
 
 
 class Trainer:
-    """End-to-end training driver (one per mesh member) with preemption
-    handling.  ``mesh`` is this process's :class:`prims.Mesh`; the model's
-    weights are the initial parameters (every member must build them from
-    the same seed, or load the same weights)."""
+    """End-to-end training driver (one per mesh member) with
+    checkpoint/restart and preemption.  ``mesh`` is this process's
+    :class:`prims.Mesh`; the model's weights are the initial parameters
+    (every member must build them from the same seed, or load the same
+    weights).
+
+    Faults.  Before an exception leaves :meth:`train` the member drains its
+    pending checkpoint write, so a restarted job never meets a half-written
+    step it could sweep (the reference's race, ROADMAP.md queue 3, item 1).
+    An injected failure (``fail_at_step``) and a preemption are taken by
+    every member at the same step (a preemption flag is agreed on over the
+    mesh each step) and end at a barrier, so no member leaves while member
+    0 still writes."""
 
     def __init__(self, model: Model, mesh: prims.Mesh, shape: ShapeConfig,
                  cfg: TrainerConfig, topo=None,  # TwoTierTopology | FabricSpec
@@ -285,8 +303,6 @@ class Trainer:
             _not_ported(f"mode={cfg.mode!r} (the GSPMD step)")
         if mesh.sizes.get("model", 1) > 1:
             _not_ported("tensor parallelism (a model axis > 1)")
-        if cfg.ckpt_every and cfg.ckpt_dir:
-            _not_ported("checkpointing (the checkpoint manager)")
         self.model, self.mesh, self.shape, self.cfg = model, mesh, shape, cfg
         self.topo = topo if topo is not None else topology_from_mesh_sizes(mesh.sizes)
         self.pipeline = data_pipeline or TokenPipeline(
@@ -296,9 +312,21 @@ class Trainer:
         self.plan, self.ss = make_sync_plan(model, mesh.sizes, self.topo,
                                             codec=cfg.codec,
                                             pipeline=cfg.pipeline)
+        # the settings the sync state is laid out with (paper mode when
+        # ZeRO-1 is off, as make_dfabric_train_step runs it)
+        self._state_ss = (self.ss if cfg.zero1
+                          else dataclasses.replace(self.ss, mode="paper"))
         self.step_fn, self._init_state = make_dfabric_train_step(
             model, mesh, self.plan, self.ss, opt_cfg, lr_fn,
             microbatches=cfg.microbatches, zero1=cfg.zero1)
+        # member 0 writes; the others only read (restore)
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep,
+                                       read_only=mesh.flat_rank != 0)
+                     if cfg.ckpt_every and cfg.ckpt_dir else None)
+        #: one record a checkpoint save: step, gather_s (the sync state's
+        #: blocks to member 0), blocking_s (gather and host snapshot)
+        self.ckpt_log: List[Dict[str, float]] = []
+        self.restore_s: Optional[float] = None
         self.watchdog = StragglerWatchdog()
         self._preempted = False
         self.metrics_log: List[Dict[str, float]] = []
@@ -315,20 +343,147 @@ class Trainer:
         for s in signals:
             signal.signal(s, handler)
 
-    # ---- init ----------------------------------------------------------------------
+    def _preempted_anywhere(self) -> bool:
+        """Whether any member was preempted: every member then saves and
+        stops at the same step."""
+        if dist.get_world_size() == 1:
+            return self._preempted
+        flag = torch.tensor([int(self._preempted)],
+                            device=self._transport_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
+    def _transport_device(self) -> torch.device:
+        """Where the trainer's own collectives put their tensors: host
+        memory for gloo, the model's card for nccl."""
+        return (torch.device("cpu") if self.mesh.backend == "gloo"
+                else self.model.device)
+
+    # ---- init / restore -----------------------------------------------------------
     def init_state(self):
         """(the model's parameter tree, differentiable, zero sync state,
         step 0)."""
         self.model.requires_grad_(True)
         return self.model.params(), self._init_state(), 0
 
+    def try_restore(self):
+        """(params, this member's sync state, step) from the newest
+        checkpoint, or None.  The parameters are copied into the model in
+        place (they stay its leaves); the sync state is this member's
+        block of each global array under the current mesh's specs."""
+        if self.ckpt is None:
+            return None
+        t0 = time.perf_counter()
+        out = self.ckpt.restore()
+        if out is None:
+            return None
+        step = int(out["data_state"]["step"])
+        opt = self._local_sync_state(out["opt"])
+        # checks every path, shape and dtype against the model first
+        load_jax_params(self.model, tree_paths(out["params"]))
+        self.model.requires_grad_(True)
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+        self.restore_s = time.perf_counter() - t0
+        self.metrics.info(f"restored step {step} from {self.cfg.ckpt_dir}")
+        return self.model.params(), opt, step
+
+    def _local_sync_state(self, saved: Dict[str, Any]) -> Dict[str, Any]:
+        """This member's blocks of a checkpoint's global sync state.  A
+        checkpoint whose sections, entries or shapes differ from this
+        mesh's plan raises ``ValueError``, as the JAX restore fails on it
+        (a pytree or sharding mismatch)."""
+        pshapes = self.model.param_shapes()
+        specs = grad_sync.sync_state_specs(self.plan, pshapes, self._state_ss)
+        shapes = grad_sync.state_shapes(self.plan, pshapes, self._state_ss)
+        if set(saved["sections"]) != set(specs["sections"]):
+            raise ValueError(
+                f"the checkpoint's sync state has sections "
+                f"{sorted(saved['sections'])}; the plan on mesh "
+                f"{self.mesh.sizes} has {sorted(specs['sections'])}")
+        state: Dict[str, Any] = {"step": int(saved["step"]), "sections": {}}
+        for name, entry_specs in specs["sections"].items():
+            entry = saved["sections"][name]
+            if set(entry) != set(entry_specs):
+                raise ValueError(f"{name}: the checkpoint holds {sorted(entry)}, "
+                                 f"the plan {sorted(entry_specs)}")
+            state["sections"][name] = {}
+            for k, spec in entry_specs.items():
+                g = entry[k]
+                if tuple(g.shape) != shapes[name] or g.dtype != np.float32:
+                    raise ValueError(
+                        f"{name}/{k}: the checkpoint holds {g.dtype} "
+                        f"{tuple(g.shape)}; the plan on mesh "
+                        f"{self.mesh.sizes} wants float32 {shapes[name]}")
+                blk = grad_sync.local_block(g, spec, self.mesh.coords,
+                                            self.mesh.sizes)
+                state["sections"][name][k] = torch.from_numpy(
+                    np.ascontiguousarray(blk)).to(self.model.device)
+        return state
+
+    # ---- save ------------------------------------------------------------------------
+    def _global_sync_state(self, opt) -> Optional[Dict[str, Any]]:
+        """The sync state as the JAX package's global arrays, on member 0
+        (None on the others).  A block its spec shards over a member axis
+        is gathered from every member (on this, the main thread); a
+        replicated one is member 0's own, which is what the JAX package's
+        ``device_get`` saves (for the int8 EF, pod 0's residual)."""
+        pshapes = self.model.param_shapes()
+        specs = grad_sync.sync_state_specs(self.plan, pshapes, self._state_ss)
+        shapes = grad_sync.state_shapes(self.plan, pshapes, self._state_ss)
+        sizes, world = self.mesh.sizes, dist.get_world_size()
+        writer = self.mesh.flat_rank == 0
+        out = {"step": np.asarray(opt["step"], dtype=np.int32), "sections": {}}
+        for name, entry_specs in specs["sections"].items():
+            entry = {}
+            for k, spec in entry_specs.items():
+                blk = opt["sections"][name][k]
+                if grad_sync.local_shape(shapes[name], spec, sizes) == shapes[name]:
+                    entry[k] = blk  # every member holds the global array
+                    continue
+                src = blk.detach().to(self._transport_device()).contiguous()
+                parts = ([torch.empty_like(src) for _ in range(world)]
+                         if writer else None)
+                dist.gather(src, parts, dst=0)
+                if writer:
+                    blocks = {tuple(sorted(self.mesh.coords_of(r).items())):
+                              parts[r].cpu().numpy() for r in range(world)}
+                    entry[k] = grad_sync.assemble(
+                        blocks, spec, shapes[name], sizes,
+                        lambda ps, d: np.concatenate(ps, d))
+            out["sections"][name] = entry
+        return out if writer else None
+
+    def _save(self, step: int, params, opt, blocking: bool = False) -> None:
+        """A checkpoint of ``step``, on every member (the gather is
+        collective); member 0 writes it."""
+        t0 = time.perf_counter()
+        opt_global = self._global_sync_state(opt)
+        gather_s = time.perf_counter() - t0
+        if not self.ckpt.read_only:
+            self.ckpt.save(step, {"params": params, "opt": opt_global,
+                                  "data_state": self.pipeline.state_dict(step)},
+                           blocking=blocking)
+        self.ckpt_log.append({"step": step, "gather_s": gather_s,
+                              "blocking_s": time.perf_counter() - t0})
+
+    def _settle(self, barrier: bool) -> None:
+        """Drain the pending write; with ``barrier``, meet every member
+        after it, so none leaves while member 0 still writes."""
+        if self.ckpt is None:
+            return
+        self.ckpt.wait()
+        if barrier and dist.get_world_size() > 1:
+            dist.barrier()
+
     # ---- the loop -------------------------------------------------------------------
     def train(self, params=None, opt=None, start_step: int = 0,
               on_step: Optional[Callable] = None) -> Dict[str, Any]:
-        """Train to ``cfg.steps``.  ``on_step(step, params, opt, metrics)``,
-        when given, runs after each step."""
+        """Train to ``cfg.steps``, from the newest checkpoint when there is
+        one and no ``params`` are given.  ``on_step(step, params, opt,
+        metrics)``, when given, runs after each step."""
         if params is None:
-            params, opt, start_step = self.init_state()
+            params, opt, start_step = self.try_restore() or self.init_state()
         dev = self.model.device
         step = start_step
         try:
@@ -353,13 +508,26 @@ class Trainer:
                 if on_step is not None:
                     on_step(step, params, opt, metrics)
                 step += 1
+                if self.ckpt and step % self.cfg.ckpt_every == 0:
+                    self._save(step, params, opt)
                 if self.cfg.fail_at_step is not None and step >= self.cfg.fail_at_step:
                     raise SimulatedFailure(f"injected failure at step {step}")
-                if self._preempted:
+                if self._preempted_anywhere():
+                    if self.ckpt:
+                        self._save(step, params, opt, blocking=True)
                     break
+        except BaseException as exc:
+            # every member takes an injected failure at the same step, so
+            # they may meet; another error may be this member's alone
+            try:
+                self._settle(barrier=isinstance(exc, SimulatedFailure))
+            except Exception as err:
+                raise err from exc
+            raise
         finally:
             # emit the final 'summary' record and release the JSONL handle
             self.metrics.close()
+        self._settle(barrier=True)
         return {"params": params, "opt": opt, "step": step,
                 "metrics": self.metrics_log,
                 "straggler_events": self.watchdog.events}

@@ -1,8 +1,10 @@
 """The port's copies of the framework-free planner stack
-(``repro_torch.core.{mempool,topology,nicpool,schedule,cost_model,planner}``)
-and of ``data/pipeline.py``, held against the JAX package's originals: the
-same sync plan, JSON for JSON, for qwen2-0.5b on every mesh the training
-tests run, and the same source where the copy is verbatim."""
+(``repro_torch.core.{mempool,topology,nicpool,schedule,cost_model,planner}``),
+of ``data/pipeline.py`` and of the simulators and their audit stack
+(``obs/{plan_report,trace,audit,capture}``, ``sim``, ``serve_sim``), held
+against the JAX package's originals: the same sync plan, JSON for JSON, for
+qwen2-0.5b on every mesh the training tests run, and the same source where
+the copy is verbatim."""
 import ast
 import os
 import types
@@ -84,9 +86,16 @@ def test_dtype_names_price_as_numpy():
     assert sd.dtype.itemsize == 2 and str(sd.dtype) == "bfloat16"
     sec = planner.Section("w", ("w",), 12, "bfloat16", 0)
     assert sec.nbytes == 24
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        planner.Planner(topology_from_mesh_sizes({"pod": 2, "data": 1}),
-                        keep_report=True).plan({"w": sd})
+    # the candidate report (obs/plan_report, now copied) prices the leaf
+    # as the JAX planner does a bf16 jax.ShapeDtypeStruct
+    import jax
+    from repro.core.planner import Planner as JaxPlanner
+    topo = topology_from_mesh_sizes({"pod": 2, "data": 1})
+    mine = planner.Planner(topo, keep_report=True)
+    mine.plan({"w": sd})
+    theirs = JaxPlanner(jax_topology({"pod": 2, "data": 1}), keep_report=True)
+    theirs.plan({"w": jax.ShapeDtypeStruct((3, 4), jax.numpy.bfloat16)})
+    assert mine.report.to_json() == theirs.report.to_json()
 
 
 def _code(path: str) -> str:
@@ -107,7 +116,13 @@ def _code(path: str) -> str:
 
 @pytest.mark.parametrize("module", ["core/mempool.py", "core/topology.py",
                                     "core/nicpool.py", "core/schedule.py",
-                                    "core/cost_model.py", "data/pipeline.py"])
+                                    "core/cost_model.py", "data/pipeline.py",
+                                    "obs/plan_report.py", "obs/trace.py",
+                                    "obs/audit.py", "obs/capture.py",
+                                    "sim/__init__.py", "sim/fabric_sim.py",
+                                    "serve_sim/__init__.py",
+                                    "serve_sim/workload.py",
+                                    "serve_sim/fleet.py"])
 def test_copy_is_verbatim(module):
     """Docstrings and comments aside (the topology copy says its hardware
     defaults are the reference's, not this card's), the copy is the

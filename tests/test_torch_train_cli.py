@@ -38,6 +38,29 @@ def test_cli_trains_3tier_on_cpu(tmp_path):
     assert len(losses) == 6 and losses[-1] < losses[0]
 
 
+def test_cli_resumes_from_its_checkpoint_dir(tmp_path):
+    """``--ckpt-dir``/``--ckpt-every``: a second run with the same dir
+    restores the first run's newest step and trains on from there."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen2-0.5b", "--smoke", "--mesh", "2,1,1", "--batch", "8",
+            "--seq", "32", "--device", "cpu", "--backend", "gloo",
+            "--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "2"]
+    runs = []
+    for steps in ("4", "6"):
+        out = tmp_path / f"metrics{steps}.json"
+        proc = subprocess.run(base + ["--steps", steps, "--metrics-out", str(out)],
+                              env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs.append((proc.stdout, [m["step"] for m in json.loads(out.read_text())]))
+    assert runs[0][1] == [0, 1, 2, 3] and "restored" not in runs[0][0]
+    assert "restored step 4" in runs[1][0] and "finished at step 6" in runs[1][0]
+    assert runs[1][1] == [4, 5]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == [
+        "LATEST", "step_00000002", "step_00000004", "step_00000006"]
+
+
 @pytest.mark.parametrize("spec", ["2,2,2,1", "2,4,1", "2,1,1", "4,2", "8", None])
 def test_mesh_rules_match_jax_cli(spec):
     """``repro.launch.train``'s rules: 4 dims (pod, host, data, model), 3
@@ -68,7 +91,9 @@ def test_cli_refusals():
 @pytest.mark.parametrize("cfg,sizes", [
     (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}),
     (dict(), {"pod": 1, "data": 2, "model": 2}),
-    (dict(ckpt_every=2, ckpt_dir="/nonexistent"), {"pod": 2, "data": 1, "model": 1}),
+    # checkpoints are ported; a checkpointed run with TP is still refused,
+    # before the checkpoint manager makes or sweeps its directory
+    (dict(ckpt_every=2, ckpt_dir="/nonexistent"), {"pod": 1, "data": 2, "model": 2}),
 ])
 def test_trainer_refuses_what_is_not_ported(cfg, sizes):
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")

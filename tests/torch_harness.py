@@ -418,3 +418,165 @@ def check_sync_state(name, sizes, cfg, jax_out, per_rank):
                 assert close.all(), (sec.name, k, np.abs(got - want).max())
             blk = grad_sync.local_block(want, spec, dict(per_rank[0][3]), sizes)
             assert blk.shape == per_rank[0][2][sec.name][k].shape
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance: checkpoint, crash, restart, preemption (both packages)
+# ---------------------------------------------------------------------------
+
+#: the fault runs' settings beside ``steps`` (the Trainer comparison's)
+FAULT = {k: v for k, v in TRAIN.items() if k != "steps"}
+
+
+def rank_fault_runs(rank, payload):
+    """A sequence of the port's ``Trainer`` runs on this rank, each on
+    one model that starts from ``payload["weights"]`` (or the newest
+    checkpoint of its dir; a restart in the same process).  Each of
+    ``payload["runs"]`` holds ``cfg`` (TrainerConfig fields beside
+    ``FAULT``) and optionally ``preempt_rank`` (that rank's trainer is
+    flagged preempted before it trains) and ``slow_save`` (seconds added to
+    each ``np.save`` of the checkpoint writer).  A ``SimulatedFailure`` is
+    caught and recorded.  Returns one record a run: the steps and losses
+    it ran, the error, whether it restored, LATEST after it, the
+    parameters (rank 0) and this rank's sync-state blocks after its last
+    step (after the restore if it ran none), its coords, its checkpoint
+    timings and the step it ended at."""
+    import time as _time
+
+    import repro_torch.checkpoint.manager as ckpt_mod
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.runtime.train_loop import (SimulatedFailure, Trainer,
+                                                TrainerConfig)
+    from repro_torch.utils.trees import tree_paths
+    mesh = prims.Mesh(payload["sizes"])
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
+    model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+    shape = ShapeConfig("t", TRAIN_SHAPE["seq_len"], TRAIN_SHAPE["global_batch"],
+                        "train")
+    real_save = ckpt_mod.np.save
+    records = []
+    for run in payload["runs"]:
+        load_jax_params(model, payload["weights"])  # what a new process has
+        delay = run.get("slow_save", 0)
+
+        def save(*a, **k):
+            _time.sleep(delay)
+            return real_save(*a, **k)
+
+        ckpt_mod.np.save = save if delay else real_save
+        trainer = Trainer(model, mesh, shape, TrainerConfig(**FAULT, **run["cfg"]))
+        if run.get("preempt_rank") == rank:
+            trainer._preempted = True  # as the SIGTERM handler would
+        last = {}
+
+        def on_step(step, params, opt, metrics):
+            last["state"] = {name: {k: t.detach().numpy().copy()
+                                    for k, t in e.items()}
+                             for name, e in opt["sections"].items()}
+
+        error = None
+        try:
+            out = trainer.train(on_step=on_step)
+        except SimulatedFailure as exc:
+            error = type(exc).__name__
+        log = trainer.metrics_log
+        records.append(dict(
+            steps=[m["step"] for m in log], losses=[m["loss"] for m in log],
+            error=error, latest=trainer.ckpt.latest_step() if trainer.ckpt else None,
+            restored=trainer.restore_s is not None,
+            params=({k: v.detach().numpy().copy()
+                     for k, v in tree_paths(model.params()).items()}
+                    if rank == 0 else None),
+            state=(last.get("state") if error else
+                   {name: {k: t.detach().numpy().copy() for k, t in e.items()}
+                    for name, e in out["opt"]["sections"].items()}),
+            coords=tuple(sorted(mesh.coords.items())),
+            ckpt_log=trainer.ckpt_log,
+            stats=trainer.ckpt.stats if trainer.ckpt else None,
+            end=None if error else out["step"]))
+    ckpt_mod.np.save = real_save
+    return records
+
+
+FAULT_JAX_SCRIPT = r'''
+import os, json, shutil
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_arch
+from repro.models import ModelSettings, build_model
+from repro.runtime.train_loop import SimulatedFailure, Trainer, TrainerConfig
+from repro.utils.jax_compat import make_mesh
+from repro.utils.trees import tree_from_paths, tree_paths
+
+z = np.load(os.environ["JAX_IN"], allow_pickle=True)
+runs, weights = json.loads(str(z["runs"])), z["weights"].item()
+base, shp = json.loads(str(z["base"])), json.loads(str(z["shape"]))
+
+class Shape:
+    global_batch, seq_len = shp["global_batch"], shp["seq_len"]
+    name, kind = "t", "train"
+
+st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                   remat="none", loss_chunk=int(z["loss_chunk"]), max_seq=64)
+model = build_model(get_smoke_arch(str(z["arch"])), st)
+res = {}
+for run in runs:
+    name, sizes = run["name"], run["sizes"]
+    mesh = make_mesh(tuple(sizes.values()), tuple(sizes))
+    tr = Trainer(model, mesh, Shape(), TrainerConfig(**base, **run["cfg"]))
+    try:
+        if run["fresh"]:
+            params = jax.device_put(
+                tree_from_paths({k: jnp.asarray(v) for k, v in weights.items()}),
+                NamedSharding(mesh, P()))
+            out = tr.train(params, jax.device_put(tr._init_state(), tr.state_sharding), 0)
+        else:
+            out = tr.train()  # restores the newest checkpoint
+        for k, v in tree_paths(out["params"]).items():
+            res[f"{name}/p/{k}"] = np.asarray(v)
+    except SimulatedFailure:
+        tr.ckpt.wait()  # the reference raises before draining its write
+    if run.get("copy_to"):
+        shutil.copytree(run["cfg"]["ckpt_dir"], run["copy_to"])
+    res[f"{name}/steps"] = np.array([m["step"] for m in tr.metrics_log])
+    res[f"{name}/loss"] = np.array([m["loss"] for m in tr.metrics_log])
+np.savez(os.environ["JAX_OUT"], **res)
+'''
+
+
+def jax_fault_runs(runs, weights, n_devices: int = 8):
+    """The JAX ``Trainer`` for each of ``runs`` in order (a list of {name,
+    sizes, cfg: TrainerConfig fields beside ``FAULT``, fresh: start from
+    ``weights`` rather than the newest checkpoint, and optionally copy_to:
+    a dir the run's checkpoint dir is copied to after it}), on fake
+    devices.  A ``SimulatedFailure`` is caught after draining the pending
+    write.
+    Returns {name/steps, name/loss, name/p/<path> (runs that finished)}."""
+    import json
+    return run_jax_devices(FAULT_JAX_SCRIPT, {
+        "runs": np.array(json.dumps(runs)), "weights": np.array(weights, dtype=object),
+        "base": np.array(json.dumps(FAULT)), "shape": np.array(json.dumps(TRAIN_SHAPE)),
+        "loss_chunk": np.array(TRAIN_LOSS_CHUNK), "arch": np.array(ARCH)},
+        n_devices=n_devices)
+
+
+def check_params_close(params, jax_params, int8: bool, steps: int):
+    """The final parameters of a port run against a JAX run's, to the
+    tolerances of ``test_torch_trainer.py`` (``check_trainer_run``)."""
+    far = total = 0
+    bound = 2 * TRAIN["lr"] * steps
+    for k, v in params.items():
+        d = np.abs(v - jax_params[k])
+        if k.endswith("attn/bk"):  # zero gradient but for rounding
+            assert d.max() <= bound, (k, d.max())
+        elif int8:
+            assert d.max() <= bound, (k, d.max())
+            far += int((d > 2e-5).sum())
+            total += d.size
+        else:
+            np.testing.assert_allclose(v, jax_params[k], atol=2e-5, rtol=0,
+                                       err_msg=k)
+    assert far <= 1e-2 * total, (far, total)
