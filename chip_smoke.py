@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per kernel, all started together), holds each against its plain
-PyTorch version, then drives the port's three serving paths at full width
-(random weights from a seed), each through ``Model.prefill`` and
-``DecodeServer`` answering 16 requests:
+PyTorch version, then drives the port's seven serving paths at full width
+(random weights from a seed), each through ``Model.prefill`` (bf16, B=4,
+S=2048, launches asserted; then fp32 kernel-vs-plain and prefill-vs-decode
+checks) and ``DecodeServer`` answering 16 requests:
 
   * qwen2-0.5b, with the flash-attention kernel (K1) in every prefill layer;
   * rwkv6-1.6b, with the WKV6 kernel (K3) in every layer of every prefill
@@ -18,6 +19,16 @@ PyTorch version, then drives the port's three serving paths at full width
     experts, every width published: ``configs.one_card_arch``), with the
     selective-scan kernel (K4) in its 7 Mamba layers of every prefill and
     decode step and K1 in its attention layer's prefill;
+  * deepseek-moe-16b whole (28 layers, 64 routed experts top-6 and 2
+    shared in each, 16.88 B parameters), with K1 in every prefill layer,
+    the (token, k) slots each MoE layer drops at that shape, and its fp32
+    router checked; its fp32 checks on a 2-layer model;
+  * qwen3-1.7b (qk-norm), with K1 in every prefill layer;
+  * stablelm-12b (LayerNorm, head_dim 160), with K1 in every prefill
+    layer; its fp32 checks on a 4-layer model;
+  * nemotron-4-340b cut to 4 layers (every width published), with K1 at
+    head_dim 192 in every prefill layer, LayerNorm and squared ReLU; its
+    fp32 checks on a 1-layer model, after the bf16 model is freed;
 
 then the int8 quantize + error-feedback kernel (K2) against its plain
 version, bit for bit, and the training path: ``repro_torch.launch.train``
@@ -37,6 +48,8 @@ Any failure raises and exits non-zero.  The last lines are the card
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -318,9 +331,10 @@ def serve_line(name, server, launches) -> str:
             f"launches={launches}")
 
 
-def check_flash_attention(torch, gen, dev, arch, jamba):
+def check_flash_attention(torch, gen, dev, arch, jamba, mains=()):
     """K1 against its plain version at the qwen2 and jamba paths' prefill
-    shapes and others.  Returns the per-case results."""
+    shapes, at those of ``mains`` ((case name, arch) of the other serving
+    paths) and others.  Returns the per-case results."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -333,6 +347,8 @@ def check_flash_attention(torch, gen, dev, arch, jamba):
         ("main-train-fp32", 2, H, KV, S_MAIN, hd, True, "float32"),
         ("main-jamba", B_MAIN, jamba.n_heads, jamba.n_kv_heads, S_MAIN,
          jamba.resolved_head_dim, True, "bfloat16"),
+        *((name, B_MAIN, a.n_heads, a.n_kv_heads, S_MAIN, a.resolved_head_dim,
+           True, "bfloat16") for name, a in mains),
         ("hd128", 2, 8, 2, 1024, 128, True, "float32"),
         ("hd192", 1, 8, 1, 512, 192, True, "bfloat16"),
         ("hd160", 1, 4, 2, 130, 160, True, "bfloat16"),
@@ -384,7 +400,7 @@ def check_flash_attention(torch, gen, dev, arch, jamba):
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
-        log(f"[K1] {name:12s} q=({B},{Hc},{S},{d}){' strided' if main else ''} "
+        log(f"[K1] {name:14s} q=({B},{Hc},{S},{d}){' strided' if main else ''} "
             f"kv={KVc} causal={causal} "
             f"{dt_name}: max_err={err:.3e} (tol {tol[dt_name]}) "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -926,22 +942,26 @@ def run_checkpoint_phase(ckpt_root, ref_recs, card):
 
 
 def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
-                   n_plain, fp32_layers=None):
+                   n_plain):
     """The full-width bf16 prefill through the kernels, each launched as
     often as ``expected`` ({kernel: launches per prefill}) says and the
     others not at all (asserted), its times and ``n_plain`` times of the
-    plain path; then in fp32 at S=256 the kernel path's logits against the
-    plain path's beside the model's fp32 noise floor, and the checks: kernel
-    vs plain logits and prefill(32) vs 32 decode steps, on the first
-    ``fp32_layers`` layers (all when None).  Returns (the bf16 model,
-    launches per prefill)."""
+    plain path; for an arch with experts, the (token, k) slots each MoE
+    layer dropped in that prefill.  Returns (the bf16 model, launches per
+    prefill)."""
     from repro_torch.models import build_model
+    from repro_torch.models import layers as L
     expected = {k: expected.get(k, 0) for k in counters}
     kernel_st, plain_st = settings("bfloat16", True), settings("bfloat16", False)
     model = build_model(arch, kernel_st, device="cuda", seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     tokens = torch.randint(0, arch.vocab, (B_MAIN, S_MAIN), generator=gen, device=dev)
-    (logits, cache), launches = drive_path(counters, lambda: model.prefill(tokens))
+    L.DROP_LOG = [] if arch.moe is not None else None
+    try:
+        (logits, cache), launches = drive_path(counters, lambda: model.prefill(tokens))
+        drops = [int(d.sum()) for d in L.DROP_LOG or ()]
+    finally:
+        L.DROP_LOG = None
     if launches != expected:
         raise AssertionError(f"{arch.name} prefill launched {launches}, "
                              f"expected {expected}")
@@ -951,6 +971,20 @@ def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
               for off, c in cache.items()}
     log(f"[prefill] {arch.name} cache shapes {shapes}")
     del logits, cache
+    if arch.moe is not None:
+        moe, T = arch.moe, B_MAIN * S_MAIN
+        C = L.moe_capacity(T // model.settings.moe_groups, moe.top_k,
+                           moe.num_experts, moe.capacity_factor)
+        if len(drops) != len(arch.moe_layer_ids()):
+            raise AssertionError(f"{len(drops)} MoE layers recorded drops, "
+                                 f"expected {len(arch.moe_layer_ids())}")
+        log(f"[moe] {arch.name} bf16 prefill B={B_MAIN} S={S_MAIN}: T={T} tokens "
+            f"x top-{moe.top_k} = {T * moe.top_k} (token, k) slots a layer over "
+            f"{moe.num_experts} experts at C={C} (capacity_factor "
+            f"{moe.capacity_factor}); dropped per MoE layer {drops}: total "
+            f"{sum(drops)} of {T * moe.top_k * len(drops)} "
+            f"({sum(drops) / (T * moe.top_k * len(drops)):.4%}), max layer "
+            f"{max(drops)} ({max(drops) / (T * moe.top_k):.4%})")
 
     before = {k: mod.LAUNCHES for k, mod in counters.items()}
     kernel_runs = host_ms(lambda: model.prefill(tokens), 5)
@@ -968,42 +1002,82 @@ def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
         f"tok/s={B_MAIN * S_MAIN / prefill_ms * 1e3:.0f}; plain path "
         f"median={statistics.median(plain_runs):.2f} ms "
         f"runs={[round(t, 2) for t in plain_runs]}")
+    return model, per_prefill
 
-    model32 = build_model(arch, settings("float32", True), device="cuda", seed=SEED)
+
+def fp32_checks(torch, gen, dev, arch, settings, fp32_layers=None,
+                full_depth=True):
+    """In fp32 at S=256: the kernel path's logits against the plain path's
+    beside the model's fp32 noise floor, at full depth unless
+    ``full_depth`` is False; then the checks, kernel vs plain logits and
+    prefill(32) vs 32 decode steps, on the first ``fp32_layers`` layers
+    (all when None; without the full-depth model, the model is built at
+    that depth directly).  An arch with experts runs the prefill-decode
+    check at capacity_factor num_experts / top_k, where C = T and nothing
+    drops: at its own capacity prefill(32) drops slots that decode, one
+    token a slot, never does, so the two are different functions."""
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    gc.collect()  # a freed model can sit in a reference cycle until collected
+    torch.cuda.empty_cache()
     toks256 = torch.randint(0, arch.vocab, (2, 256), generator=gen, device=dev)
-    lk, _ = model32.prefill(toks256)
-    k_runs = host_ms(lambda: model32.prefill(toks256), 3)
-    model32.settings = settings("float32", False)
-    lm, _ = model32.prefill(toks256)
-    p_runs = host_ms(lambda: model32.prefill(toks256), 1)
-    # the fp32 noise floor at this depth: how far the plain logits move when
-    # the embedding table changes by a relative 1e-7 (about one fp32 ulp)
-    with torch.no_grad():
-        embed = model32.embed.clone()
-        model32.embed.mul_(1 + 1e-7 * torch.randn(embed.shape, generator=gen, device=dev))
-        ln, _ = model32.prefill(toks256)
-        model32.embed.copy_(embed)
-    del embed
-    model32.settings = settings("float32", True)
-    log(f"[prefill] {arch.name} fp32 B=2 S=256, {arch.n_layers} layers: kernel vs "
-        f"plain logits max_abs_diff={(lk - lm).abs().max().item():.3e}; fp32 noise "
-        f"floor (plain vs plain with embed x (1 + 1e-7 N(0,1))) "
-        f"{(ln - lm).abs().max().item():.3e}; kernel path "
-        f"{statistics.median(k_runs):.2f} ms, plain path {p_runs[0]:.2f} ms")
-    if fp32_layers is not None:
-        # a depth at which fp32 rounding is not amplified past the tolerance
-        del model32
-        arch = arch.replace(n_layers=fp32_layers)
+
+    def kernel_vs_plain(arch):
+        """(the fp32 model, its kernel-path logits, its plain-path logits),
+        logged beside the noise floor and both paths' times."""
         model32 = build_model(arch, settings("float32", True), device="cuda", seed=SEED)
         lk, _ = model32.prefill(toks256)
+        k_runs = host_ms(lambda: model32.prefill(toks256), 3)
         model32.settings = settings("float32", False)
         lm, _ = model32.prefill(toks256)
+        p_runs = host_ms(lambda: model32.prefill(toks256), 1)
+        # the fp32 noise floor at this depth: how far the plain logits move
+        # when the embedding table changes by a relative 1e-7 (about one
+        # fp32 ulp); the table waits on the host and the noise is drawn a
+        # block of rows at a time, so a large table needs no second copy
+        # on the card
+        with torch.no_grad():
+            embed = model32.embed.cpu()
+            for rows in model32.embed.split(8192):
+                rows.mul_(1 + 1e-7 * torch.randn(rows.shape, generator=gen, device=dev))
+            ln, _ = model32.prefill(toks256)
+            model32.embed.copy_(embed)
+        del embed
         model32.settings = settings("float32", True)
+        log(f"[prefill] {arch.name} fp32 B=2 S=256, {arch.n_layers} layers: kernel vs "
+            f"plain logits max_abs_diff={(lk - lm).abs().max().item():.3e}; fp32 noise "
+            f"floor (plain vs plain with embed x (1 + 1e-7 N(0,1))) "
+            f"{(ln - lm).abs().max().item():.3e}; kernel path "
+            f"{statistics.median(k_runs):.2f} ms, plain path {p_runs[0]:.2f} ms")
+        return model32, lk, lm
+
+    if full_depth:
+        model32, lk, lm = kernel_vs_plain(arch)
+    if fp32_layers is not None:
+        # a depth at which fp32 rounding is not amplified past the tolerance
+        # (or, built directly, one that fits beside the bf16 model)
+        if full_depth:
+            del model32
+            gc.collect()
+            torch.cuda.empty_cache()
+        arch = arch.replace(n_layers=fp32_layers)
+        model32, lk, lm = kernel_vs_plain(arch)
     torch.testing.assert_close(lk, lm, atol=1e-3, rtol=1e-3)
     log(f"[prefill] {arch.name} fp32 B=2 S=256, {arch.n_layers} layers: kernel vs "
         f"plain logits max_abs_diff={(lk - lm).abs().max().item():.3e} "
         f"(atol=rtol=1e-3)")
 
+    note = ""
+    if arch.moe is not None:
+        moe = arch.moe
+        model32.arch = arch.replace(moe=dataclasses.replace(
+            moe, capacity_factor=moe.num_experts / moe.top_k))
+        C = L.moe_capacity(64, moe.top_k, moe.num_experts,
+                           model32.arch.moe.capacity_factor)
+        if C != 64:
+            raise AssertionError(f"the full-capacity copy has C={C}, not T=64")
+        note = (f" (experts at capacity_factor {moe.num_experts}/{moe.top_k}: "
+                f"C = T = 64 in prefill, so no slot drops)")
     prompt = torch.randint(0, arch.vocab, (2, 32), generator=gen, device=dev)
     pre_logits, pre_cache = model32.prefill(prompt)
     dcache = model32.init_cache(2, 33)
@@ -1012,10 +1086,68 @@ def prefill_checks(torch, gen, dev, arch, settings, counters, expected,
     torch.testing.assert_close(dec_logits, pre_logits, atol=2e-3, rtol=2e-3)
     log(f"[consistency] {arch.name} fp32, {arch.n_layers} layers: prefill(32) vs "
         f"32 decode steps max_abs_diff="
-        f"{(dec_logits - pre_logits).abs().max().item():.3e} (atol=rtol=2e-3)")
+        f"{(dec_logits - pre_logits).abs().max().item():.3e} (atol=rtol=2e-3){note}")
     del model32, dcache, pre_cache
     torch.cuda.empty_cache()
-    return model, per_prefill
+
+
+def attention_settings(dtype, use_kernel):
+    """A decoder-only attention model's settings: K1 in prefill, or the
+    plain (masked) attention."""
+    from repro_torch.models import ModelSettings
+    return ModelSettings(param_dtype=dtype, compute_dtype=dtype,
+                         attn_impl="kernel" if use_kernel else "masked")
+
+
+def decoder_path(torch, gen, dev, arch, counters, fp32_layers=None,
+                 full_depth=True, fp32_last=False):
+    """A decoder-only attention path, dense or with experts, at full width:
+    the bf16 prefill with K1 in every layer and no other kernel (asserted),
+    the parameter count and peak card memory, the fp32 checks, then 16
+    served requests, whose decode launches no kernel (its attention is
+    plain PyTorch).  With ``fp32_last`` the fp32 checks run after the bf16
+    model and its server are freed.  Returns the launches per prefill."""
+    from repro_torch.models import layers as L
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[params] {arch.name}: card memory in use before the build "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    model, launches = prefill_checks(torch, gen, dev, arch, attention_settings,
+                                     counters, {"flash_attention_fwd": arch.n_layers}, 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    line = (f"[params] {arch.name}: {n_params} parameters, "
+            f"{sum(p.numel() * p.element_size() for p in model.parameters())} bytes; "
+            f"peak card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"(build and bf16 prefills)")
+    if arch.moe is not None:
+        routers = {n: p.dtype for n, p in model.named_parameters()
+                   if n.endswith("moe.router")}
+        if not routers or set(routers.values()) != {torch.float32}:
+            raise AssertionError(f"{arch.name} routers {routers}: not all fp32")
+        line += f"; router leaves {sorted(routers)} fp32 in the bf16 model"
+    log(line)
+    if not fp32_last:
+        fp32_checks(torch, gen, dev, arch, attention_settings, fp32_layers,
+                    full_depth)
+    server, served = serve(model, arch, counters)
+    if any(served.values()):
+        raise AssertionError(f"{arch.name} decode launched {served}: expected "
+                             f"no kernel")
+    note = " (decode attention is plain PyTorch)"
+    if arch.moe is not None:
+        moe = arch.moe
+        C = L.moe_capacity(8, moe.top_k, moe.num_experts, moe.capacity_factor)
+        if C != 8:
+            raise AssertionError(f"decode capacity {C} != T = 8")
+        note += f"; each MoE decode step routes T=8 tokens at C={C} = T: no slot drops"
+    log(serve_line(arch.name, server, served) + note)
+    del model, server
+    torch.cuda.empty_cache()
+    if fp32_last:
+        fp32_checks(torch, gen, dev, arch, attention_settings, fp32_layers,
+                    full_depth)
+    return launches
 
 
 def main() -> None:
@@ -1023,6 +1155,10 @@ def main() -> None:
         sys.exit("chip_smoke.py: src/repro_torch not found beside this script; "
                  "run it from a checkout of the repository")
     sys.path.insert(0, SRC)
+    # the largest models here (deepseek-moe-16b's 33.8 GB, the nemotron
+    # cut's 46.5 GB, its 51.6 GB fp32 layer) are built one after another in
+    # one process: growable segments keep the freed ones reusable
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1076,14 +1212,17 @@ def main() -> None:
     # ---- qwen2-0.5b: K1 vs plain, prefill, consistency, serve --------------
     qwen = get_arch("qwen2-0.5b")
     jamba, cuts = one_card_arch("jamba-1.5-large-398b")
-    fa_results = check_flash_attention(torch, gen, dev, qwen, jamba)
+    deepseek, qwen3, stablelm = (get_arch(n) for n in (
+        "deepseek-moe-16b", "qwen3-1.7b", "stablelm-12b"))
+    nemotron, nemotron_cuts = one_card_arch("nemotron-4-340b")
+    fa_results = check_flash_attention(
+        torch, gen, dev, qwen, jamba,
+        mains=(("main-deepseek", deepseek), ("main-qwen3", qwen3),
+               ("main-stablelm", stablelm), ("main-nemotron", nemotron)))
 
-    def qwen_settings(dtype, use_kernel):
-        return ModelSettings(param_dtype=dtype, compute_dtype=dtype,
-                             attn_impl="kernel" if use_kernel else "masked")
-
-    model, fa_launches = prefill_checks(torch, gen, dev, qwen, qwen_settings,
+    model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
+    fp32_checks(torch, gen, dev, qwen, attention_settings)
     server, launches = serve(model, qwen, counters)
     log(serve_line(qwen.name, server, launches)
         + " (decode attention is plain PyTorch)")
@@ -1104,8 +1243,8 @@ def main() -> None:
     # through all 24 random layers fp32 rounding is amplified past their
     # tolerance (see the noise floor printed beside the full-depth numbers)
     model, wkv_launches = prefill_checks(torch, gen, dev, rwkv, rwkv_settings,
-                                         counters, {"wkv6_fwd": rwkv.n_layers}, 1,
-                                         fp32_layers=4)
+                                         counters, {"wkv6_fwd": rwkv.n_layers}, 1)
+    fp32_checks(torch, gen, dev, rwkv, rwkv_settings, fp32_layers=4)
     server, launches = serve(model, rwkv, counters)
     if launches["wkv6_fwd"] != rwkv.n_layers * server.stats["steps"]:
         raise AssertionError(f"rwkv6 serve launched {launches} in "
@@ -1131,6 +1270,7 @@ def main() -> None:
     model, jamba_launches = prefill_checks(
         torch, gen, dev, jamba, jamba_settings, counters,
         {"mamba_scan_fwd": n_mamba, "flash_attention_fwd": len(jamba.attn_layer_ids())}, 1)
+    fp32_checks(torch, gen, dev, jamba, jamba_settings)
     server, launches = serve(model, jamba, counters)
     if launches != {"flash_attention_fwd": 0, "wkv6_fwd": 0, "quantize_ef_fwd": 0,
                     "mamba_scan_fwd": n_mamba * server.stats["steps"]}:
@@ -1142,6 +1282,23 @@ def main() -> None:
     del model, server
     torch.cuda.empty_cache()
     phase_done("jamba cut: K4, prefill, serve")
+
+    # ---- the decoders of the MoE slice: K1 in every prefill layer ----------
+    # deepseek-moe-16b whole (33.8 GB in bf16); its full-depth fp32 model
+    # (67.5 GB) cannot sit beside it, so the fp32 checks build 2 layers
+    decoder_path(torch, gen, dev, deepseek, counters, fp32_layers=2, full_depth=False)
+    phase_done("deepseek-moe-16b: experts, K1 prefill, serve")
+    decoder_path(torch, gen, dev, qwen3, counters)
+    phase_done("qwen3-1.7b: qk-norm, K1 prefill, serve")
+    # stablelm-12b: 24.3 GB in bf16; its fp32 checks on a 4-layer model
+    decoder_path(torch, gen, dev, stablelm, counters, fp32_layers=4, full_depth=False)
+    phase_done("stablelm-12b: K1 at hd 160, prefill, serve")
+    # nemotron-4-340b cut to 4 layers (46.5 GB in bf16); one fp32 layer is
+    # 51.6 GB with its vocab, so its checks run after the bf16 model is freed
+    log(f"[nemotron] {nemotron.name} cut to one card: {'; '.join(nemotron_cuts)}")
+    decoder_path(torch, gen, dev, nemotron, counters, fp32_layers=1,
+                 full_depth=False, fp32_last=True)
+    phase_done("nemotron-4-340b cut: K1 at hd 192, prefill, serve")
 
     # ---- K2 vs plain, then the training path on two ranks ------------------
     q_results = check_quantize(torch, gen, dev)

@@ -230,7 +230,13 @@ def _ensure_loaded() -> None:
     # import all config modules for registration side effects; each
     # arch registers here in the slice of the port that runs it
     from repro_torch.configs import (  # noqa: F401
+        chameleon_34b,
+        deepseek_moe_16b,
         jamba_1_5_large_398b,
+        moonshot_v1_16b_a3b,
+        nemotron_4_340b,
         qwen2_0_5b,
+        qwen3_1_7b,
         rwkv6_1_6b,
+        stablelm_12b,
     )

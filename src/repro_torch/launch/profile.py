@@ -7,6 +7,7 @@ Example (full width, on the card)::
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch jamba-1.5-large-398b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.profile --train
 
 For each phase it prints the host wall time, the device-busy time (the sum

@@ -8,10 +8,15 @@ Example::
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --smoke --device cpu
 
-The model runs every ported kernel (flash attention in prefill, WKV6 in
-every RWKV6 step, the selective scan in every Mamba step).  An arch that
-does not fit one card runs its one-card cut (``configs.one_card_arch``),
+Every arch the port registers is served: qwen2-0.5b, qwen3-1.7b,
+stablelm-12b, nemotron-4-340b, chameleon-34b, deepseek-moe-16b,
+moonshot-v1-16b-a3b, rwkv6-1.6b and jamba-1.5-large-398b.  The model runs
+every ported kernel (flash attention in prefill, WKV6 in every RWKV6 step,
+the selective scan in every Mamba step).  An arch that does not fit one
+card (jamba, nemotron) runs its one-card cut (``configs.one_card_arch``),
 which is printed.
 """
 from __future__ import annotations

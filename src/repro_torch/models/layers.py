@@ -1,5 +1,6 @@
-"""Model primitives: norms, RoPE, attention, MLP — the dense subset of
-``repro.models.layers`` in PyTorch.
+"""Model primitives: norms, RoPE, attention, MLP and the mixture-of-experts
+layer — ``repro.models.layers`` in PyTorch, but for the encoder-decoder's
+sinusoidal positions.
 
 Parameters are nested dicts of tensors, as in the JAX package: every layer
 has an ``init_*`` that returns them and an ``apply`` function over them.
@@ -14,6 +15,11 @@ Attention is GQA-aware; ``attend`` has two implementations here:
 
 The JAX package's ``tri`` (static triangular decomposition) is not ported
 yet and raises.
+
+The MoE layer (``apply_moe``) is the JAX package's capacity-based
+gather/scatter dispatch, run on one device: its expert products are plain
+batched matmuls, and a planned dispatch schedule is executed as the same
+slice/concat walk, with no collective.
 """
 from __future__ import annotations
 
@@ -36,12 +42,12 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
                device) -> torch.Tensor:
     scale = 1.0 / math.sqrt(in_dim)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # in place: one fp32 copy at a time
 
 
 def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -287,3 +293,312 @@ def apply_mlp(arch: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if arch.glu:
         h = h * (x @ p["wg"])
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based gather/scatter dispatch)
+# ---------------------------------------------------------------------------
+
+# When a list, every ``_moe_dispatch`` appends its count of dropped (token,
+# k) slots per group, a (G,) tensor (no host sync); None records nothing.
+DROP_LOG: Optional[list] = None
+
+
+def moe_capacity(tokens: int, top_k: int, num_experts: int,
+                 capacity_factor: float) -> int:
+    """Per-group expert capacity ``C`` — the formula the dispatch pads to,
+    shared with the dispatch planner (``moe_dispatch_schedule``) so the
+    planned per-expert flow sizes are exactly what ``_moe_dispatch``
+    moves."""
+    C = int(max(8, math.ceil(tokens * top_k / num_experts
+                             * capacity_factor)))
+    return min(C, tokens)
+
+
+def moe_expert_capacities(counts, tokens: int,
+                          capacity_factor: float) -> Tuple[int, ...]:
+    """Per-expert twin of :func:`moe_capacity`: expert ``e``'s slab sized
+    from its measured routed-token count instead of the uniform
+    ``tokens * top_k / num_experts`` prior (to which it reduces under
+    uniform counts)."""
+    return tuple(min(int(max(8, math.ceil(float(c) * capacity_factor))),
+                     tokens) for c in counts)
+
+
+def moe_dispatch_schedule(arch: ArchConfig, tokens_per_member: int,
+                          planner, groups: int = 1, router_logits=None):
+    """Planner-searched all-to-all schedule for the MoE dispatch: the
+    ``(G, E, C, d)`` dispatch buffer with the experts spread over the ``n``
+    members of the planner's DP domain, member *r* owning ``E // n`` expert
+    slabs, so row *r* of the exchange is ``groups * (E // n) * C * d``
+    elements.  ``planner`` is a :class:`repro_torch.core.planner.Planner`;
+    the result is its ``plan_all_to_all`` schedule, which
+    ``apply_moe(dispatch_schedule=...)`` executes and checks for capacity
+    drift.
+
+    ``router_logits`` (optional, ``(tokens_per_member, E)`` or
+    ``(G, tokens_per_group, E)``, numpy or a CPU tensor): measured router
+    logits.  Each expert's slab is then sized from its own routed-token
+    count (:func:`moe_expert_capacities`, max over groups), the buffer pads
+    to ``C_exec = max_e C_e``, and the schedule carries per-member
+    ``dest_sizes``.  ``None`` keeps the uniform prior."""
+    moe = arch.moe
+    G = max(groups, 1)
+    tokens_per_group = tokens_per_member // G
+    n = planner.domain_size
+    if n > 1 and moe.num_experts % n != 0:
+        raise ValueError(
+            f"num_experts={moe.num_experts} does not divide over the "
+            f"{n}-member DP domain — expert parallelism needs "
+            f"E % members == 0 to plan per-expert flows")
+    experts_per_member = max(moe.num_experts // max(n, 1), 1)
+    if router_logits is None:
+        C = moe_capacity(tokens_per_group, moe.top_k, moe.num_experts,
+                         moe.capacity_factor)
+        shape = (n, G * experts_per_member * C * arch.d_model)
+        return planner.plan_all_to_all(shape)
+    import numpy as np
+    from repro_torch.core.cost_model import dtype_itemsize
+    lg = np.asarray(router_logits, dtype=np.float32)
+    if lg.ndim == 2:
+        lg = lg.reshape(G, tokens_per_group, -1)
+    if lg.shape != (G, tokens_per_group, moe.num_experts):
+        raise ValueError(
+            f"router_logits shape {np.asarray(router_logits).shape} does "
+            f"not cover ({tokens_per_member}, {moe.num_experts}) tokens x "
+            f"experts in {G} group(s)")
+    # per-group top-k routing counts (the top-k of the logits is the top-k
+    # of the softmaxed probabilities the layer routes on)
+    k = moe.top_k
+    top = np.argpartition(-lg, k - 1, axis=-1)[..., :k]  # (G, Tl, k)
+    caps = np.zeros(moe.num_experts, dtype=np.int64)
+    for g in range(G):
+        cnt = np.bincount(top[g].ravel(), minlength=moe.num_experts)
+        caps = np.maximum(caps, moe_expert_capacities(
+            cnt, tokens_per_group, moe.capacity_factor))
+    c_exec = int(caps.max())
+    shape = (n, G * experts_per_member * c_exec * arch.d_model)
+    esz = dtype_itemsize("float32")
+    dest_sizes = [
+        float(G * int(caps[r * experts_per_member:
+                           (r + 1) * experts_per_member].sum())
+              * arch.d_model * esz)
+        for r in range(n)]
+    return planner.plan_all_to_all(shape, dest_sizes=dest_sizes)
+
+
+def init_moe(arch: ArchConfig, gen: torch.Generator, lead: Tuple[int, ...],
+             dtype, device) -> Params:
+    """The router is fp32 whatever ``dtype`` is, as in the JAX package."""
+    moe = arch.moe
+    d, f, E = arch.d_model, moe.expert_d_ff, moe.num_experts
+    p = {"router": dense_init(gen, lead + (d, E), d, torch.float32, device),
+         "we_in": dense_init(gen, lead + (E, d, f), d, dtype, device),
+         "we_out": dense_init(gen, lead + (E, f, d), f, dtype, device)}
+    if arch.glu:
+        p["we_gate"] = dense_init(gen, lead + (E, d, f), d, dtype, device)
+    if moe.num_shared_experts:
+        p["shared"] = init_mlp(arch, gen, lead, dtype, device,
+                               d_ff=f * moe.num_shared_experts)
+    return p
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last dim: values descending, ties to the
+    lowest index (a stable descending sort; ``torch.topk`` leaves the order
+    of ties unspecified)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
+              dispatch_spec=None, dispatch_schedule=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux_load_balance_loss).  x: (B, S, d).
+
+    ``groups`` > 1 splits the tokens into independent dispatch groups
+    (routing, cumsum and capacity per group; the aux loss is the mean of
+    the groups'), run as one batched group dim where the JAX package
+    vmaps.  ``dispatch_spec`` (a GSPMD sharding hint there) is not ported
+    and must be None.
+
+    ``dispatch_schedule``: the planner's ``kind="all_to_all"`` schedule for
+    this layer's dispatch (:func:`moe_dispatch_schedule`).  It is executed:
+    the dispatch buffer walks the plan's slow-leg chunk split, issue order
+    and reassembly (:func:`_execute_dispatch`), bitwise the unscheduled
+    dispatch.  A skew-planned schedule (per-member ``dest_sizes``) carries
+    the capacity ``C_exec``, at which the layer dispatches.  A schedule
+    whose payload does not match the dispatch buffer actually built
+    (capacity drift) raises."""
+    if dispatch_spec is not None:
+        raise NotImplementedError(
+            "dispatch_spec (a GSPMD sharding hint for the dispatch buffers) "
+            "is not ported: ROADMAP.md queue 1")
+    moe = arch.moe
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    G = groups if (groups > 1 and T % groups == 0) else 1
+    sched_capacity = None
+    if dispatch_schedule is not None:
+        if dispatch_schedule.kind != "all_to_all":
+            raise ValueError(
+                f"dispatch_schedule must be an all_to_all schedule, got "
+                f"kind={dispatch_schedule.kind!r}")
+        n = int(dispatch_schedule.shape[0])
+        if n > 1 and moe.num_experts % n != 0:
+            raise ValueError(
+                f"num_experts={moe.num_experts} does not divide over the "
+                f"schedule's {n}-member domain — per-expert flows need "
+                f"E % members == 0")
+        epm = max(moe.num_experts // max(n, 1), 1)
+        skewed = any(getattr(leg, "dest_sizes", None) is not None
+                     for leg in dispatch_schedule.legs)
+        if skewed:
+            # skew-planned: the schedule owns the capacity (C_exec = max_e
+            # C_e from measured routing); recover it from the payload
+            denom = n * G * epm * d
+            c_exec = dispatch_schedule.numel // denom
+            if c_exec < 1 or c_exec * denom != dispatch_schedule.numel:
+                raise ValueError(
+                    f"dispatch_schedule planned for a different dispatch "
+                    f"buffer: schedule carries {dispatch_schedule.numel} "
+                    f"elements, not divisible into (G={G}, "
+                    f"E={moe.num_experts}, d={d}, members={n}) expert "
+                    f"slabs — rebuild with moe_dispatch_schedule()")
+            sched_capacity = int(c_exec)
+        else:
+            C = moe_capacity(T // G, moe.top_k, moe.num_experts,
+                             moe.capacity_factor)
+            want = n * G * epm * C * d
+            if dispatch_schedule.numel != want:
+                raise ValueError(
+                    f"dispatch_schedule planned for a different dispatch "
+                    f"buffer: schedule carries {dispatch_schedule.numel} "
+                    f"elements, this layer dispatches {want} "
+                    f"(G={G}, E={moe.num_experts}, C={C}, d={d}, "
+                    f"members={n}) — rebuild with moe_dispatch_schedule()")
+    y, aux = _moe_dispatch(arch, p, xt.reshape(G, T // G, d),
+                           capacity=sched_capacity,
+                           dispatch_schedule=dispatch_schedule)
+    y = y.reshape(T, d)
+    if moe.num_shared_experts:
+        y = y + apply_mlp(arch, p["shared"], xt)  # d_ff read from the leaves
+    return y.reshape(B, S, d), aux.mean()
+
+
+def _execute_dispatch(schedule, xe: torch.Tensor) -> torch.Tensor:
+    """Run the (G, E, C, d) dispatch buffer through ``schedule``'s slow-leg
+    walk: the member-major view split at the plan's chunk boundaries,
+    sub-flows taken in the plan's issue order, then reassembled by chunk
+    index, as ``collectives.lower_all_to_all``'s slow stage does.  The walk
+    is a pure slice/concat identity, so the output is bitwise ``xe``.
+
+    Chunk bounds are proportional (``(j * cols) // chunks``) so a buffer
+    that does not divide evenly still reassembles exactly."""
+    G, E, C, d = xe.shape
+    n = int(schedule.shape[0])
+    slow = schedule.slow_legs
+    if n <= 1 or E % n != 0 or not slow:
+        return xe
+    # member-major rows: member r's slab = experts [r*epm, (r+1)*epm)
+    buf = xe.permute(1, 0, 2, 3).reshape(n, -1)
+    cols = buf.shape[1]
+    k = len(slow)
+    bounds = [(j * cols) // k for j in range(k + 1)]
+    outs: list = [None] * k
+    for leg in slow:  # issue order; payload slice picked by index
+        j = leg.index
+        outs[j] = buf[:, bounds[j]:bounds[j + 1]]
+    buf = torch.cat(outs, dim=1) if k > 1 else outs[0]
+    return buf.reshape(n, E // n, G, C, d).permute(2, 0, 1, 3, 4).reshape(G, E, C, d)
+
+
+def _slab_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """For each (token, k) slot of each group (G, N), the number of earlier
+    slots, in token-major then k order, routed to the same expert: its
+    position in that expert's slab.  The JAX package counts them with a
+    cumsum of the (G, N, E) one-hot; a stable sort by expert gives the same
+    integers without scanning that tensor along N (that scan took 13 ms a
+    deepseek-moe-16b layer at N = 49152 on an NVIDIA H100 80GB HBM3 at
+    700 W, measured with ``launch/profile.py``)."""
+    G, N = flat_e.shape
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    counts = torch.zeros((G, E), dtype=torch.long, device=flat_e.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(dim=1) - counts  # (G, E): the slab's first slot
+    rank = torch.arange(N, device=flat_e.device).expand(G, N)
+    in_slab = rank - torch.gather(starts, 1, torch.gather(flat_e, 1, order))
+    return torch.empty_like(flat_e).scatter_(1, order, in_slab)
+
+
+def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
+                  capacity: Optional[int] = None, dispatch_schedule=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k dispatch on grouped (G, Tl, d) token slabs;
+    returns (y (G, Tl, d), aux (G,)).
+
+    Every group routes on its own: an fp32 router (x cast up), softmax,
+    top-k with ties to the lowest index, gates renormalised over the k and
+    a Switch-style aux loss per group; then each (token, k) slot takes its
+    position in its expert's slab by a cumsum in token-major, then k,
+    order, slots at ``pos >= C`` are dropped, empty slots point at a zero
+    sentinel row ``Tl``, and the (G, E, C, d) gather feeds three batched
+    expert products.  The gated outputs are scatter-added back to their
+    tokens and the sentinel row dropped.
+
+    ``capacity`` overrides :func:`moe_capacity` with a planned ``C_exec``;
+    ``dispatch_schedule`` routes each group's buffer through the planned
+    chunk walk (:func:`_execute_dispatch`)."""
+    moe = arch.moe
+    G, Tl, d = xg.shape
+    E, k = moe.num_experts, moe.top_k
+    dev = xg.device
+
+    logits = xg.float() @ p["router"]  # (G, Tl, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, topk_idx = top_k(probs, k)  # (G, Tl, k)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch-style), one per group
+    me = probs.mean(dim=1)  # (G, E)
+    ce = F.one_hot(topk_idx[..., 0], E).float().mean(dim=1)
+    aux = E * (me * ce).sum(dim=-1)
+
+    C = capacity if capacity is not None \
+        else moe_capacity(Tl, k, E, moe.capacity_factor)
+
+    flat_e = topk_idx.reshape(G, Tl * k)
+    flat_g = gate_vals.reshape(G, Tl * k)
+    tok_id = torch.arange(Tl, device=dev).repeat_interleave(k).expand(G, -1)
+    pos = _slab_positions(flat_e, E)  # (G, Tl*k)
+    if DROP_LOG is not None:
+        DROP_LOG.append((pos >= C).sum(dim=1))
+
+    # per-group token ids and gates into (G, E, C); an overflowing slot
+    # (pos >= C) goes to a dump column E*C that is cut off
+    slot = torch.where(pos < C, flat_e * C + pos, E * C)
+    dis = torch.full((G, E * C + 1), Tl, dtype=torch.long, device=dev)
+    dis = dis.scatter_(1, slot, tok_id)[:, :E * C].reshape(G, E, C)
+    gat = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev)
+    gat = gat.scatter_(1, slot, flat_g)[:, :E * C].reshape(G, E, C)
+
+    # group-global flat gather, the sentinel row Tl of each group zero
+    x_pad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
+    xf = x_pad.reshape(G * (Tl + 1), d)
+    gidx = dis + (torch.arange(G, device=dev) * (Tl + 1))[:, None, None]
+    xe = xf[gidx]  # (G, E, C, d)
+    if dispatch_schedule is not None:
+        # the planned walk runs on each group's buffer, as under JAX's vmap
+        xe = torch.cat([_execute_dispatch(dispatch_schedule, xe[g:g + 1])
+                        for g in range(G)])
+
+    h = _act(arch.activation, torch.einsum("gecd,edf->gecf", xe, p["we_in"]))
+    if arch.glu:
+        h = h * torch.einsum("gecd,edf->gecf", xe, p["we_gate"])
+    ye = torch.einsum("gecf,efd->gecd", h, p["we_out"])  # (G, E, C, d)
+
+    ye = ye * gat[..., None].to(ye.dtype)
+    y = torch.zeros((G * (Tl + 1), d), dtype=ye.dtype, device=dev)
+    y = y.index_add_(0, gidx.reshape(-1), ye.reshape(-1, d))
+    return y.reshape(G, Tl + 1, d)[:, :Tl], aux

@@ -1,18 +1,22 @@
-"""Config-driven model assembly — the dense-attention, RWKV6 and hybrid
-(Jamba: Mamba + attention) subset of ``repro.models.transformer`` in
-PyTorch.
+"""Config-driven model assembly — the decoder-only subset of
+``repro.models.transformer`` in PyTorch: dense attention, mixture of
+experts, RWKV6 and hybrid (Jamba: Mamba + attention, with or without
+experts).
 
 The parameter tree is the JAX package's, leaf for leaf and shape for shape:
 layers are stacked over groups (a leading group dim on every ``blocks/``
 leaf), and a Python loop over that dim takes the place of ``lax.scan``.
-Every dense or RWKV group holds one layer, ``blocks/l0``; a hybrid group
-holds ``attn_every`` layers, ``blocks/l0`` .. ``blocks/l{attn_every-1}``,
-whose kinds follow the within-group offset.  MoE and encoder-decoder
-families are not ported yet and raise.
+Every dense, MoE or RWKV group holds one layer, ``blocks/l0``; a hybrid
+group holds ``attn_every`` layers, ``blocks/l0`` ..
+``blocks/l{attn_every-1}``, whose kinds follow the within-group offset.  A
+layer whose id ``layer_is_moe`` names has ``moe`` (an fp32 router, the
+experts and the shared experts) in place of ``mlp``.  The encoder-decoder
+family and learned or sinusoidal positions are not ported yet and raise.
 
 Modes:
   * train   — full-sequence causal forward, chunked CE loss (dense
-              attention models only; autograd gives the backward)
+              attention models without experts only; autograd gives the
+              backward)
   * prefill — forward returning logits of the last position + the cache
               (KV for attention layers; token-shift and wkv states for
               RWKV; conv and ssm states for Mamba)
@@ -49,6 +53,8 @@ class ModelSettings:
     # per layer) — none | full; and the CE loss's sequence chunk
     remat: str = "full"
     loss_chunk: int = 2048
+    # MoE dispatch token groups: routing, cumsum and capacity per group
+    moe_groups: int = 1
 
     def pdt(self) -> torch.dtype:
         return _dtype(self.param_dtype)
@@ -66,12 +72,11 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port does not run yet."""
-    if (arch.moe is not None or arch.is_encdec
-            or arch.positional not in ("rope", "none")):
+    if arch.is_encdec or arch.positional not in ("rope", "none"):
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: the port runs "
-            f"dense attention, RWKV6 and hybrid Mamba models without experts "
-            f"(ROADMAP.md queue 1)")
+            f"decoder-only models with rope or no positions: dense, MoE, "
+            f"RWKV6 and hybrid Mamba (ROADMAP.md queue 1)")
     if st.pdt() != st.cdt():
         raise NotImplementedError(
             "param_dtype != compute_dtype (mixed precision) is not ported yet")
@@ -101,6 +106,10 @@ def layer_kind(arch: ArchConfig, layer_id: int) -> str:
     return "attn"
 
 
+def layer_is_moe(arch: ArchConfig, layer_id: int) -> bool:
+    return layer_id in set(arch.moe_layer_ids())
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -126,7 +135,10 @@ def _init_layer(arch: ArchConfig, gen: torch.Generator, layer_id: int,
         p["mamba"] = SSM.init_mamba(arch, gen, lead, dt, device)
     else:
         p["attn"] = L.init_attention(arch, gen, lead, dt, device)
-    p["mlp"] = L.init_mlp(arch, gen, lead, dt, device)
+    if layer_is_moe(arch, layer_id):
+        p["moe"] = L.init_moe(arch, gen, lead, dt, device)
+    else:
+        p["mlp"] = L.init_mlp(arch, gen, lead, dt, device)
     return p
 
 
@@ -188,7 +200,10 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         out = L.attention_out(p["attn"], o)
     x = x + out
     h = L.apply_norm(arch, p["ln2"], x)
-    x = x + L.apply_mlp(arch, p["mlp"], h)
+    if "moe" in p:  # the aux loss is for training, which MoE does not yet
+        x = x + L.apply_moe(arch, p["moe"], h, groups=st.moe_groups)[0]
+    else:
+        x = x + L.apply_mlp(arch, p["mlp"], h)
     return x, cache
 
 
@@ -261,6 +276,11 @@ def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
         raise NotImplementedError(
             f"training {arch.name} ({arch.family}) is not ported yet: the "
             f"port trains dense attention models (ROADMAP.md queue 1)")
+    if arch.moe is not None:
+        raise NotImplementedError(
+            f"training {arch.name} with experts is not ported yet: the MoE "
+            f"aux loss in train_loss and the experts' backward are a later "
+            f"slice (ROADMAP.md queue 1)")
     if st.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={st.remat!r} is not ported yet (none | full; "

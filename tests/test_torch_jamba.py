@@ -89,8 +89,13 @@ def test_one_card_arch_keeps_the_published_widths():
 
 
 def test_jamba_with_experts_raises():
+    """Jamba with its experts is served (tests/test_torch_configs.py holds
+    it to JAX); training it raises."""
+    from repro_torch.models.transformer import check_trainable
+    model = build_model(get_smoke_arch(JAMBA), ModelSettings(**FP32), device="cpu")
+    assert "moe" in dict(model.blocks.l1.named_children())
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(get_smoke_arch(JAMBA), ModelSettings(**FP32), device="cpu")
+        check_trainable(model.arch, model.settings)
 
 
 def test_full_width_param_count():

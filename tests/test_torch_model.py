@@ -183,11 +183,19 @@ def test_load_jax_params_rejects(weights, fault):
 
 
 def test_unported_family_raises():
+    """Experts are ported now; the encoder-decoder's learned and sinusoidal
+    positions are not and raise."""
     moe = get_smoke_arch(ARCH).replace(family="moe")
-    from repro_torch.configs.base import MoEConfig
+    from repro_torch.configs.base import EncoderConfig, MoEConfig
     moe = moe.replace(moe=MoEConfig(num_experts=4, top_k=2, expert_d_ff=32))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(moe, ModelSettings(**FP32), device="cpu")
+    assert "moe" in dict(build_model(moe, ModelSettings(**FP32),
+                                     device="cpu").blocks.l0.named_children())
+    for bad in (get_smoke_arch(ARCH).replace(positional="learned"),
+                get_smoke_arch(ARCH).replace(positional="sinusoidal"),
+                get_smoke_arch(ARCH).replace(family="audio",
+                                             encoder=EncoderConfig(n_layers=2))):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build_model(bad, ModelSettings(**FP32), device="cpu")
 
 
 # ---------------------------------------------------------------------------

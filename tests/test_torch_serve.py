@@ -8,8 +8,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from torch_harness import (ARCH, ARCHS, FP32, JAMBA, RWKV,  # noqa: E402
-                           jax_model, jax_params, port_model, smoke_weights)
+from torch_harness import (ARCH, ARCHS, FP32, JAMBA, NEW_ARCHS,  # noqa: E402
+                           RWKV, jax_model, jax_params, port_model, smoke_weights)
 
 from repro import configs as jax_configs  # noqa: E402
 from repro.runtime.serve_loop import DecodeServer as JaxDecodeServer  # noqa: E402
@@ -201,6 +201,20 @@ def test_cli_smoke_jamba_on_cpu(capsys):
     assert server.model.settings.use_kernel_ssm
     out = capsys.readouterr().out
     assert "cut to one card: moe" in out and "throughput:" in out
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_cli_smoke_decoder_archs_on_cpu(capsys, arch):
+    """The MoE slice's six configs through the CLI; nemotron's smoke config
+    is within its one-card depth, so nothing is cut."""
+    server = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                             "--requests", "3", "--max-new", "2",
+                             "--batch-slots", "2", "--max-seq", "16"])
+    assert server.stats["tokens"] == 6
+    assert server.model.arch == configs.get_smoke_arch(arch)
+    assert server.model.settings.attn_impl == "kernel"
+    out = capsys.readouterr().out
+    assert "throughput:" in out and "cut to one card" not in out
 
 
 @pytest.mark.parametrize("arch", ARCHS)

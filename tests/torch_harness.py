@@ -26,7 +26,11 @@ torch.set_num_threads(1)
 ARCH = "qwen2-0.5b"  # the dense arch, and the default below
 RWKV = "rwkv6-1.6b"
 JAMBA = "jamba-1.5-large-398b"  # runs without experts (one_card_arch)
-ARCHS = (JAMBA, ARCH, RWKV)  # every arch the port registers, sorted
+DEEPSEEK = "deepseek-moe-16b"
+# the decoder configs of the MoE slice: four dense, two with experts
+NEW_ARCHS = ("qwen3-1.7b", "stablelm-12b", "nemotron-4-340b", "chameleon-34b",
+             DEEPSEEK, "moonshot-v1-16b-a3b")
+ARCHS = tuple(sorted((JAMBA, ARCH, RWKV) + NEW_ARCHS))  # every arch the port registers
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 
 
@@ -49,11 +53,13 @@ def redraw(flat, seed: int):
     return out
 
 
-def smoke_archs(arch: str = ARCH, n_layers=None):
+def smoke_archs(arch: str = ARCH, n_layers=None, experts: bool = False):
     """(the JAX smoke config, the port's) with the port's one-card cut
-    (no experts for jamba) and, if given, ``n_layers``."""
+    (no experts for jamba) unless ``experts`` (the registered smoke config,
+    jamba's experts included) and, if given, ``n_layers``."""
     from repro.configs import get_smoke_arch as jax_smoke_arch
-    port, _ = one_card_arch(arch, smoke=True)
+    from repro_torch.configs import get_smoke_arch
+    port = get_smoke_arch(arch) if experts else one_card_arch(arch, smoke=True)[0]
     jarch = jax_smoke_arch(arch)
     if port.moe is None:
         jarch = jarch.replace(moe=None)
@@ -64,7 +70,7 @@ def smoke_archs(arch: str = ARCH, n_layers=None):
 
 def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
               arch: str = ARCH, use_pallas_ssm: bool = False, n_layers=None,
-              **settings):
+              experts: bool = False, **settings):
     """The JAX smoke model; ``settings`` override its ``ModelSettings``
     (remat "none" unless given)."""
     from repro.models import ModelSettings as JaxSettings
@@ -73,16 +79,16 @@ def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
     st = JaxSettings(param_dtype=dtype, compute_dtype=dtype,
                      attn_impl=attn_impl, max_seq=max_seq,
                      use_pallas_ssm=use_pallas_ssm, **settings)
-    return jax_build_model(smoke_archs(arch, n_layers)[0], st)
+    return jax_build_model(smoke_archs(arch, n_layers, experts)[0], st)
 
 
 def smoke_weights(seed: int = 0, dtype="float32", arch: str = ARCH,
-                  n_layers=None):
+                  n_layers=None, experts: bool = False):
     """The smoke model's flat JAX tree, every leaf redrawn from ``seed``."""
     import jax
     from repro.utils.trees import tree_paths
-    params = jax_model(dtype=dtype, arch=arch,
-                       n_layers=n_layers).init(jax.random.key(0))
+    params = jax_model(dtype=dtype, arch=arch, n_layers=n_layers,
+                       experts=experts).init(jax.random.key(0))
     return redraw({k: np.asarray(v) for k, v in tree_paths(params).items()},
                   seed)
 
@@ -95,11 +101,12 @@ def jax_params(flat):
 
 def port_model(flat, attn_impl: str = "masked", dtype="float32",
                arch: str = ARCH, use_kernel_ssm: bool = False, n_layers=None,
-               **settings):
+               experts: bool = False, **settings):
     st = ModelSettings(param_dtype=dtype, compute_dtype=dtype,
                        attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm,
                        **settings)
-    model = build_model(smoke_archs(arch, n_layers)[1], st, device="cpu")
+    model = build_model(smoke_archs(arch, n_layers, experts)[1], st,
+                        device="cpu")
     load_jax_params(model, flat)
     return model
 
