@@ -42,6 +42,20 @@ step-2 checkpoint restored on one rank (mesh (1, 1, 1)) for one step.
 The checkpoints (≈ 7.9 GB a step) go under ``build/ckpt_smoke`` and are
 deleted after the phase; too little free disk there raises.
 
+Then ``[train3]``: 8 ranks share the card over gloo, mesh (pod, host,
+data, model) = (2, 2, 2, 1), full-width qwen2-0.5b in fp32, B=1 S=512 a
+rank: (a) the CLI with ``--codec topk`` for 3 steps (24 K1 launches a rank
+a step, no K2); (b) ``make_sync_plan(..., mid_codec="int8")`` on
+``three_tier_fabric(2, 2, 2)`` and ``make_dfabric_train_step`` for 2 steps
+(K2 on every mid-coded leg and int8 slow chunk, as many launches as the
+plan says); parameters bit-equal over the 8 ranks after every step; (c)
+``dfabric_all_to_all`` of one deepseek-moe-16b dispatch buffer (64 x 960 x
+2048 bf16) a rank at chunks 1/2/4 and every lane offset, bit-equal to one
+flat ``all_to_all_single``; (d) ``ring_all_reduce`` of embed's gradient
+size on a second mesh, ``{"data": 8}``, bit-equal to ``prims.psum``.  The
+gloo collectives move the card's tensors through host memory: their times
+are not fabric bandwidth.
+
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -86,6 +100,18 @@ PTXAS_ENTRY = {"flash_attention_fwd": ("fa_(?:bf16_wgmma|f32_simt)_kernel", "hd"
 # checkpoint phase's crash comes right after the step-2 save
 TRAIN_RANKS, TRAIN_STEPS, TRAIN_TOKENS = 2, 4, 4 * 2048
 CKPT_EVERY, FAIL_AT = 2, 2
+# the three-tier phase: 8 ranks share the card, mesh (pod, host, data,
+# model) = (2, 2, 2, 1), full-width qwen2-0.5b in fp32, B=1 S=512 a rank;
+# (a) the CLI with the top-k slow codec, (b) the mid-tier int8 codec
+# through make_sync_plan + make_dfabric_train_step, then the collectives
+TRAIN3_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,2,2,1", "--codec", "topk",
+               "--steps", "3", "--batch", "8", "--seq", "512",
+               "--backend", "gloo", "--device", "cuda"]
+TRAIN3_RANKS, TRAIN3_TOKENS, TRAIN3_MID_STEPS = 8, 8 * 512, 2
+# one deepseek-moe-16b MoE layer's dispatch buffer at the serving shape
+# (B=4 S=2048): 64 experts x C 960 x d_model 2048, bf16, as 8 rows
+A2A_SHAPE = (64, 960, 2048)
+RING_NUMEL = 151936 * 896  # qwen2-0.5b's embed gradient
 
 
 def log(msg: str) -> None:
@@ -345,6 +371,8 @@ def check_flash_attention(torch, gen, dev, arch, jamba, mains=()):
         ("main-fp32", B_MAIN, H, KV, S_MAIN, hd, True, "float32"),
         # the training path's shape: 2 rows a rank, fp32
         ("main-train-fp32", 2, H, KV, S_MAIN, hd, True, "float32"),
+        # the three-tier path's (TRAIN3_ARGV): 1 row of 512 a rank, fp32
+        ("main-train3-fp32", 1, H, KV, 512, hd, True, "float32"),
         ("main-jamba", B_MAIN, jamba.n_heads, jamba.n_kv_heads, S_MAIN,
          jamba.resolved_head_dim, True, "bfloat16"),
         *((name, B_MAIN, a.n_heads, a.n_kv_heads, S_MAIN, a.resolved_head_dim,
@@ -594,11 +622,32 @@ def train_sections():
             for s in plan.sections}
 
 
+def train3_k2_sizes():
+    """{case: padded input size} of every K2 launch in ``[train3]`` (b):
+    each section's host reduce-scatter (its data-scattered shard) and
+    slow chunk (its fully scattered shard over the chunks), from
+    ``mid_tier_plans``' run plan for full-width qwen2-0.5b (meta device)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ModelSettings, build_model
+    sizes = {"pod": 2, "host": 2, "data": 2, "model": 1}
+    model = build_model(get_arch("qwen2-0.5b"),
+                        ModelSettings(param_dtype="float32", compute_dtype="float32"),
+                        device="meta")
+    _, plan, _ = mid_tier_plans(model, sizes)
+    out = {}
+    for sec in plan.sections:
+        sc, block = sec.schedule, sec.sync.codec_block
+        for what, n in (("host", sc.numel // sizes["data"]),
+                        ("slow", sc.numel // sc.scattered_prod // len(sc.slow_legs))):
+            out[f"train3-{what}-{sec.name}"] = n + (-n) % block
+    return out
+
+
 def check_quantize(torch, gen, dev):
     """K2 against its plain version, bit for bit on q, scales and err: the
-    JAX test's sweep, the training path's 9 section sizes, exact halves
-    with an all-zero block, an unaligned view and bf16 input.  Returns the
-    per-case results."""
+    JAX test's sweep, the training path's 9 section sizes, those of the
+    three-tier path's mid-codec run, exact halves with an all-zero block,
+    an unaligned view and bf16 input.  Returns the per-case results."""
     from repro_torch.kernels.quantize import kernel as q_kernel
     from repro_torch.kernels.quantize.ref import quantize_ef_ref
     sections = train_sections()
@@ -608,6 +657,8 @@ def check_quantize(torch, gen, dev):
              ((8192, 512), (4096, 2048), (2048, 128))]
     cases += [(f"sec-{name}", n, 2048, "float32", "grad")
               for name, n in sorted(sections.items(), key=lambda kv: -kv[1])]
+    cases += [(name, n, 2048, "float32", "grad")
+              for name, n in sorted(train3_k2_sizes().items(), key=lambda kv: -kv[1])]
     cases += [("halves-512", 16 * 512, 512, "float32", "halves"),
               ("unaligned-512", 64 * 512, 512, "float32", "unaligned"),
               ("bf16-8192-512", 8192, 512, "bfloat16", "randn"),
@@ -803,6 +854,276 @@ def run_training(ckpt_root):
             f"memory after init {rec['mem_after_init_gb']:.2f} GB")
         if rel > 1e-4:
             raise AssertionError("the kernel path's step-0 loss is off the masked one")
+    return recs
+
+
+def plan_k2_launches(plan) -> int:
+    """K2 launches a rank a step of ``plan``: one a mid-coded down leg and
+    one an int8 slow chunk, each lowered once (true of ``mid_tier_plans``'
+    run plan, whose sections all take the ZeRO-1 path; a pipelined
+    all-reduce would lower its down legs once a chunk)."""
+    return sum(1 for sec in plan.sections
+               for leg in sec.schedule.down_legs + sec.schedule.slow_legs
+               if leg.codec == "int8")
+
+
+def mid_tier_plans(model, sizes):
+    """Run (b)'s plans: the reference's call, ``make_sync_plan(model, sizes,
+    three_tier_fabric(2, 2, 2), codec="int8", mid_codec="int8",
+    strategy="hier_striped")``, and the plan (b) runs: the same sections,
+    chunks, lane offsets and staging with every fast tier scattered (the
+    host reduce-scatter int8-coded).  The planner codes the host tier as an
+    unscattered psum, which sends those sections down the all-reduce path
+    with AdamW moments of full size: ≈ 11 GB a rank, which 8 ranks on one
+    80 GB card cannot hold; scattered, they take the ZeRO-1 path, as in (a).
+    Returns (the planner's plan, the run's plan, the sync settings)."""
+    from repro_torch.core.planner import SyncPlan
+    from repro_torch.core.schedule import build_schedule
+    from repro_torch.core.topology import three_tier_fabric
+    from repro_torch.runtime.train_loop import make_sync_plan
+    fab = three_tier_fabric(num_pods=sizes["pod"], hosts_per_pod=sizes["host"],
+                            chips_per_host=sizes["data"])
+    plan, ss = make_sync_plan(model, sizes, fab, codec="int8", mid_codec="int8",
+                              strategy="hier_striped")
+    sections = []
+    for sec in plan.sections:
+        cfg = dataclasses.replace(sec.sync, scatter_depth=-1, mid_codec="int8")
+        sched = build_schedule(fab, cfg, sec.schedule.shape, max(sec.scatter_dim, 0),
+                               dtype=sec.schedule.dtype,
+                               fast_sizes=tuple(sizes[a] for a in ss.fast))
+        sched = sched.with_lane_offset(sec.schedule.lane_offset) \
+            .with_staging(sec.schedule.staging)
+        sections.append(dataclasses.replace(sec, sync=cfg, schedule=sched))
+    return plan, SyncPlan(sections), ss
+
+
+def params_bit_equal(params) -> bool:
+    """Every parameter equal, bit for bit, to member 0's: member 0
+    broadcasts each one in 64 MB pieces and every member compares."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.utils.trees import tree_paths
+    equal = True
+    for p in tree_paths(params).values():
+        flat = p.detach().reshape(-1)
+        for i in range(0, flat.numel(), 1 << 24):
+            part = flat[i:i + (1 << 24)]
+            buf = part.clone()
+            dist.broadcast(buf, 0)
+            equal = equal and torch.equal(buf, part)
+    return equal
+
+
+def train3_rank(rank, world, init_method):
+    """One rank of the three-tier phase, in one process group:
+    (a) ``launch.train``'s path with ``TRAIN3_ARGV`` (the top-k slow
+    codec), each step's K1 and K2 launches, loss, parameters against
+    member 0's, EF states and peak memory recorded; (b) the trainer's
+    state freed, then ``TRAIN3_MID_STEPS`` steps of
+    ``make_dfabric_train_step`` on the same model with ``mid_tier_plans``'
+    run plan, recorded alike; (c) ``dfabric_all_to_all`` of a deepseek
+    dispatch buffer at chunks 1/2/4 and every lane offset against one flat
+    ``all_to_all_single``; (d) ``ring_all_reduce`` against ``prims.psum``
+    on a second mesh, ``{"data": 8}``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.core.collectives import dfabric_all_to_all, ring_all_reduce
+    from repro_torch.core.schedule import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import grad_sync
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import local_rows, make_dfabric_train_step
+
+    args = train_cli.resolve_args(train_cli.build_parser().parse_args(TRAIN3_ARGV))
+    rec = {"a": [], "b": []}
+    live = {}
+
+    def step_record(step, loss, dt, params, opt):
+        torch.cuda.synchronize()
+        launches = (fa_kernel.LAUNCHES - live["last"][0],
+                    q_kernel.LAUNCHES - live["last"][1])
+        t0 = time.perf_counter()
+        equal = params_bit_equal(params)
+        efs = [e["ef"] for e in opt["sections"].values() if "ef" in e]
+        out = dict(step=step, loss=loss, dt=dt, fa=launches[0], q=launches[1],
+                   params_equal=equal, check_s=time.perf_counter() - t0,
+                   n_ef=len(efs), ef_nonzero=all(bool((e != 0).any()) for e in efs),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        live["last"] = (fa_kernel.LAUNCHES, q_kernel.LAUNCHES)
+        return out
+
+    def before_train(trainer, params, opt):
+        torch.cuda.reset_peak_memory_stats()
+        fa_kernel.LAUNCHES = q_kernel.LAUNCHES = 0  # just before the path
+        live["last"] = (0, 0)
+
+    def on_step(step, params, opt, metrics):
+        rec["a"].append(step_record(step, metrics["loss"], metrics["dt"], params, opt))
+
+    # (a) top-k through the CLI's path
+    trainer, out = train_cli.run_rank(args, rank, world, init_method,
+                                      on_step=on_step, before_train=before_train,
+                                      keep_group=True)
+    try:
+        mesh, model, dev = trainer.mesh, trainer.model, trainer.model.device
+        rec["a_sections"] = len(trainer.plan.sections)
+        rec["a_codecs"] = sorted({s.sync.codec for s in trainer.plan.sections})
+        rec["a_fa_total"], rec["a_q_total"] = live["last"]
+        del trainer, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the mid-tier int8 codec, the reference's step API
+        planned, plan, ss = mid_tier_plans(model, mesh.sizes)
+        with prims.bind(mesh):
+            for tag, pl in (("planned", planned), ("run", plan)):
+                st = grad_sync.init_sync_state(pl, model.param_shapes(), ss,
+                                               torch.device("meta"))
+                rec[f"b_{tag}_state_gb"] = sum(
+                    t.numel() * 4 for e in st["sections"].values()
+                    for t in e.values()) / 1e9
+        rec["b_planned"] = [s.schedule.describe() for s in planned.sections]
+        rec["b_run"] = [s.schedule.describe() for s in plan.sections]
+        rec["b_mid_legs"] = sum(1 for s in plan.sections for l in s.schedule.down_legs
+                                if l.codec == "int8")
+        rec["b_planned_mid_legs"] = sum(1 for s in planned.sections
+                                        for l in s.schedule.down_legs if l.codec == "int8")
+        rec["b_expected_q"] = plan_k2_launches(plan)
+        step_fn, init_state = make_dfabric_train_step(
+            model, mesh, plan, ss, AdamWConfig(),
+            cosine_schedule(args.lr, 1, TRAIN3_MID_STEPS))
+        model.requires_grad_(True)
+        params, state = model.params(), init_state()
+        pipe = TokenPipeline(model.arch, ShapeConfig("custom", args.seq, args.batch,
+                                                     "train"), DataConfig(seed=0))
+        torch.cuda.reset_peak_memory_stats()
+        fa_kernel.LAUNCHES = q_kernel.LAUNCHES = 0  # just before the path
+        live["last"] = (0, 0)
+        for step in range(TRAIN3_MID_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in local_rows(pipe.batch_at(step), mesh).items()}
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batch, step)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            rec["b"].append(step_record(step, loss, dt, params, state))
+        rec["b_q_total"] = live["last"][1]
+        del params, state, step_fn, init_state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) all-to-all of a deepseek dispatch buffer, 8 rows a rank
+        gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+        x = torch.randn(A2A_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+        x = x.view(world, -1)
+        rec["a2a_bytes"] = x.numel() * x.element_size()
+
+        def timed(fn):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize()
+            return y, time.perf_counter() - t0
+
+        def flat_a2a():
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            return y
+
+        ref, flat_s = timed(flat_a2a)
+        rec["a2a_flat_s"], rec["a2a"] = [flat_s], []
+        with prims.bind(mesh):
+            for chunks in (1, 2, 4):
+                for off in range(chunks):
+                    y, dt = timed(lambda: dfabric_all_to_all(
+                        x, ("data", "host"), "pod", SyncConfig(chunks=chunks),
+                        lane_offset=off))
+                    rec["a2a"].append((chunks, off, dt, torch.equal(y, ref)))
+                    del y
+        again, flat_s = timed(flat_a2a)
+        rec["a2a_flat_s"].append(flat_s)
+        rec["a2a_flat_repeat_equal"] = torch.equal(again, ref)
+        del x, ref, again
+
+        # (d) ring all-reduce on a second mesh over the same ranks
+        ring_mesh = prims.Mesh({"data": world})
+        xr = torch.randint(-64, 64, (RING_NUMEL,), generator=gen, device=dev).float()
+        with prims.bind(ring_mesh):
+            ring, rec["ring_s"] = timed(lambda: ring_all_reduce(xr, "data", world))
+            psum, rec["psum_s"] = timed(lambda: prims.psum(xr, "data"))
+        rec["ring_equal"] = torch.equal(ring, psum)
+        rec["ring_bytes"] = xr.numel() * 4
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def run_train3(card):
+    """The three-tier phase (``train3_rank`` on 8 ranks sharing the card):
+    checks and logs each run."""
+    import math as _m
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(train3_rank, TRAIN3_RANKS, timeout=900)
+    log(f"[train3] 8 ranks on (pod, host, data, model) = (2, 2, 2, 1), full-width "
+        f"qwen2-0.5b fp32, B=1 S=512 a rank: {time.perf_counter() - t0:.1f} s wall "
+        f"(spawn, runs a-d) | {card}")
+    qwen_layers = 24
+    for run, want_q in (("a", None), ("b", recs[0]["b_expected_q"])):
+        for rank, rec in enumerate(recs):
+            for st in rec[run]:
+                log(f"[train3] ({run}) rank {rank} step {st['step']}: loss={st['loss']:.6f} "
+                    f"step_s={st['dt']:.3f} tok/s={TRAIN3_TOKENS / st['dt']:.0f} (global "
+                    f"batch, 8 ranks) launches flash_attention_fwd={st['fa']} "
+                    f"quantize_ef_fwd={st['q']} params_bit_equal={st['params_equal']} "
+                    f"(checked in {st['check_s']:.2f} s) ef_nonzero={st['ef_nonzero']} "
+                    f"n_ef={st['n_ef']} peak_mem_gb={st['peak_gb']:.2f}")
+                q_ok = st["q"] == (0 if run == "a" else want_q)
+                if not (st["fa"] == qwen_layers and q_ok and _m.isfinite(st["loss"])
+                        and st["params_equal"] and st["ef_nonzero"] and st["n_ef"] > 0):
+                    raise AssertionError(f"[train3] ({run}) rank {rank}: {st}")
+        if any(a["loss"] != b["loss"] for r in recs[1:]
+               for a, b in zip(recs[0][run], r[run])):
+            raise AssertionError(f"[train3] ({run}) the ranks disagree on the loss")
+    r0 = recs[0]
+    if r0["a_codecs"] != ["topk"] or len(r0["a"]) != 3:
+        raise AssertionError(f"[train3] (a) plan codecs {r0['a_codecs']}")
+    log(f"[train3] (a) {r0['a_sections']} sections, codec topk on every slow leg; "
+        f"K1 {r0['a_fa_total']}, K2 {r0['a_q_total']} launches a rank in 3 steps")
+    log(f"[train3] (b) the planner's plan (three_tier_fabric(2, 2, 2), int8 + mid "
+        f"int8, hier_striped): {r0['b_planned_mid_legs']} mid-coded legs, sync state "
+        f"{r0['b_planned_state_gb']:.2f} GB a rank; e.g. {r0['b_planned'][-2]}")
+    log(f"[train3] (b) the plan run (every fast tier scattered): {r0['b_mid_legs']} "
+        f"mid-coded legs, sync state {r0['b_run_state_gb']:.2f} GB a rank; e.g. "
+        f"{r0['b_run'][-2]}; K2 a rank a step {r0['b_expected_q']} (mid legs + int8 "
+        f"slow chunks), {r0['b_q_total']} in {TRAIN3_MID_STEPS} steps")
+    if not (r0["b_mid_legs"] > 0 and r0["b_planned_mid_legs"] > 0
+            and r0["b_expected_q"] > 0):
+        raise AssertionError("[train3] (b) no mid-coded leg in the plan")
+    for rank, rec in enumerate(recs):
+        bad = [(c, o) for c, o, _, eq in rec["a2a"] if not eq]
+        if bad or not rec["a2a_flat_repeat_equal"] or len(rec["a2a"]) != 7:
+            raise AssertionError(f"[train3] (c) rank {rank}: all-to-all differs at {bad}")
+        if not rec["ring_equal"]:
+            raise AssertionError(f"[train3] (d) rank {rank}: ring != psum")
+    for chunks, off, dt, _ in r0["a2a"]:
+        log(f"[train3] (c) dfabric_all_to_all chunks={chunks} lane_offset={off}: "
+            f"{dt:.3f} s, bit-equal to the flat all_to_all_single on all 8 ranks")
+    log(f"[train3] (c) flat all_to_all_single over the world: "
+        f"{', '.join(f'{t:.3f}' for t in r0['a2a_flat_s'])} s (before, after); "
+        f"{r0['a2a_bytes']} bytes a rank (64 x 960 x 2048 bf16), gloo through host "
+        f"memory | {card}")
+    log(f"[train3] (d) ring_all_reduce over {{'data': 8}}: {r0['ring_s']:.3f} s, "
+        f"prims.psum {r0['psum_s']:.3f} s, {r0['ring_bytes']} bytes a rank, bit-equal "
+        f"on all 8 ranks; gloo through host memory (ppermute staged on the host) | {card}")
     return recs
 
 
@@ -1324,6 +1645,12 @@ def main() -> None:
     shutil.rmtree(ckpt_root)
     phase_done("ckpt: crash, elastic restart, restart")
 
+    # ---- three tiers on 8 ranks: top-k, mid int8, all-to-all, ring --------
+    log(f"[train3] card memory in use by this process before the ranks start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    train3 = run_train3(card)
+    phase_done("train3: 8 ranks (2,2,2,1), top-k, mid int8, all-to-all, ring")
+
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
@@ -1343,7 +1670,8 @@ def main() -> None:
         {"name": "quantize_ef_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/quantize/csrc/quantize_ef_fwd.cu",
          "replaces": "src/repro/kernels/quantize/kernel.py:53",
-         "launches": recs[0]["q_total"], **q_results["sec-embed"]}]}))
+         "launches": recs[0]["q_total"] + train3[0]["b_q_total"],
+         **q_results["sec-embed"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

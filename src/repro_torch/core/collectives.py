@@ -17,12 +17,18 @@ once; this module only lowers legs:
     really in flight while the fast tiers gather (in the JAX package
     XLA's async scheduler decides).  ``psum(x) == concat(psum(chunk_i))``.
 
-Codec / chunking apply to the slowest leg only; the int8 codec's encode is
-the quantize kernel (K2) on CUDA tensors.  The mid-tier codec, top-k,
-``lower_all_to_all`` and ``ring_all_reduce`` are not ported yet and raise.
+Codec / chunking apply to the slowest leg (int8 with error feedback, or
+top-k with error feedback, which never chunks); an optional ``mid_codec``
+compresses mid-tier legs, unscattered psums and scattered reduce-scatters
+alike, as int8 without error feedback.  The int8 encode is the quantize
+kernel (K2) on CUDA tensors.  ``lower_all_to_all`` walks ``kind=
+"all_to_all"`` schedules (shuffle / MoE dispatch traffic, one tier's own
+sub-index a stage) and ``ring_all_reduce`` is the explicit ring on
+``prims.ppermute``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import replace as _dc_replace
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -31,21 +37,19 @@ import torch
 from repro_torch.core import compression as comp
 from repro_torch.core import prims
 from repro_torch.core.prims import axis_size
-from repro_torch.core.schedule import (CommSchedule, Psum, ReduceScatter,
-                                       SlowChunk, SyncConfig,
+from repro_torch.core.schedule import (AllToAll, CommSchedule, Psum,
+                                       ReduceScatter, SlowChunk, SyncConfig,
+                                       all_to_all_from_axes,
                                        schedule_from_axes)
 
 __all__ = [
     "SyncConfig", "dfabric_all_reduce", "dfabric_reduce_scatter",
-    "dfabric_all_gather", "pod_psum", "lower_all_reduce",
-    "lower_reduce_scatter", "normalize_axes", "fast_axes_size",
+    "dfabric_all_gather", "dfabric_all_to_all", "pod_psum",
+    "lower_all_reduce", "lower_all_to_all", "lower_reduce_scatter",
+    "ring_all_reduce", "normalize_axes", "fast_axes_size",
 ]
 
 Axes = Union[str, Sequence[str]]
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +118,9 @@ def _schedule_usable(schedule: Optional[CommSchedule], x: torch.Tensor,
 
 
 class _PlainSlow:
-    """A codec-less slow sub-flow in flight (the int8 one is
-    ``compression.PendingInt8Psum``); ``finish()`` -> (sum, EF)."""
+    """A slow sub-flow in flight with no codec, or one already finished
+    (top-k; the int8 one is ``compression.PendingInt8Psum``); ``finish()``
+    -> (sum, EF)."""
 
     def __init__(self, pending: prims.Pending, ef: Optional[torch.Tensor]):
         self.pending, self.ef = pending, ef
@@ -134,6 +139,10 @@ def _issue_slow(leg: SlowChunk, x_flat: torch.Tensor,
     codec = cfg.make_codec()
     if isinstance(codec, comp.Int8Codec):
         return comp.issue_psum_int8(x_flat, leg.axis, codec, ef_flat)
+    if isinstance(codec, comp.TopKCodec):  # never chunked: done at once
+        out, new_ef = comp.compressed_psum_topk(x_flat, leg.axis, codec,
+                                                ef_flat)
+        return _PlainSlow(prims.Pending(out), new_ef)
     raise ValueError(leg.codec)
 
 
@@ -148,15 +157,23 @@ def _psum_leg(leg: Psum, x: torch.Tensor, cfg: SyncConfig) -> torch.Tensor:
     """Lower one unscattered (mid-tier / flat) psum leg."""
     if leg.codec is None:
         return prims.psum(x, leg.axis)
-    _not_ported("the mid-tier codec (SyncConfig.mid_codec)")
+    # the mid-tier codec: int8 without error feedback (the EF state belongs
+    # to the slow leg)
+    assert leg.codec == cfg.mid_codec, (leg.codec, cfg.mid_codec)
+    out, _ = comp.compressed_psum_int8(x.reshape(-1), leg.axis,
+                                       cfg.make_mid_codec(), None)
+    return out.reshape(x.shape)
 
 
 def _rs_leg(leg: ReduceScatter, x: torch.Tensor, dim: int,
             cfg: SyncConfig) -> torch.Tensor:
-    """Lower one fast-tier reduce-scatter leg."""
+    """Lower one fast-tier reduce-scatter leg (a scattered mid-tier leg may
+    carry the mid codec: int8 without error feedback, like mid psums)."""
     if leg.codec is None:
         return prims.reduce_scatter_tiled(x, leg.axis, dim)
-    _not_ported("the mid-tier codec (SyncConfig.mid_codec)")
+    assert leg.codec == cfg.mid_codec, (leg.codec, cfg.mid_codec)
+    return comp.compressed_reduce_scatter_int8(x, leg.axis,
+                                               cfg.make_mid_codec(), dim)
 
 
 def _slow_group(legs: Sequence[SlowChunk], x: torch.Tensor,
@@ -316,7 +333,7 @@ def lower_all_reduce(schedule: CommSchedule, x: torch.Tensor,
     if schedule.kind != "all_reduce":
         raise ValueError(
             f"lower_all_reduce needs an all_reduce schedule, got "
-            f"kind={schedule.kind!r} (all-to-all is not ported yet)")
+            f"kind={schedule.kind!r} (use lower_all_to_all)")
     if not schedule.legs:
         return x, ef
     if schedule.pipelined and schedule.chunks > 1:
@@ -411,3 +428,125 @@ def dfabric_all_gather(x: torch.Tensor, fast_axis: Axes,
         if axis_size(a) > 1:
             x = prims.all_gather_tiled(x, a, gather_dim)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Multi-stage hierarchical all-to-all (the NIC pool applied to MoE dispatch /
+# shuffle traffic)
+# ---------------------------------------------------------------------------
+
+
+def lower_all_to_all(schedule: CommSchedule, x: torch.Tensor,
+                     leg_log: Optional[List] = None) -> torch.Tensor:
+    """Lower a ``kind="all_to_all"`` schedule.
+
+    ``x``: (n_total, ...): row r holds the payload for member r of the DP
+    domain, rows ordered slow-major.  Each tier exchanges its OWN
+    sub-index, fastest tier first, so a stripe crossing the slow tier is
+    one contiguous block; the result equals one flat all-to-all over the
+    joint (slowest, ..., fastest) domain, bit for bit.  The slow tier's
+    exchange runs as the schedule's ``SlowChunk`` sub-flows, each an equal
+    slice of every destination's payload, issued in leg order and
+    reassembled by ``SlowChunk.index``.  ``leg_log`` receives the legs
+    lowered, in schedule order."""
+    if schedule.kind != "all_to_all":
+        raise ValueError(
+            f"lower_all_to_all needs an all_to_all schedule, got "
+            f"kind={schedule.kind!r}")
+    fast_legs = [l for l in schedule.legs if isinstance(l, AllToAll)]
+    slow = schedule.slow_legs
+    active = [(l.axis, l.size) for l in fast_legs]
+    if slow:
+        active.append((slow[0].axis, slow[0].size))
+    if not active:
+        return x
+    sizes = [n for _, n in active]
+    n_total = math.prod(sizes)
+    assert x.shape[0] == n_total, (x.shape, sizes)
+    rest = tuple(x.shape[1:])
+    # the leading dim viewed slow-major: dims ordered (slowest, ..., fastest)
+    y = x.reshape(tuple(reversed(sizes)) + rest)
+    k = len(active)
+    for i, leg in enumerate(fast_legs):  # fastest tier first
+        y = prims.all_to_all_tiled(y, leg.axis, k - 1 - i)
+        if leg_log is not None:
+            leg_log.append(leg)
+    if slow:
+        C = len(slow)
+        yshape = y.shape
+        yf = y.reshape(slow[0].size, -1)
+        blk = yf.shape[1] // C
+        outs: List[Optional[torch.Tensor]] = [None] * C
+        for leg in slow:  # in issue order; the payload slice picked by index
+            part = yf.narrow(1, leg.index * blk, blk)
+            outs[leg.index] = prims.all_to_all_tiled(part, leg.axis, 0)
+            if leg_log is not None:
+                leg_log.append(leg)
+        yf = torch.cat(outs, dim=1) if C > 1 else outs[0]
+        y = yf.reshape(yshape)
+    return y.reshape((n_total,) + rest)
+
+
+def dfabric_all_to_all(x: torch.Tensor, fast_axis: Axes,
+                       slow_axis: Optional[str],
+                       cfg: Optional[SyncConfig] = None,
+                       schedule: Optional[CommSchedule] = None,
+                       leg_log: Optional[List] = None,
+                       lane_offset: int = 0,
+                       staging: Optional[str] = None) -> torch.Tensor:
+    """All-to-all over the (fast tiers x slow tier) DP domain, one stage a
+    tier (see :func:`lower_all_to_all`).  ``schedule`` is the planner's
+    (``Planner.plan_all_to_all``) when it describes this operand, else one
+    is built from ``cfg`` (default: one slow sub-flow) and the live axis
+    sizes, keeping ``lane_offset`` and ``staging``."""
+    if schedule is not None and schedule.kind != "all_to_all":
+        raise ValueError(
+            f"dfabric_all_to_all needs an all_to_all schedule, got "
+            f"kind={schedule.kind!r}")
+    fast = normalize_axes(fast_axis)
+    if not _schedule_usable(schedule, x, fast, slow_axis):
+        sizes = {a: axis_size(a) for a in fast}
+        if slow_axis is not None:
+            sizes[slow_axis] = axis_size(slow_axis)
+        schedule = all_to_all_from_axes(fast, slow_axis, cfg or SyncConfig(),
+                                        tuple(x.shape), sizes)
+        if lane_offset:
+            schedule = schedule.with_lane_offset(lane_offset)
+        if staging is not None:
+            schedule = schedule.with_staging(staging)
+    return lower_all_to_all(schedule, x, leg_log=leg_log)
+
+
+# ---------------------------------------------------------------------------
+# Explicit ring all-reduce on ppermute
+# ---------------------------------------------------------------------------
+
+
+def ring_all_reduce(x: torch.Tensor, axis_name: str, n: int) -> torch.Tensor:
+    """Bandwidth-optimal ring all-reduce on ``prims.ppermute``: n − 1
+    reduce-scatter steps, then n − 1 all-gather steps, one 1/n chunk a
+    step.  ``n`` is the size of ``axis_name``; ``x.shape[0]`` must divide
+    by it.  Equals ``prims.psum`` up to the order of the adds."""
+    if n == 1:
+        return x
+    assert x.shape[0] % n == 0, (x.shape, n)
+    idx = prims.axis_rank(axis_name)
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    acc = x.reshape(n, -1).clone()
+    # reduce-scatter: at step k this member sends chunk (idx - k) mod n;
+    # after n - 1 steps it owns the whole sum of chunk (idx + 1) mod n
+    buf = acc[idx % n]
+    for k in range(n - 1):
+        recv = prims.ppermute(buf, axis_name, perm)
+        jr = (idx - k - 1) % n
+        acc[jr] += recv
+        buf = acc[jr]
+    # all-gather
+    own = (idx + 1) % n
+    out = acc.clone()
+    buf = acc[own]
+    for k in range(n - 1):
+        recv = prims.ppermute(buf, axis_name, perm)
+        out[(own - k - 1) % n] = recv
+        buf = recv
+    return out.reshape(x.shape)

@@ -15,7 +15,19 @@ and every member dequantize-sums locally.  It is split into an issue half
 pipelined lowering can keep a slow leg in flight while it gathers another
 chunk.
 
-``TopKCodec`` and the mid-tier codec are not ported yet.
+``compressed_reduce_scatter_int8`` is the mid-tier codec's scattered leg,
+with the reference's wire strategy: quantize the whole local tensor (K2 on
+the card), all-gather the int8 payload and the scales, dequantize-sum, and
+keep this member's block; no error feedback.
+
+``TopKCodec`` keeps the k largest magnitudes with the reference's indices
+in its order (values descending, ties to the lowest index: a stable
+descending sort of ``|x|``; ``torch.topk`` leaves the order of ties
+unspecified).  ``compressed_psum_topk`` gathers every member's (values,
+indices) and adds them member by member in member order: each member's
+indices are distinct, so no ``index_add_`` collides and the sum is
+bit-reproducible on the card, where one ``index_add_`` over all members'
+indices would add by atomics in no fixed order.
 """
 from __future__ import annotations
 
@@ -58,6 +70,35 @@ class Int8Codec:
     @property
     def name(self) -> str:
         return f"int8(b{self.block})"
+
+
+@dataclass(frozen=True)
+class TopKCodec:
+    """Magnitude top-k sparsifier. k_frac is the kept fraction."""
+
+    k_frac: float = 0.0625  # 1/16
+
+    def k_of(self, n: int) -> int:
+        return max(1, int(n * self.k_frac))
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (n,) -> (values (k,) in x's dtype, indices (k,) int32), the
+        k largest |x|, ties to the lowest index."""
+        k = self.k_of(x.shape[0])
+        idx = torch.sort(x.abs(), descending=True, stable=True).indices[:k]
+        return x[idx], idx.to(torch.int32)
+
+    def decode(self, values: torch.Tensor, idx: torch.Tensor,
+               n: int) -> torch.Tensor:
+        out = torch.zeros((n,), dtype=values.dtype, device=values.device)
+        return out.index_add_(0, idx.long(), values)
+
+    def wire_bytes(self, n: int) -> int:
+        return self.k_of(n) * 8  # fp32 value + int32 index
+
+    @property
+    def name(self) -> str:
+        return f"topk({self.k_frac})"
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +153,62 @@ def compressed_psum_int8(x: torch.Tensor, axis_name: str, codec: Int8Codec,
     return issue_psum_int8(x, axis_name, codec, ef).finish()
 
 
+def compressed_reduce_scatter_int8(x: torch.Tensor, axis_name: str,
+                                   codec: Int8Codec,
+                                   dim: int) -> torch.Tensor:
+    """Reduce-scatter ``x`` over ``axis_name`` along ``dim`` with int8 on
+    the wire (tiled: member *i* keeps block *i* of the sum).  The whole
+    local tensor is quantized and gathered and the sum formed locally, as
+    in the reference (whose wire bytes ``CostModel`` prices); no error
+    feedback, since a scattered leg's residual would belong to another
+    shard each step."""
+    n = prims.axis_size(axis_name)
+    shp = x.shape
+    assert shp[dim] % n == 0, (shp, dim, n)
+    xf = x.reshape(-1)
+    n0 = xf.shape[0]
+    pad = (-n0) % codec.block
+    q, s = codec.encode(F.pad(xf, (0, pad)) if pad else xf)
+    qg = prims.all_gather_stacked(q, axis_name)  # (P, n) int8 on the wire
+    sg = prims.all_gather_stacked(s, axis_name)  # (P, n/block) fp32
+    full = codec.decode(qg, sg).sum(dim=0)[:n0].to(x.dtype).reshape(shp)
+    blk = shp[dim] // n
+    return full.narrow(dim, prims.axis_rank(axis_name) * blk, blk).contiguous()
+
+
+def compressed_psum_topk(x: torch.Tensor, axis_name: str, codec: TopKCodec,
+                         ef: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Sum ``x`` over ``axis_name`` sending each member's top-k (values,
+    indices); returns (the sum, the new EF state: what this member did not
+    send, or None without ``ef``)."""
+    if ef is not None:
+        x = x + ef
+    vals, idx = codec.encode(x)
+    n = x.shape[0]
+    new_ef = x - codec.decode(vals, idx, n) if ef is not None else None
+    vg = prims.all_gather_stacked(vals, axis_name)  # (P, k)
+    ig = prims.all_gather_stacked(idx, axis_name)  # (P, k)
+    return combine_topk(vg, ig, n, x.dtype), new_ef
+
+
+def combine_topk(values: torch.Tensor, idx: torch.Tensor, n: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The (n,) sum of P members' gathered top-k sets, values (P, k) and
+    indices (P, k), added member by member in member order: no index
+    repeats within a member, so each ``index_add_`` is free of collisions
+    and the result is the same on every run and every rank."""
+    out = torch.zeros((n,), dtype=dtype, device=values.device)
+    for p in range(values.shape[0]):
+        out.index_add_(0, idx[p].long(), values[p].to(dtype))
+    return out
+
+
 def make_codec(kind: Optional[str], **kw):
     if kind in (None, "none"):
         return None
     if kind == "int8":
         return Int8Codec(**{k: v for k, v in kw.items() if k in ("block",)})
     if kind == "topk":
-        raise NotImplementedError(
-            "the top-k codec is not ported yet (ROADMAP.md queue 1)")
+        return TopKCodec(**{k: v for k, v in kw.items() if k in ("k_frac",)})
     raise ValueError(f"unknown codec {kind!r}")

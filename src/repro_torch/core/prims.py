@@ -14,9 +14,15 @@ tensor and leaves its input as it was, as ``lax`` does.
 
 Transport: NCCL groups take CUDA tensors.  Gloo groups take CPU tensors,
 and on torch 2.11 CUDA tensors too (gloo copies them through host memory
-itself): checked on the H100 machine for every collective used here,
-including an async ``all_gather_into_tensor``, so the two ranks that share
-one card in ``chip_smoke.py`` hand gloo their CUDA tensors as they are.
+itself) for every collective used here: checked on the H100 machine for
+``all_reduce``, ``all_gather_into_tensor`` (async too),
+``reduce_scatter_tensor`` and ``all_to_all_single``, so the ranks that
+share one card in ``chip_smoke.py`` hand gloo their CUDA tensors as they
+are.  Gloo's point-to-point ops (``isend``/``irecv``, and so
+``batch_isend_irecv``) take the tensor's data pointer as a host address
+and do not take CUDA tensors, so :func:`ppermute` on a gloo group copies
+its send and receive buffers through host memory itself; the adds of its
+callers stay on the card.  That copy is chosen by the group's backend.
 """
 from __future__ import annotations
 
@@ -206,6 +212,56 @@ def all_gather_tiled(x: torch.Tensor, axis_name: str,
                       device=x.device)
     _run(_all_gather, out, xm, axis_name).wait()
     return out.movedim(0, dim)
+
+
+def all_to_all_tiled(x: torch.Tensor, axis_name: str,
+                     dim: int) -> torch.Tensor:
+    """Tiled all-to-all along ``dim``: block *j* of ``x`` goes to member
+    *j*, and the block received from member *i* lands at position *i*
+    (``lax.all_to_all(..., split_axis=dim, concat_axis=dim, tiled=True)``).
+    Member *i* of a sub-group is index *i* on its axis, the order ``lax``
+    uses."""
+    n = axis_size(axis_name)
+    if n == 1:
+        return x
+    xm = x.movedim(dim, 0).contiguous()
+    if xm.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} members of {axis_name!r}")
+    out = torch.empty_like(xm)
+    _run(dist.all_to_all_single, out, xm, axis_name).wait()
+    return out.movedim(0, dim)
+
+
+def ppermute(x: torch.Tensor, axis_name: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Send ``x`` along the (source, destination) pairs of ``perm``, axis
+    indices; a member that no pair sends to gets zeros (``lax.ppermute``).
+    On a gloo group a CUDA tensor is sent and received through host
+    buffers (see the module docstring); NCCL takes it as it is."""
+    mesh = current_mesh()
+    me = mesh.rank(axis_name)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"perm {perm} is not a permutation")
+    out = torch.zeros_like(x)
+    if not dst and not src:
+        return out
+    group = mesh.groups[axis_name]
+    host = mesh.backend == "gloo" and x.device.type != "cpu"
+    send = x.detach().contiguous()
+    send = send.cpu() if host else send
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, d),
+                      group) for d in dst]
+    ops += [dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, s),
+                       group) for s in src]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if src:
+        out.copy_(recv)
+    return out
 
 
 def all_gather_stacked(x: torch.Tensor, axis_name: str,

@@ -313,13 +313,22 @@ def init_sync_state(plan: SyncPlan, param_shapes: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 
+def _drop_leaf(tree, path: str) -> None:
+    *parents, leaf = path.split("/")
+    for p in parents:
+        tree = tree[p]
+    del tree[leaf]
+
+
 @torch.no_grad()
 def sync_and_update(params, grads, sync_state, plan: SyncPlan,
                     ss: SyncSettings, lr, opt_cfg: AdamWConfig
                     ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
     """Execute the plan; returns (params, new_sync_state, metrics).  The
     parameter tensors of ``params`` are updated in place (and returned);
-    ``lr`` is a float or a 0-d fp32 tensor."""
+    ``lr`` is a float or a 0-d fp32 tensor.  ``grads`` is consumed: each
+    leaf is dropped from the tree once its section is synced, so that a
+    step holds a gradient only until then."""
     if ss.model_axis is not None and prims.axis_size(ss.model_axis) > 1:
         raise NotImplementedError("tensor parallelism (a model axis > 1) is "
                                   "not ported yet (ROADMAP.md queue 1)")
@@ -364,6 +373,9 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
             entry["ef"] = new_ef
         new_sections[sec.name] = entry
         del g
+        for path in sec.leaf_paths:
+            del gflat[path]
+            _drop_leaf(grads, path)
 
     gnorm = torch.sqrt(sqnorm)
     clip = clip_coefficient(gnorm, opt_cfg)

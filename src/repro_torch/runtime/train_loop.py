@@ -117,8 +117,6 @@ def make_sync_plan(model: Model, sizes: Dict[str, int], topo, *,
     """The shared planner's plan for ``model`` on a mesh of ``sizes``
     ({axis: size}), and the sync settings — the reference's, input for
     input."""
-    if mid_codec is not None:
-        _not_ported("the mid-tier codec (mid_codec)")
     mi = mesh_info(sizes, embed_tp=embed_tp)
     fast_axes = fast_axes_of(sizes) or ("data",)
     fast_sizes = tuple(sizes.get(a, 1) for a in fast_axes)
@@ -146,7 +144,8 @@ def make_sync_plan(model: Model, sizes: Dict[str, int], topo, *,
 
     local = {p: local_shape(p) for p in shapes}
     planner = Planner(topo, fast_axis_sizes=fast_sizes, codec=codec,
-                      strategy=strategy, pipeline=pipeline)
+                      strategy=strategy, pipeline=pipeline,
+                      mid_codec=mid_codec)
     plan = planner.plan(shapes, bucket_bytes=bucket_bytes, avoid_dims=avoid,
                         local_shapes=local)
     return plan, ss
@@ -189,15 +188,17 @@ def make_dfabric_train_step(model: Model, mesh: prims.Mesh, plan: SyncPlan,
                     else:
                         loss = loss + l
                         grads = {k: grads[k] + g[k] for k in grads}
+                del l, g
                 loss = loss / microbatches
                 grads = {k: g / microbatches for k, g in grads.items()}
             else:
                 loss, grads = grads_of(params, batch)
             loss = prims.pmean(loss, dp_axes)
             lr = lr_fn(step_idx).to(loss.device)
+            # the sync drops each gradient from this tree once it is synced
+            grads = tree_from_paths(grads)
             params, new_state, metrics = sync_and_update(
-                params, tree_from_paths(grads), sync_state, plan, ss, lr,
-                opt_cfg)
+                params, grads, sync_state, plan, ss, lr, opt_cfg)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["lr"] = lr

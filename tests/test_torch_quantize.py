@@ -148,8 +148,9 @@ def test_make_codec():
     assert compression.make_codec(None) is None
     assert compression.make_codec("none") is None
     assert compression.make_codec("int8", block=512) == compression.Int8Codec(512)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compression.make_codec("topk")
+    assert compression.make_codec("topk") == compression.TopKCodec()
+    assert compression.make_codec("topk", k_frac=0.25, block=512) == \
+        compression.TopKCodec(0.25)
     with pytest.raises(ValueError):
         compression.make_codec("fp4")
 

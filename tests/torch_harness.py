@@ -269,6 +269,149 @@ def rank_collectives(rank, payload):
     return out
 
 
+#: the codec grid's meshes: the collectives grid's, and (4, 2), whose slow
+#: leg adds 4 members' top-k sets (the combine order)
+CODEC_MESHES = dict(COLLECTIVE_MESHES,
+                    **{"4x2": ((4, 2), ("pod", "data"), ("data",), "pod")})
+
+
+def codec_schedule(sched_mod, case, sizes):
+    """(the case's ``SyncConfig``, its schedule or None for ``pod_psum``),
+    built by either package's ``schedule``; a case is (mesh, SyncConfig
+    fields, op, shape, scatter dim)."""
+    mesh, fields, op, shape, dim = case
+    _, _, fast, slow = CODEC_MESHES[mesh]
+    cfg = sched_mod.SyncConfig(**fields)
+    if op == "pod_psum":
+        return cfg, None
+    return cfg, sched_mod.schedule_from_axes(fast, slow, cfg, tuple(shape),
+                                             dim, sizes)
+
+
+def rank_codec_collectives(rank, payload):
+    """Each case of ``payload["cases"]`` on this rank: its input row
+    ``payload["x"][i][rank]`` (and EF row, where the case has one) through
+    ``lower_all_reduce``, ``lower_reduce_scatter`` + ``dfabric_all_gather``
+    or ``pod_psum``; returns {case index: (output, new EF or None, gathered
+    or None, leg log == the schedule's legs)}."""
+    from repro_torch.core import prims, schedule
+    from repro_torch.core.collectives import (dfabric_all_gather,
+                                              lower_all_reduce,
+                                              lower_reduce_scatter, pod_psum)
+    meshes = {name: prims.Mesh(dict(zip(axes, shape)))
+              for name, (shape, axes, _, _) in CODEC_MESHES.items()}
+    out = {}
+    for i, case in enumerate(payload["cases"]):
+        mesh_name, _, op, shape, dim = case
+        mesh = meshes[mesh_name]
+        x = torch.from_numpy(payload["x"][i][rank])
+        ef = payload["ef"][i]
+        ef = None if ef is None else torch.from_numpy(ef[rank])
+        log, gathered = [], None
+        with prims.bind(mesh):
+            cfg, sched = codec_schedule(schedule, case, mesh.sizes)
+            if op == "pod_psum":
+                y, nef = pod_psum(x, CODEC_MESHES[mesh_name][3], cfg, ef=ef)
+                legs = log
+            elif op == "all_reduce":
+                y, nef = lower_all_reduce(sched, x, ef=ef, leg_log=log)
+                legs = list(sched.legs)
+            else:
+                y, nef = lower_reduce_scatter(sched, x, ef=ef, leg_log=log)
+                gathered = dfabric_all_gather(
+                    y, CODEC_MESHES[mesh_name][2], gather_dim=dim).numpy()
+                legs = list(sched.down_legs) + list(sched.slow_legs)
+        out[i] = (y.numpy(), None if nef is None else nef.numpy(), gathered,
+                  log == legs)
+    return out
+
+
+#: ``tests/batteries/alltoall_battery.py``'s meshes: (shape, axes slowest
+#: first, fast axes fastest first, slow axis)
+ALLTOALL_MESHES = {
+    "8": ((8,), ("data",), ("data",), None),
+    "2x4": ((2, 4), ("pod", "data"), ("data",), "pod"),
+    "4x2": ((4, 2), ("pod", "data"), ("data",), "pod"),
+    "2x2x2": ((2, 2, 2), ("pod", "host", "data"), ("data", "host"), "pod"),
+}
+ALLTOALL_TIERS = {"data": "ici", "host": "cxl", "pod": "dcn"}
+
+
+def alltoall_schedules(sched_mod, mesh_name, shape, dest_sizes=None):
+    """{(chunks, lane offset): the all-to-all schedule} on a mesh of
+    ``ALLTOALL_MESHES``, chunks 1/2/4 x every lane offset, built by either
+    package's ``schedule`` as the battery builds them."""
+    dims, axes, fast, slow = ALLTOALL_MESHES[mesh_name]
+    sizes = dict(zip(axes, dims))
+    out = {}
+    for chunks in (1, 2, 4):
+        s = sched_mod.all_to_all_from_axes(
+            fast, slow, sched_mod.SyncConfig(chunks=chunks), shape, sizes,
+            tier_names=ALLTOALL_TIERS, dest_sizes=dest_sizes)
+        for off in range(max(len(s.slow_legs), 1)):
+            out[(chunks, off)] = s.with_lane_offset(off)
+    return out
+
+
+def rank_alltoall(rank, payload):
+    """On each mesh of ``ALLTOALL_MESHES``: this rank's row of
+    ``payload["x"]`` through ``lower_all_to_all`` for every schedule of
+    ``alltoall_schedules`` (and the skewed ones of ``payload["skew"]``),
+    through ``dfabric_all_to_all`` built in place for each chunk count,
+    and through one flat ``all_to_all_single`` over the world.  Returns
+    {mesh: {"flat": out, (chunks, offset): (out, leg log), ("skew", chunks,
+    offset): out, ("in_place", chunks): out}}."""
+    import torch.distributed as dist
+    from repro_torch.core import prims, schedule
+    from repro_torch.core.collectives import (dfabric_all_to_all,
+                                              lower_all_to_all)
+    x = torch.from_numpy(payload["x"][rank])
+    flat = torch.empty_like(x)
+    dist.all_to_all_single(flat, x)
+    out = {}
+    for name, (dims, axes, fast, slow) in ALLTOALL_MESHES.items():
+        mesh = prims.Mesh(dict(zip(axes, dims)))
+        res = {"flat": flat.numpy()}
+        with prims.bind(mesh):
+            for key, s in alltoall_schedules(schedule, name, tuple(x.shape)).items():
+                log = []
+                res[key] = (lower_all_to_all(s, x, leg_log=log).numpy(), log)
+            for key, s in alltoall_schedules(schedule, name, tuple(x.shape),
+                                             payload["skew"]).items():
+                res[("skew",) + key] = lower_all_to_all(s, x).numpy()
+            for chunks in (1, 2, 4):
+                res[("in_place", chunks)] = dfabric_all_to_all(
+                    x, fast, slow, schedule.SyncConfig(chunks=chunks)).numpy()
+        out[name] = res
+    return out
+
+
+#: ring all-reduce cases: (mesh sizes, ring axis);
+#: ``tests/batteries/collectives_battery.py``'s (ring over "data" within
+#: each pod of a (2, 2, 2) mesh) and one 8-member ring
+RING_CASES = {
+    "battery": ({"pod": 2, "data": 2, "model": 2}, "data"),
+    "ring8": ({"data": 8}, "data"),
+}
+
+
+def rank_ring(rank, payload):
+    """``ring_all_reduce`` and ``prims.psum`` of this rank's rows of
+    ``payload[case][kind]`` over each case's ring axis; returns {(case,
+    kind): (ring, psum)}."""
+    from repro_torch.core import prims
+    from repro_torch.core.collectives import ring_all_reduce
+    out = {}
+    for case, (sizes, axis) in RING_CASES.items():
+        mesh = prims.Mesh(sizes)
+        with prims.bind(mesh):
+            for kind, rows in payload[case].items():
+                x = torch.from_numpy(rows[rank])
+                out[(case, kind)] = (ring_all_reduce(x, axis, mesh.size(axis)).numpy(),
+                                     prims.psum(x, axis).numpy())
+    return out
+
+
 #: the Trainer comparison's settings, shared by both packages' runs
 TRAIN = dict(steps=4, lr=8e-3, warmup=2, log_every=0, seed=3)
 TRAIN_SHAPE = dict(global_batch=8, seq_len=32)
@@ -353,6 +496,143 @@ def jax_trainer_runs(runs, weights):
         "loss_chunk": np.array(TRAIN_LOSS_CHUNK), "arch": np.array(ARCH)})
 
 
+def lossy(cfg) -> bool:
+    """Whether a run's sync rounds: the int8 or top-k slow codec, or the
+    mid-tier codec; such runs are held to the int8 tolerances."""
+    return cfg.get("codec") in ("int8", "topk") or cfg.get("mid_codec") is not None
+
+
+def plan_fields(cfg) -> dict:
+    """The ``make_sync_plan`` arguments beside the codec in a run's
+    fields (the step-level runs name them; the ``Trainer`` passes none)."""
+    return {k: cfg[k] for k in ("mid_codec", "strategy") if k in cfg}
+
+
+def run_topology(sizes, cfg, topology_mod=None):
+    """The topology a run plans with: ``three_tier_fabric`` for the runs
+    that name ``fabric: "3tier"``, else the ``Trainer``'s default; built
+    by the port's ``topology`` or, given, the JAX package's."""
+    if topology_mod is None:
+        from repro_torch.core import topology as topology_mod
+    if cfg.get("fabric") == "3tier":
+        return topology_mod.three_tier_fabric(
+            num_pods=sizes["pod"], hosts_per_pod=sizes["host"],
+            chips_per_host=sizes["data"])
+    return topology_mod.topology_from_mesh_sizes(sizes)
+
+
+def rank_sync_plan_steps(rank, payload):
+    """``TRAIN["steps"]`` steps of the port's ``make_dfabric_train_step``
+    on this rank, with the plan of ``make_sync_plan(model, sizes,
+    run_topology(...), codec=..., **plan_fields(...))`` from
+    ``payload["cfg"]``, on the smoke model loaded from
+    ``payload["weights"]`` and the ``Trainer``'s data and schedule.
+    Returns what ``rank_trainer`` does, and the plan's ``to_json()``."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import (local_rows,
+                                                make_dfabric_train_step,
+                                                make_sync_plan)
+    from repro_torch.utils.trees import tree_paths
+    sizes, cfg = payload["sizes"], payload["cfg"]
+    mesh = prims.Mesh(sizes)
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
+    model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+    load_jax_params(model, payload["weights"])
+    plan, ss = make_sync_plan(model, sizes, run_topology(sizes, cfg),
+                              codec=cfg.get("codec"), **plan_fields(cfg))
+    step_fn, init_state = make_dfabric_train_step(
+        model, mesh, plan, ss, AdamWConfig(),
+        cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["steps"]))
+    model.requires_grad_(True)
+    params, state = model.params(), init_state()
+    pipe = TokenPipeline(model.arch, ShapeConfig("t", TRAIN_SHAPE["seq_len"],
+                                                 TRAIN_SHAPE["global_batch"], "train"),
+                         DataConfig(seed=TRAIN["seed"]))
+    losses = []
+    for step in range(TRAIN["steps"]):
+        batch = {k: torch.from_numpy(v)
+                 for k, v in local_rows(pipe.batch_at(step), mesh).items()}
+        params, state, metrics = step_fn(params, state, batch, step)
+        losses.append(float(metrics["loss"]))
+    return (losses, {k: v.detach().numpy().copy() for k, v in tree_paths(params).items()},
+            {name: {k: t.numpy().copy() for k, t in e.items()}
+             for name, e in state["sections"].items()},
+            tuple(sorted(mesh.coords.items()))), plan.to_json()
+
+
+STEP_JAX_SCRIPT = r'''
+import os, sys, json
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_arch
+from repro.core import topology
+from repro.data.pipeline import DataConfig, TokenPipeline
+from repro.models import ModelSettings, build_model
+from repro.optim.adamw import AdamWConfig, cosine_schedule
+from repro.runtime.train_loop import (batch_sharding, make_dfabric_train_step,
+                                      make_sync_plan, mesh_info)
+from repro.utils.jax_compat import make_mesh
+from repro.utils.trees import tree_from_paths, tree_paths
+sys.path.insert(0, os.environ["TESTS_DIR"])
+from torch_harness import plan_fields, run_topology
+
+z = np.load(os.environ["JAX_IN"], allow_pickle=True)
+runs, weights = json.loads(str(z["runs"])), z["weights"].item()
+train, shp = json.loads(str(z["train"])), json.loads(str(z["shape"]))
+
+class Shape:
+    global_batch, seq_len = shp["global_batch"], shp["seq_len"]
+    name, kind = "t", "train"
+
+st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                   remat="none", loss_chunk=int(z["loss_chunk"]), max_seq=64)
+model = build_model(get_smoke_arch(str(z["arch"])), st)
+res = {}
+for name, (sizes, cfg) in runs.items():
+    mesh = make_mesh(tuple(sizes.values()), tuple(sizes))
+    plan, ss = make_sync_plan(model, mesh, run_topology(sizes, cfg, topology),
+                              codec=cfg.get("codec"), **plan_fields(cfg))
+    step_fn, init_state, state_sharding = make_dfabric_train_step(
+        model, mesh, plan, ss, AdamWConfig(),
+        cosine_schedule(train["lr"], train["warmup"], train["steps"]))
+    params = jax.device_put(tree_from_paths({k: jnp.asarray(v) for k, v in weights.items()}),
+                            NamedSharding(mesh, P()))
+    opt = jax.device_put(init_state(), state_sharding)
+    bshard = batch_sharding(mesh, model, mesh_info(mesh))
+    pipe = TokenPipeline(model.arch, Shape(), DataConfig(seed=train["seed"]))
+    losses = []
+    for step in range(train["steps"]):
+        batch = {k: jax.device_put(v, bshard[k]) for k, v in pipe.batch_at(step).items()}
+        params, opt, metrics = step_fn(params, opt, batch, jnp.int32(step))
+        losses.append(float(metrics["loss"]))
+    res[f"{name}/loss"] = np.array(losses)
+    res[f"{name}/plan"] = np.array(plan.to_json())
+    for k, v in tree_paths(params).items():
+        res[f"{name}/p/{k}"] = np.asarray(v)
+    for sec, entry in opt["sections"].items():
+        for k, v in entry.items():
+            res[f"{name}/s/{sec}/{k}"] = np.asarray(v)
+np.savez(os.environ["JAX_OUT"], **res)
+'''
+
+
+def jax_step_runs(runs, weights):
+    """The JAX ``make_dfabric_train_step`` on 8 fake devices for each of
+    ``runs`` ({name: (mesh sizes, plan fields)}), as
+    ``rank_sync_plan_steps`` runs the port's."""
+    import json
+    os.environ["TESTS_DIR"] = os.path.dirname(os.path.abspath(__file__))
+    return run_jax_devices(STEP_JAX_SCRIPT, {
+        "runs": np.array(json.dumps(runs)), "weights": np.array(weights, dtype=object),
+        "train": np.array(json.dumps(TRAIN)), "shape": np.array(json.dumps(TRAIN_SHAPE)),
+        "loss_chunk": np.array(TRAIN_LOSS_CHUNK), "arch": np.array(ARCH)})
+
+
 def check_trainer_run(name, sizes, cfg, jax_out, per_rank):
     """The port's run (``rank_trainer``'s result on each rank) against the
     JAX one, to the tolerances set out in ``test_torch_trainer.py``: losses,
@@ -360,7 +640,7 @@ def check_trainer_run(name, sizes, cfg, jax_out, per_rank):
     together with ``grad_sync.assemble`` against the JAX global arrays)."""
     losses, params, _, _ = per_rank[0]
     jloss = jax_out[f"{name}/loss"]
-    int8 = cfg.get("codec") == "int8"
+    int8 = lossy(cfg)
     assert len(losses) == TRAIN["steps"] and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
     np.testing.assert_allclose(losses, jloss, rtol=1e-3 if int8 else 1e-4)
@@ -394,18 +674,17 @@ def check_sync_state(name, sizes, cfg, jax_out, per_rank):
     its own range, and a flip moves an element by a whole scale (~2x its
     range): it is held to 1e-2 of its range in 99% of the elements."""
     from repro_torch.configs import get_smoke_arch
-    from repro_torch.core.topology import topology_from_mesh_sizes
     from repro_torch.optim import grad_sync
     from repro_torch.runtime.train_loop import make_sync_plan
     import dataclasses
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
     model = build_model(get_smoke_arch(ARCH), st, device="meta")
-    plan, ss = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes),
-                              codec=cfg.get("codec"))
+    plan, ss = make_sync_plan(model, sizes, run_topology(sizes, cfg),
+                              codec=cfg.get("codec"), **plan_fields(cfg))
     if not cfg.get("zero1", True):
         ss = dataclasses.replace(ss, mode="paper")
     specs = grad_sync.sync_state_specs(plan, model.param_shapes(), ss)
-    int8 = cfg.get("codec") == "int8"
+    int8 = lossy(cfg)
     for sec in plan.sections:
         for k, spec in specs["sections"][sec.name].items():
             want = jax_out[f"{name}/s/{sec.name}/{k}"]
