@@ -56,6 +56,26 @@ size on a second mesh, ``{"data": 8}``, bit-equal to ``prims.psum``.  The
 gloo collectives move the card's tensors through host memory: their times
 are not fabric bandwidth.
 
+Then the training phases beyond dense fp32 (``FAMILY_RUNS``), each on two
+ranks sharing the card over gloo, mesh (2, 1, 1), the int8 slow tier (K2 on
+every slow chunk) and ZeRO-1 AdamW, with every kernel's launches a rank a
+step checked against the count the code gives, finite losses, parameters
+bit-equal over the ranks after every step, step times, tokens a second and
+peak memory a rank: ``[train-bf16]`` full-width qwen2-0.5b, B=2 S=2048 a
+rank, 3 steps each of (a) bf16/bf16 and (b) bf16 parameters with fp32
+compute, both ``remat="full"`` (K1's bf16 body in (a), its fp32 body in
+(b), 48 a rank a step), a bf16 checkpoint at step 2 restored on a fresh
+model bit for bit; ``[train-moe]`` deepseek-moe-16b at every published
+width, cut to 2 layers (``configs.one_card_train_arch``: a third adds
+about 18.8 GB over the two ranks), bf16, B=1 S=2048 a rank, 3 steps, its
+CE and aux parts and dropped slots; ``[train-rwkv]`` rwkv6-1.6b whole,
+bf16, B=1 S=2048 a rank, 2 steps, K3 in every layer's forward and
+recompute (48 a rank a step; the backward
+recomputes the plain recurrence); ``[train-jamba]`` one full-width Mamba
+layer of the jamba cut, forward and backward through K4's autograd wrapper
+against the plain path's gradients in fp32 and bf16, then the jamba smoke
+model with its experts, 3 steps, K4 and K1 in the forward and recompute.
+
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -357,10 +377,11 @@ def serve_line(name, server, launches) -> str:
             f"launches={launches}")
 
 
-def check_flash_attention(torch, gen, dev, arch, jamba, mains=()):
+def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=()):
     """K1 against its plain version at the qwen2 and jamba paths' prefill
     shapes, at those of ``mains`` ((case name, arch) of the other serving
-    paths) and others.  Returns the per-case results."""
+    paths), at the training paths' ``trains`` ((case name, rows a rank,
+    arch, seq, dtype)) and others.  Returns the per-case results."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -377,6 +398,8 @@ def check_flash_attention(torch, gen, dev, arch, jamba, mains=()):
          jamba.resolved_head_dim, True, "bfloat16"),
         *((name, B_MAIN, a.n_heads, a.n_kv_heads, S_MAIN, a.resolved_head_dim,
            True, "bfloat16") for name, a in mains),
+        *((name, B, a.n_heads, a.n_kv_heads, S, a.resolved_head_dim, True, dt)
+          for name, B, a, S, dt in trains),
         ("hd128", 2, 8, 2, 1024, 128, True, "float32"),
         ("hd192", 1, 8, 1, 512, 192, True, "bfloat16"),
         ("hd160", 1, 4, 2, 130, 160, True, "bfloat16"),
@@ -512,6 +535,10 @@ def check_mamba_scan(torch, gen, dev, arch):
     cases = [  # name, B, S, di, ds, u/dt/B/C dtype
         ("main-bf16", B_MAIN, S_MAIN, di, m.d_state, "bfloat16"),
         ("main-fp32", B_MAIN, S_MAIN, di, m.d_state, "float32"),
+        # [train-jamba]: one full-width layer's training shape, and the
+        # smoke model's (d_model 64, d_state 4, 2 rows of 512 a rank)
+        ("main-train-B1", 1, S_MAIN, di, m.d_state, "bfloat16"),
+        ("main-train-smoke", 2, 512, 128, 4, "bfloat16"),
         ("decode-S1", 8, 1, di, m.d_state, "bfloat16"),
         ("ragged-S40", 2, 40, di, m.d_state, "float32"),
         ("ragged-S100", 2, 100, di, m.d_state, "bfloat16"),
@@ -643,6 +670,32 @@ def train3_k2_sizes():
     return out
 
 
+def family_k2_sizes():
+    """{case: padded input size} of every K2 launch of the ``FAMILY_RUNS``
+    (each section's int8 slow chunks on (2, 1, 1)), from the plans of the
+    runs' models built on the meta device; the largest of each run is
+    timed."""
+    from repro_torch.core.topology import topology_from_mesh_sizes
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import make_sync_plan
+    out, largest = {}, set()
+    for tag, (arch_name, fields, *_rest) in FAMILY_RUNS.items():
+        model = build_model(family_arch(arch_name)[0], ModelSettings(**fields),
+                            device="meta")
+        plan, _ = make_sync_plan(model, FAMILY_SIZES,
+                                 topology_from_mesh_sizes(FAMILY_SIZES), codec="int8")
+        sizes = {}
+        for sec in plan.sections:
+            n = sec.schedule.numel // len(sec.schedule.slow_legs)
+            sizes[n + (-n) % sec.sync.codec_block] = sec.name
+        seen = set(out.values())
+        out.update({f"{tag}-{name}"[:60]: n for n, name in sizes.items()
+                    if n not in seen})
+        if max(sizes) not in seen:
+            largest.add(f"{tag}-{sizes[max(sizes)]}"[:60])
+    return out, largest
+
+
 def check_quantize(torch, gen, dev):
     """K2 against its plain version, bit for bit on q, scales and err: the
     JAX test's sweep, the training path's 9 section sizes, those of the
@@ -659,6 +712,9 @@ def check_quantize(torch, gen, dev):
               for name, n in sorted(sections.items(), key=lambda kv: -kv[1])]
     cases += [(name, n, 2048, "float32", "grad")
               for name, n in sorted(train3_k2_sizes().items(), key=lambda kv: -kv[1])]
+    fam_sizes, fam_timed = family_k2_sizes()
+    cases += [(name, n, 2048, "float32", "grad")
+              for name, n in sorted(fam_sizes.items(), key=lambda kv: -kv[1])]
     cases += [("halves-512", 16 * 512, 512, "float32", "halves"),
               ("unaligned-512", 64 * 512, 512, "float32", "unaligned"),
               ("bf16-8192-512", 8192, 512, "bfloat16", "randn"),
@@ -687,9 +743,9 @@ def check_quantize(torch, gen, dev):
                 raise AssertionError(f"[K2] {name}: {what} not bit-equal to the "
                                      f"plain version")
         err = (got[2] - want[2]).abs().max().item()
-        line = (f"[K2] {name:22s} n={n} block={block} {dt_name}: q, scales, err "
+        line = (f"[K2] {name:30s} n={n} block={block} {dt_name}: q, scales, err "
                 f"bit-equal (max_abs_err={err:.1e})")
-        if name in ("sec-embed", "bf16-embed"):
+        if name in ("sec-embed", "bf16-embed") or name in fam_timed:
             kernel_ms = time_ms(lambda: q_kernel.quantize_ef_fwd(x, block=block), iters=20)
             plain_ms = time_ms(lambda: quantize_ef_ref(x, block=block), iters=5)
             bound_ms, bound_by = quantize_bound_ms(n, block, dt_name)
@@ -898,16 +954,17 @@ def mid_tier_plans(model, sizes):
 
 
 def params_bit_equal(params) -> bool:
-    """Every parameter equal, bit for bit, to member 0's: member 0
-    broadcasts each one in 64 MB pieces and every member compares."""
+    """Every parameter's bytes equal to member 0's: member 0 broadcasts
+    each leaf's bytes in 64 MB pieces (bytes, so that any dtype crosses
+    gloo) and every member compares."""
     import torch
     import torch.distributed as dist
     from repro_torch.utils.trees import tree_paths
     equal = True
     for p in tree_paths(params).values():
-        flat = p.detach().reshape(-1)
-        for i in range(0, flat.numel(), 1 << 24):
-            part = flat[i:i + (1 << 24)]
+        flat = p.detach().contiguous().view(torch.uint8).reshape(-1)
+        for i in range(0, flat.numel(), 1 << 26):
+            part = flat[i:i + (1 << 26)]
             buf = part.clone()
             dist.broadcast(buf, 0)
             equal = equal and torch.equal(buf, part)
@@ -1125,6 +1182,316 @@ def run_train3(card):
         f"prims.psum {r0['psum_s']:.3f} s, {r0['ring_bytes']} bytes a rank, bit-equal "
         f"on all 8 ranks; gloo through host memory (ppermute staged on the host) | {card}")
     return recs
+
+
+# ---------------------------------------------------------------------------
+# training beyond dense fp32: bf16, experts, RWKV6, Jamba (two ranks)
+# ---------------------------------------------------------------------------
+
+# (tag, arch, ModelSettings fields, rows a rank, seq, steps, checkpoint at);
+# every run: mesh (pod, data, model) = (2, 1, 1), two ranks sharing the card
+# over gloo, the int8 slow tier, ZeRO-1 AdamW
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+FAMILY_RUNS = {
+    "train-bf16-a": ("qwen2-0.5b", dict(BF16, remat="full", attn_impl="kernel"),
+                     2, 2048, 3, 2),
+    "train-bf16-b": ("qwen2-0.5b", dict(param_dtype="bfloat16", compute_dtype="float32",
+                                        remat="full", attn_impl="kernel"), 2, 2048, 3, 2),
+    "train-moe": ("deepseek-moe-16b", dict(BF16, remat="full", attn_impl="kernel"),
+                  1, 2048, 3, None),
+    "train-rwkv": ("rwkv6-1.6b", dict(BF16, remat="full", use_kernel_ssm=True),
+                   1, 2048, 2, None),
+    "train-jamba": ("jamba-1.5-large-398b-smoke",
+                    dict(BF16, remat="full", attn_impl="kernel", use_kernel_ssm=True),
+                    2, 512, 3, None),
+}
+FAMILY_SIZES = {"pod": 2, "data": 1, "model": 1}
+
+
+def family_arch(name):
+    """(the arch a family run trains, its cuts): the registered smoke
+    config for a ``-smoke`` name (jamba's with its experts), else
+    ``one_card_train_arch``."""
+    from repro_torch.configs import get_smoke_arch, one_card_train_arch
+    if name.endswith("-smoke"):
+        return get_smoke_arch(name[:-len("-smoke")]), ()
+    return one_card_train_arch(name)
+
+
+def expected_launches(arch, st) -> dict:
+    """Kernel launches a rank a training step, from the code: K1 in each
+    attention layer's forward (``attn_impl="kernel"``), K3 in each RWKV
+    layer's and K4 in each Mamba layer's (``use_kernel_ssm``), each once
+    more in the ``remat="full"`` recompute; K2 is the plan's count."""
+    from repro_torch.models.transformer import layer_kind, n_groups
+    kinds = [layer_kind(arch, off) for off in range(arch.n_layers // n_groups(arch))]
+    per = n_groups(arch) * (2 if st.remat == "full" else 1)
+    ssm = st.use_kernel_ssm
+    return {"flash_attention_fwd": per * kinds.count("attn") * (st.attn_impl == "kernel"),
+            "wkv6_fwd": per * kinds.count("rwkv") * ssm,
+            "mamba_scan_fwd": per * kinds.count("mamba") * ssm}
+
+
+def leaf_digests(params) -> dict:
+    """{path: sha256 of the leaf's bytes}, for bit-for-bit comparisons."""
+    import hashlib
+    import torch
+    from repro_torch.utils.trees import tree_paths
+    out = {}
+    for path, p in tree_paths(params).items():
+        raw = p.detach().contiguous().view(torch.uint8).reshape(-1).cpu().numpy()
+        out[path] = hashlib.sha256(raw.tobytes()).hexdigest()
+    return out
+
+
+def family_rank(rank, world, init_method, tag, ckpt_dir):
+    """One rank of a ``FAMILY_RUNS`` run: the model drawn from seed 0 on the
+    card, the ``Trainer`` on (2, 1, 1) with the int8 slow tier, each step's
+    launches of every kernel, loss (and for experts its CE and aux parts,
+    this rank's, and the (token, k) slots the forward dropped), parameters
+    against member 0's, step time and peak memory recorded; at the
+    checkpoint step, member 0 records each leaf's digest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import count_active_params, count_params
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    arch_name, fields, rows, seq, steps, ckpt_at = FAMILY_RUNS[tag]
+    kernels = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
+               "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world,
+                            rank=rank)
+    rec = {"steps": []}
+    try:
+        arch, _ = family_arch(arch_name)
+        st = ModelSettings(loss_chunk=min(2048, seq), **fields)
+        model = build_model(arch, st, device="cuda", seed=0)
+        rec.update(n_params=count_params(model), n_active=count_active_params(model),
+                   dtypes=sorted({str(p.dtype) for p in model.parameters()}))
+        cfg = TrainerConfig(steps=steps, lr=3e-4, warmup=1, codec="int8", zero1=True,
+                            ckpt_dir=ckpt_dir if ckpt_at else None,
+                            ckpt_every=ckpt_at or 0)
+        trainer = Trainer(model, prims.Mesh(FAMILY_SIZES),
+                          ShapeConfig("custom", seq, rows * world, "train"), cfg)
+        rec["slow_chunks"] = sum(len(s.schedule.slow_legs) for s in trainer.plan.sections)
+        rec["sections"] = len(trainer.plan.sections)
+        params, opt, start = trainer.init_state()
+        n_moe = len(arch.moe_layer_ids()) if arch.moe is not None else 0
+        auxes = []
+        real_forward = T.forward_train
+
+        def recording(*a, **k):  # the aux term, apart from the CE
+            hidden, aux = real_forward(*a, **k)
+            auxes.append(aux.detach())
+            return hidden, aux
+
+        T.forward_train = recording
+        L.DROP_LOG = [] if n_moe else None
+        torch.cuda.synchronize()
+        rec["mem_after_init_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0  # just before the path
+        last = {name: 0 for name in kernels}
+
+        def on_step(step, params, opt, metrics):
+            torch.cuda.synchronize()
+            launches = {name: mod.LAUNCHES - last[name] for name, mod in kernels.items()}
+            last.update({name: mod.LAUNCHES for name, mod in kernels.items()})
+            t0 = time.perf_counter()
+            equal = params_bit_equal(params)
+            check_s = time.perf_counter() - t0
+            out = dict(step=step, loss=metrics["loss"], dt=metrics["dt"],
+                       grad_norm=metrics["grad_norm"], launches=launches,
+                       params_equal=equal, check_s=check_s,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if n_moe:
+                aux = float(auxes[-1])
+                out["aux_term"] = 0.01 * aux / n_moe
+                drops = [int(d.sum()) for d in L.DROP_LOG[:n_moe]]  # the forward's
+                out["dropped"] = sum(drops)
+                L.DROP_LOG.clear()
+            auxes.clear()
+            if ckpt_at and step + 1 == ckpt_at and rank == 0:
+                rec["ckpt_digests"] = leaf_digests(params)
+            efs = [e["ef"] for e in opt["sections"].values() if "ef" in e]
+            out["ef_nonzero"] = bool(efs) and all(bool((e != 0).any()) for e in efs)
+            rec["steps"].append(out)
+
+        out = trainer.train(params, opt, start, on_step=on_step)
+        rec["expected"] = expected_launches(arch, st)
+        rec["tokens"] = rows * world * seq
+        if trainer.ckpt is not None:
+            trainer.ckpt.wait()
+            rec["writes"] = trainer.ckpt.stats
+        del out, trainer, params, opt
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def run_family(tag, card, ckpt_root):
+    """A ``FAMILY_RUNS`` run on two ranks: checks and logs each step, and a
+    checkpoint run's step restored bit for bit on a fresh model in this
+    process."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    arch_name, fields, rows, seq, steps, ckpt_at = FAMILY_RUNS[tag]
+    arch, cuts = family_arch(arch_name)
+    ckpt_dir = os.path.join(ckpt_root, tag)
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(family_rank, 2, tag, ckpt_dir, timeout=1200)
+    r0 = recs[0]
+    log(f"[{tag}] {arch.name}{' (cut: ' + '; '.join(cuts) + ')' if cuts else ''} "
+        f"{fields}, 2 ranks (2,1,1) int8 slow tier ZeRO-1, B={rows} S={seq} a rank, "
+        f"{steps} steps: {time.perf_counter() - t0:.1f} s wall; params "
+        f"{r0['n_params']} (active {r0['n_active']}) {r0['dtypes']}; memory after "
+        f"init {r0['mem_after_init_gb']:.2f} GB a rank; {r0['sections']} sections, "
+        f"{r0['slow_chunks']} int8 slow chunks | {card}")
+    want = dict(r0["expected"], quantize_ef_fwd=r0["slow_chunks"])
+    for rank, rec in enumerate(recs):
+        if len(rec["steps"]) != steps:
+            raise AssertionError(f"[{tag}] rank {rank} ran {len(rec['steps'])} steps")
+        for st in rec["steps"]:
+            extra = ""
+            if "aux_term" in st:
+                extra = (f" ce={st['loss'] - st['aux_term']:.6f} (this rank's) "
+                         f"aux_term={st['aux_term']:.6f} (0.01 x aux / MoE layers, "
+                         f"this rank's) dropped_slots={st['dropped']}")
+            log(f"[{tag}] rank {rank} step {st['step']}: loss={st['loss']:.6f} "
+                f"(pmean){extra} grad_norm={st['grad_norm']:.4f} "
+                f"step_s={st['dt']:.3f} tok/s={rec['tokens'] / st['dt']:.0f} (global "
+                f"batch) launches={st['launches']} params_bit_equal="
+                f"{st['params_equal']} (checked in {st['check_s']:.2f} s) "
+                f"ef_nonzero={st['ef_nonzero']} peak_mem_gb={st['peak_gb']:.2f} | {card}")
+            if st["launches"] != want:
+                raise AssertionError(f"[{tag}] rank {rank} step {st['step']} launched "
+                                     f"{st['launches']}, expected {want}")
+            if not (math.isfinite(st["loss"]) and st["params_equal"] and st["ef_nonzero"]):
+                raise AssertionError(f"[{tag}] rank {rank} step {st['step']}: {st}")
+    if any(a["loss"] != b["loss"] for a, b in zip(recs[0]["steps"], recs[1]["steps"])):
+        raise AssertionError(f"[{tag}] the ranks disagree on the (pmean) loss")
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    peaks = sum(max(st["peak_gb"] for st in rec["steps"]) for rec in recs)
+    log(f"[{tag}] the card's {total:.2f} GB less both ranks' peaks ({peaks:.2f} GB "
+        f"allocated): {total - peaks:.2f} GB free of allocations | {card}")
+    if ckpt_at:
+        check_restore(tag, arch, fields, ckpt_dir, ckpt_at, r0, card)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return recs
+
+
+def check_restore(tag, arch, fields, ckpt_dir, step, r0, card):
+    """The step-``step`` checkpoint of a family run: its bf16 leaves are
+    recorded as the reference records them, and it restores into a fresh
+    model on the card (``load_jax_params``, the ``Trainer``'s restore)
+    bit for bit against member 0's digests at that step."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import load_jax_params
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.utils.trees import tree_paths
+    index = json.load(open(os.path.join(ckpt_dir, f"step_{step:08d}", "index.json")))
+    dtypes = sorted({e["dtype"] for e in index["trees"]["params"].values()})
+    t0 = time.perf_counter()
+    out = CheckpointManager(ckpt_dir, read_only=True).restore(step)
+    model = build_model(arch, ModelSettings(**fields), device="cuda", seed=1)
+    load_jax_params(model, tree_paths(out["params"]))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = leaf_digests(model.params())
+    bad = [k for k, v in r0["ckpt_digests"].items() if got.get(k) != v]
+    write = r0["writes"][0]
+    log(f"[{tag}] checkpoint step {step}: {dir_bytes(os.path.join(ckpt_dir, f'step_{step:08d}'))} "
+        f"bytes, parameter dtypes in index.json {dtypes}, snapshot "
+        f"{write['snapshot_s']:.3f} s, writer {write['write_s']:.3f} s; restored on a "
+        f"fresh model in {restore_s:.2f} s: {len(got) - len(bad)} of {len(got)} leaves "
+        f"bit-equal to member 0's at step {step} | {card}")
+    if bad or set(got) != set(r0["ckpt_digests"]) or "bfloat16" not in dtypes:
+        raise AssertionError(f"[{tag}] the restore differs at {bad[:5]}")
+    del model, out
+
+
+def jamba_layer_check(torch, gen, dev, card):
+    """One full-width Mamba layer of the jamba cut (d_model 8192, d_inner
+    16384, d_state 16), B=1 S=2048, forward and backward through K4's
+    autograd wrapper (``use_kernel=True``: K4 forward, the plain scan
+    recomputed in the backward) against the plain path's, in fp32 (K4's
+    tolerance, 1e-4) and bf16 (the JAX tests' bf16 tolerance, 2e-2), each
+    parameter's gradient and the input's."""
+    from repro_torch.configs import one_card_arch
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.models import ssm as SSM
+    from repro_torch.utils.trees import tree_paths
+    arch = one_card_arch("jamba-1.5-large-398b")[0]
+    for dt_name, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        dt = getattr(torch, dt_name)
+        p = SSM.init_mamba(arch, gen, (), dt, dev)
+        x = (torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev) * 0.5).to(dt)
+        gy = torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev).to(dt)
+        leaves = tree_paths(p)
+        grads, times = {}, {}
+        for use_kernel in (False, True):  # the first grows the allocator's pool
+            xi = x.clone().requires_grad_(True)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            before = ms_kernel.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, _ = SSM.apply_mamba(arch, p, xi, use_kernel=use_kernel)
+            g = torch.autograd.grad(y, [xi] + list(leaves.values()), gy)
+            torch.cuda.synchronize()
+            times[use_kernel] = time.perf_counter() - t0
+            launched = ms_kernel.LAUNCHES - before
+            if launched != (1 if use_kernel else 0):
+                raise AssertionError(f"[train-jamba] layer: {launched} K4 launches")
+            grads[use_kernel] = dict(zip(["x"] + list(leaves), g))
+            del y, g, xi
+        worst = 0.0
+        for k, g in grads[True].items():
+            ref = grads[False][k]
+            torch.testing.assert_close(g.float(), ref.float(), rtol=tol, atol=tol,
+                                       msg=lambda m: f"[train-jamba] layer {dt_name} d{k}: {m}")
+            worst = max(worst, (g.float() - ref.float()).abs().max().item())
+        log(f"[train-jamba] one Mamba layer at full width (d_model {arch.d_model}, "
+            f"d_inner {arch.mamba.expand * arch.d_model}, d_state {arch.mamba.d_state}) "
+            f"{dt_name} B=1 S={S_MAIN}: forward + backward plain {times[False]:.3f} s "
+            f"(run first), with K4 {times[True]:.3f} s; the input's and {len(leaves)} parameter "
+            f"gradients within {tol} (max abs diff {worst:.3e}) | {card}")
+        del p, x, gy, grads, leaves
+        torch.cuda.empty_cache()
+
+
+def family_phases(torch, gen, dev, card, phase_done):
+    """``[train-bf16]``, ``[train-moe]``, ``[train-rwkv]``, ``[train-jamba]``;
+    returns {tag: per-rank records}."""
+    import gc
+    root = os.path.join(HERE, "build", "ckpt_family")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    need = 2 * 494_032_768 * (2 + 12)  # bf16 params + fp32 m, v, EF, twice
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise RuntimeError(f"{free} bytes free under {root}; [train-bf16] needs {need}")
+    out = {}
+    for tag in FAMILY_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if tag == "train-jamba":
+            jamba_layer_check(torch, gen, dev, card)
+        out[tag] = run_family(tag, card, root)
+        phase_done(tag)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def dir_bytes(path) -> int:
@@ -1539,7 +1906,12 @@ def main() -> None:
     fa_results = check_flash_attention(
         torch, gen, dev, qwen, jamba,
         mains=(("main-deepseek", deepseek), ("main-qwen3", qwen3),
-               ("main-stablelm", stablelm), ("main-nemotron", nemotron)))
+               ("main-stablelm", stablelm), ("main-nemotron", nemotron)),
+        # K1 at the shapes of the training phases of FAMILY_RUNS
+        trains=(("main-train-bf16", 2, qwen, S_MAIN, "bfloat16"),
+                ("main-train-moe", 1, deepseek, S_MAIN, "bfloat16"),
+                ("main-train-jamba-smoke", 2,
+                 family_arch("jamba-1.5-large-398b-smoke")[0], 512, "bfloat16")))
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
@@ -1650,6 +2022,9 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     train3 = run_train3(card)
     phase_done("train3: 8 ranks (2,2,2,1), top-k, mid int8, all-to-all, ring")
+
+    # ---- training beyond dense fp32: bf16, experts, RWKV6, Jamba ----------
+    family_phases(torch, gen, dev, card, phase_done)
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -9,7 +9,9 @@ Layout (one directory per step)::
     <root>/LATEST          # text file with the newest complete step dir
 
 A checkpoint the JAX manager wrote restores here and one written here
-restores in the JAX manager (``tests/test_torch_checkpoint.py``).
+restores in the JAX manager, bf16 leaves bit for bit
+(``tests/test_torch_checkpoint.py``).  The port imports no ``ml_dtypes``:
+a bf16 leaf crosses as its 16-bit payload.
 
   * **atomicity** — writes go to ``.tmp-step_X`` then ``os.replace``, and
     ``LATEST`` through ``.LATEST.tmp``, so a crash mid-save never corrupts
@@ -52,24 +54,32 @@ def _sanitize(path: str) -> str:
     return path.replace("/", "__")
 
 
+#: how a bf16 leaf lies in an array file: its 16-bit payload as a 2-byte
+#: void, which is what ``np.save`` writes for the reference's
+#: ``ml_dtypes.bfloat16`` arrays; ``index.json`` names it ``"bfloat16"``
+BF16_FILE_DTYPE = np.dtype("V2")
+
+
 def _host_copy(v) -> np.ndarray:
     """A host snapshot of one leaf that later in-place updates of ``v`` do
     not reach: a copy of a tensor (the CPU ones too), the array itself for
-    numpy and Python scalars (as the reference's ``device_get``)."""
+    numpy and Python scalars (as the reference's ``device_get``).  A bf16
+    tensor becomes its 16-bit payload (``BF16_FILE_DTYPE``)."""
     if isinstance(v, torch.Tensor):
-        if v.dtype == torch.bfloat16:
-            _no_bf16()
-        return v.detach().to("cpu", copy=True).numpy()
+        t = v.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_FILE_DTYPE)
+        return t.numpy()
     arr = np.asarray(v)
-    if arr.dtype.name == "bfloat16":
-        _no_bf16()
+    if arr.dtype.name == "bfloat16":  # an ml_dtypes array, as JAX saves it
+        return arr.view(BF16_FILE_DTYPE)
     return arr
 
 
-def _no_bf16():
-    raise NotImplementedError(
-        "a bf16 leaf: the port trains in fp32 only, and mixed precision is "
-        "not ported yet (ROADMAP.md queue 1, item 7)")
+def _dtype_name(arr: np.ndarray) -> str:
+    """The dtype ``index.json`` records: the reference's ``str(dtype)``,
+    ``"bfloat16"`` for a bf16 payload."""
+    return "bfloat16" if arr.dtype == BF16_FILE_DTYPE else str(arr.dtype)
 
 
 class CheckpointManager:
@@ -143,7 +153,7 @@ class CheckpointManager:
                         fname = f"{name}__{_sanitize(k)}.npy"
                         np.save(os.path.join(tmp, "arrays", fname), v)
                         entries[k] = {"file": fname, "shape": list(v.shape),
-                                      "dtype": str(v.dtype)}
+                                      "dtype": _dtype_name(v)}
                     index["trees"][name] = entries
                 with open(os.path.join(tmp, "index.json"), "w") as f:
                     json.dump(index, f, indent=1)
@@ -237,7 +247,10 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
         """Returns {'__step__', '__metadata__', 'params': tree of global
         numpy arrays, ...}, or None if there is no checkpoint (or no
-        checkpoint of the explicit ``step``)."""
+        checkpoint of the explicit ``step``).  A bf16 leaf comes back as
+        the reference's ``np.load`` gives it, its 16-bit payload as a
+        2-byte void array, which ``convert.numpy_to_torch`` reads as
+        bf16."""
         if step is None:
             step = self.latest_step()
             if step is None:

@@ -11,7 +11,7 @@ from repro_torch.configs.base import (
     list_archs,
     shape_applicable,
 )
-from repro_torch.configs.one_card import one_card_arch
+from repro_torch.configs.one_card import one_card_arch, one_card_train_arch
 
 __all__ = [
     "SHAPES",
@@ -25,5 +25,6 @@ __all__ = [
     "get_smoke_arch",
     "list_archs",
     "one_card_arch",
+    "one_card_train_arch",
     "shape_applicable",
 ]

@@ -4,8 +4,8 @@ port ``Model``.
 The flat form is what ``repro.utils.trees.tree_paths`` gives for the JAX
 package's ``Model.init``; the port's ``Model`` registers the same paths
 with the same shapes.  bf16 leaves arrive as ``ml_dtypes.bfloat16``
-arrays, which ``torch.from_numpy`` rejects, so they cross as their uint16
-bits.
+arrays (or, read from a checkpoint file, as 2-byte void arrays), which
+``torch.from_numpy`` rejects, so they cross as their 16-bit payload.
 """
 from __future__ import annotations
 
@@ -18,10 +18,12 @@ from repro_torch.models.registry import Model
 
 
 def numpy_to_torch(arr) -> torch.Tensor:
-    """A CPU tensor holding ``arr``'s values in its dtype (bf16 included)."""
+    """A CPU tensor holding ``arr``'s values in its dtype (bf16 included:
+    an ``ml_dtypes.bfloat16`` array, or the 2-byte void array that
+    ``np.load`` gives for one saved to a file)."""
     arr = np.array(arr)  # a writable copy
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 
 

@@ -13,13 +13,20 @@ Attention is GQA-aware; ``attend`` has two implementations here:
                  package's ``pallas``.  On CPU tensors it runs the kernel's
                  plain version.
 
-The JAX package's ``tri`` (static triangular decomposition) is not ported
-yet and raises.
+and ``tri`` (the static triangular decomposition of causal attention)
+is the JAX package's, in plain PyTorch.
 
 The MoE layer (``apply_moe``) is the JAX package's capacity-based
 gather/scatter dispatch, run on one device: its expert products are plain
 batched matmuls, and a planned dispatch schedule is executed as the same
-slice/concat walk, with no collective.
+slice/concat walk, with no collective.  Where the reference scatter-adds
+the experts' outputs back to their tokens, the port gathers each token's
+k slots and sums them in one reduction over k, so that the layer and its
+backward repeat bit for bit on the card.
+
+Products of mixed float dtypes (``mm``, ``einsum``) promote as jnp does:
+with bf16 parameters and an fp32 compute dtype, the bf16 weight is cast
+up, exactly, where torch would raise on the mixed matmul.
 """
 from __future__ import annotations
 
@@ -32,6 +39,24 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 
 Params = Dict[str, Any]
+
+
+def _promoted(a: torch.Tensor, b: torch.Tensor):
+    if a.dtype == b.dtype:  # no op on the host where nothing is promoted
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two (jnp's rule)."""
+    a, b = _promoted(a, b)
+    return a @ b
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands in their promoted dtype."""
+    return torch.einsum(eq, *_promoted(a, b))
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -173,6 +198,43 @@ def _attn_rect_chunked(q, k, v, *, q_chunk: int, kv_chunk: int, scale: float,
     return torch.cat(ms, dim=-1), torch.cat(ls, dim=-1), torch.cat(os_, dim=-2)
 
 
+def _merge_softmax(m1, l1, o1, m2, l2, o2):
+    """Merge two online-softmax partials (m: max, l: sumexp, o: weighted
+    sum)."""
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return m, l1 * a1 + l2 * a2, o1 * a1[..., None] + o2 * a2[..., None]
+
+
+def _causal_tri(q, k, v, *, block: int, scale: float, q_chunk: int,
+                kv_chunk: int):
+    """Static triangular decomposition of causal attention.
+
+    Splits the sequence in halves: the second half's queries attend the
+    first half's keys as a dense rectangle (no masked waste), and both
+    halves recurse.  Leaf blocks (<= block) run dense-masked.  A diagonal
+    block's queries and keys start at the same position, so the relative
+    causal mask of ``_attn_rect_chunked`` is the reference's offset one."""
+    S = q.shape[1]
+    if S <= block:
+        return _attn_rect_chunked(q, k, v, q_chunk=S, kv_chunk=S, scale=scale,
+                                  mask="causal")
+    h = S // 2
+    q1, q2 = q[:, :h], q[:, h:]
+    k1, k2 = k[:, :h], k[:, h:]
+    v1, v2 = v[:, :h], v[:, h:]
+    m1, l1, o1 = _causal_tri(q1, k1, v1, block=block, scale=scale,
+                             q_chunk=q_chunk, kv_chunk=kv_chunk)
+    mr, lr, or_ = _attn_rect_chunked(q2, k1, v1, q_chunk=q_chunk,
+                                     kv_chunk=kv_chunk, scale=scale)
+    m2, l2, o2 = _causal_tri(q2, k2, v2, block=block, scale=scale,
+                             q_chunk=q_chunk, kv_chunk=kv_chunk)
+    m2, l2, o2 = _merge_softmax(m2, l2, o2, mr, lr, or_)
+    return (torch.cat([m1, m2], dim=-1), torch.cat([l1, l2], dim=-1),
+            torch.cat([o1, o2], dim=-2))
+
+
 def _finalize(m, l, o, dtype):
     l = torch.clamp(l, min=1e-30)
     out = o / l[..., None]
@@ -188,13 +250,15 @@ def _fit(n: int, want: int) -> int:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-           impl: str = "masked", q_chunk: int = 1024,
+           impl: str = "masked", block: int = 1024, q_chunk: int = 1024,
            kv_chunk: int = 1024) -> torch.Tensor:
     """Multi-head attention core.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); H = KV * G.
     Returns (B, Sq, H, hd).  ``impl="kernel"`` is the twin of the JAX
-    package's ``impl="pallas"``.
+    package's ``impl="pallas"``; ``impl="tri"`` decomposes causal
+    self-attention whose length is a multiple of ``block`` above it, and
+    runs ``masked`` otherwise, as the reference does.
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
@@ -203,17 +267,20 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     if impl == "kernel":
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(qg, k, v, causal=causal).reshape(B, Sq, H, hd)
-    if impl == "tri":
-        raise NotImplementedError(
-            "attn_impl='tri' (static triangular decomposition) is not ported "
-            "yet: ROADMAP.md queue 1, the dense-model training slice")
-    if impl != "masked":
-        raise ValueError(f"unknown attention impl {impl!r} (masked | kernel; "
-                         f"'kernel' is the twin of the JAX 'pallas')")
-    mask = "causal" if (causal and Sq == k.shape[1]) else None
-    m, l, o = _attn_rect_chunked(qg, k, v, q_chunk=_fit(Sq, q_chunk),
-                                 kv_chunk=_fit(k.shape[1], kv_chunk),
-                                 scale=1.0 / math.sqrt(hd), mask=mask)
+    if impl not in ("masked", "tri"):
+        raise ValueError(f"unknown attention impl {impl!r} (masked | tri | "
+                         f"kernel; 'kernel' is the twin of the JAX 'pallas')")
+    scale = 1.0 / math.sqrt(hd)
+    if causal and impl == "tri" and Sq == k.shape[1] and Sq > block \
+            and Sq % block == 0:
+        m, l, o = _causal_tri(qg, k, v, block=block, scale=scale,
+                              q_chunk=_fit(Sq, q_chunk),
+                              kv_chunk=_fit(Sq, kv_chunk))
+    else:
+        mask = "causal" if (causal and Sq == k.shape[1]) else None
+        m, l, o = _attn_rect_chunked(qg, k, v, q_chunk=_fit(Sq, q_chunk),
+                                     kv_chunk=_fit(k.shape[1], kv_chunk),
+                                     scale=scale, mask=mask)
     return _finalize(m, l, o, q.dtype).reshape(B, Sq, H, hd)
 
 
@@ -242,9 +309,9 @@ def attention_qkv(arch: ArchConfig, p: Params, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project to q, k, v with bias / qk-norm / rope per the arch."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if arch.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -259,7 +326,7 @@ def attention_qkv(arch: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def attention_out(p: Params, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +356,10 @@ def init_mlp(arch: ArchConfig, gen: torch.Generator, lead: Tuple[int, ...],
 
 
 def apply_mlp(arch: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = _act(arch.activation, x @ p["wi"])
+    h = _act(arch.activation, mm(x, p["wi"]))
     if arch.glu:
-        h = h * (x @ p["wg"])
-    return h @ p["wo"]
+        h = h * mm(x, p["wg"])
+    return mm(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -544,8 +611,13 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     position in its expert's slab by a cumsum in token-major, then k,
     order, slots at ``pos >= C`` are dropped, empty slots point at a zero
     sentinel row ``Tl``, and the (G, E, C, d) gather feeds three batched
-    expert products.  The gated outputs are scatter-added back to their
-    tokens and the sentinel row dropped.
+    expert products.  Each token then gathers its k slots' outputs, gates
+    them (a dropped slot weighs 0 and reads slot 0) and sums them over k
+    in one reduction, where the reference scatter-adds the gated
+    slots into the tokens: the same terms, summed in an order fixed by the
+    shapes.  Both gathers' backwards are gathers and sums too
+    (``_GatherRows``), so no step of the layer adds by atomics in an order
+    the card may change.
 
     ``capacity`` overrides :func:`moe_capacity` with a planned ``C_exec``;
     ``dispatch_schedule`` routes each group's buffer through the planned
@@ -575,30 +647,70 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     if DROP_LOG is not None:
         DROP_LOG.append((pos >= C).sum(dim=1))
 
-    # per-group token ids and gates into (G, E, C); an overflowing slot
-    # (pos >= C) goes to a dump column E*C that is cut off
-    slot = torch.where(pos < C, flat_e * C + pos, E * C)
+    # per-group token ids and (token, k) pair ids into (G, E, C); an
+    # overflowing slot (pos >= C) goes to a dump column E*C that is cut off
+    kept = pos < C  # (G, Tl*k)
+    slot = torch.where(kept, flat_e * C + pos, E * C)
     dis = torch.full((G, E * C + 1), Tl, dtype=torch.long, device=dev)
     dis = dis.scatter_(1, slot, tok_id)[:, :E * C].reshape(G, E, C)
-    gat = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev)
-    gat = gat.scatter_(1, slot, flat_g)[:, :E * C].reshape(G, E, C)
+    g_off = torch.arange(G, device=dev)[:, None]
+    # each pair's slot in the flat (G*E*C, d) buffer: slot 0 when dropped
+    pair_slot = torch.where(kept, slot, 0) + g_off * (E * C)  # (G, Tl*k)
 
-    # group-global flat gather, the sentinel row Tl of each group zero
+    def token_slots():  # each token's k slots; the sentinel row reads none
+        pad = (0, 0, 0, 1)
+        return (F.pad(pair_slot.reshape(G, Tl, k), pad).reshape(-1, k),
+                F.pad(kept.reshape(G, Tl, k), pad).reshape(-1, k))
+
+    def slot_pairs():  # each slot's one pair (none for an empty slot)
+        pair_id = torch.arange(Tl * k, device=dev) + g_off * (Tl * k)
+        inv = torch.zeros((G, E * C + 1), dtype=torch.long, device=dev)
+        filled = torch.zeros((G, E * C + 1), dtype=torch.bool, device=dev)
+        return (inv.scatter_(1, slot, pair_id)[:, :E * C].reshape(-1, 1),
+                filled.scatter_(1, slot, kept)[:, :E * C].reshape(-1, 1))
+
+    # group-global flat gather, the sentinel row Tl of each group zero; a
+    # token row's gradient is the sum of its kept slots', the sentinel's 0
     x_pad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
     xf = x_pad.reshape(G * (Tl + 1), d)
     gidx = dis + (torch.arange(G, device=dev) * (Tl + 1))[:, None, None]
-    xe = xf[gidx]  # (G, E, C, d)
+    xe = _GatherRows.apply(xf, gidx.reshape(-1), token_slots).reshape(G, E, C, d)
     if dispatch_schedule is not None:
         # the planned walk runs on each group's buffer, as under JAX's vmap
         xe = torch.cat([_execute_dispatch(dispatch_schedule, xe[g:g + 1])
                         for g in range(G)])
 
-    h = _act(arch.activation, torch.einsum("gecd,edf->gecf", xe, p["we_in"]))
+    h = _act(arch.activation, einsum("gecd,edf->gecf", xe, p["we_in"]))
     if arch.glu:
-        h = h * torch.einsum("gecd,edf->gecf", xe, p["we_gate"])
-    ye = torch.einsum("gecf,efd->gecd", h, p["we_out"])  # (G, E, C, d)
+        h = h * einsum("gecd,edf->gecf", xe, p["we_gate"])
+    ye = einsum("gecf,efd->gecd", h, p["we_out"])  # (G, E, C, d)
 
-    ye = ye * gat[..., None].to(ye.dtype)
-    y = torch.zeros((G * (Tl + 1), d), dtype=ye.dtype, device=dev)
-    y = y.index_add_(0, gidx.reshape(-1), ye.reshape(-1, d))
-    return y.reshape(G, Tl + 1, d)[:, :Tl], aux
+    # combine: each token's k slot outputs, gated, summed over k in one
+    # reduction; a slot's gradient is its one pair's (0 for an empty slot)
+    rows = _GatherRows.apply(ye.reshape(G * E * C, d), pair_slot.reshape(-1),
+                             slot_pairs)
+    gate = torch.where(kept, flat_g, 0.0).to(ye.dtype)
+    return rows.reshape(G, Tl, k, d).mul(gate.reshape(G, Tl, k, 1)).sum(dim=2), aux
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src[index]`` (rows of a 2-d tensor) whose backward is a gather and
+    a sum as well: row r of the gradient is the sum of ``grad[inverse[r,
+    j]]`` over the j where ``keep[r, j]``, in one reduction over j.  The
+    autograd of an index would scatter-add the gradient rows, on the card
+    by atomics in no fixed order.  ``inverse_of()`` returns (inverse,
+    keep): for each source row, the output rows that read it; it is built
+    only when ``src`` needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse_of):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(*inverse_of())
+        return src.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse, keep = ctx.saved_tensors
+        R, J = inverse.shape
+        rows = grad.index_select(0, inverse.reshape(-1)).reshape(R, J, -1)
+        return torch.where(keep[..., None], rows, 0.0).sum(dim=1), None, None

@@ -1,5 +1,6 @@
-"""Public model API: ``Model`` (an ``nn.Module``), ``build_model`` and
-``count_params`` — the port of ``repro.models.registry``.
+"""Public model API: ``Model`` (an ``nn.Module``), ``build_model``,
+``count_params`` and ``count_active_params`` — the port of
+``repro.models.registry``.
 
 ``Model`` registers its parameters under the JAX tree's paths, with ``/``
 read as ``.`` (``blocks/l0/attn/wq`` is ``blocks.l0.attn.wq``), and with
@@ -9,6 +10,7 @@ leaf.  The layer code works on the nested dict that ``params()`` returns.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -22,7 +24,7 @@ from repro_torch.models.transformer import ModelSettings
 from repro_torch.utils.trees import tree_from_paths, tree_paths
 
 __all__ = ["ModelSettings", "build_model", "Model", "count_params",
-           "resolve_device", "numpy_dtype_name"]
+           "count_active_params", "resolve_device", "numpy_dtype_name"]
 
 
 def numpy_dtype_name(dtype: torch.dtype) -> str:
@@ -80,7 +82,7 @@ class Model(nn.Module):
             for n, p in self.named_parameters()})
 
     def param_specs(self, mi: sharding.MeshInfo) -> Dict[str, Any]:
-        """The tree of per-dim sharding specs (dense family)."""
+        """The tree of per-dim sharding specs."""
         shapes = {k: v.shape for k, v in tree_paths(self.param_shapes()).items()}
         return tree_from_paths(sharding.param_specs(self.arch, shapes, mi))
 
@@ -117,3 +119,15 @@ def build_model(arch: ArchConfig, settings: Optional[ModelSettings] = None, *,
 
 def count_params(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def count_active_params(model: Model) -> int:
+    """Active params per token (MoE: only top-k routed experts count)."""
+    arch = model.arch
+    total = 0
+    for p, leaf in tree_paths(model.param_shapes()).items():
+        n = math.prod(leaf.shape)
+        if arch.moe is not None and ("we_in" in p or "we_out" in p or "we_gate" in p):
+            n = int(n * arch.moe.top_k / arch.moe.num_experts)
+        total += n
+    return total

@@ -1,5 +1,6 @@
-"""Parameter sharding rules for the dense family — ``MeshInfo`` and
-``param_specs`` of ``repro.models.sharding``, copied.
+"""Parameter sharding rules of the decoder families (dense, MoE, Mamba,
+RWKV6) — ``MeshInfo`` and ``param_specs`` of ``repro.models.sharding``,
+copied (the encoder-decoder's cross attention is not ported).
 
 A spec is a tuple with one entry per dim: an axis name, or None where the
 dim is not sharded (the JAX package's ``PartitionSpec``).  The port runs DP
@@ -77,11 +78,6 @@ def _spec_for_leaf(arch: ArchConfig, path: str, shape: Tuple[int, ...],
         return (None,) + tuple(spec) if stacked else tuple(spec)
 
     parent = path.split("/")[-2] if "/" in path else ""
-    if parent not in ("attn", "mlp", "ln1", "ln2", "final_norm") \
-            and name not in ("scale", "bias"):
-        raise NotImplementedError(
-            f"sharding rules for {path!r} are not ported yet: the port "
-            f"trains the dense family only (ROADMAP.md queue 1)")
 
     # ---- attention -----------------------------------------------------------
     if parent == "attn":
@@ -94,12 +90,60 @@ def _spec_for_leaf(arch: ArchConfig, path: str, shape: Tuple[int, ...],
         if name in ("q_norm", "k_norm"):
             return wrap((None,))
 
+    # ---- MoE -----------------------------------------------------------------
+    if parent == "moe" or name in ("we_in", "we_out", "we_gate", "router"):
+        if name == "router":
+            return wrap((guard(core[0], fsdp, nf), None))
+        if name in ("we_in", "we_gate"):
+            return wrap((guard(core[0], tp, ntp), guard(core[1], fsdp, nf), None))
+        if name == "we_out":
+            return wrap((guard(core[0], tp, ntp), None, guard(core[2], fsdp, nf)))
+    if parent == "shared" or "/shared/" in path:
+        if name in ("wi", "wg"):
+            return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp)))
+        if name == "wo":
+            return wrap((guard(core[0], tp, ntp), guard(core[1], fsdp, nf)))
+
     # ---- dense MLP -----------------------------------------------------------
     if parent == "mlp":
         if name in ("wi", "wg"):
             return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp)))
         if name == "wo":
             return wrap((guard(core[0], tp, ntp), guard(core[1], fsdp, nf)))
+
+    # ---- mamba ---------------------------------------------------------------
+    if parent == "mamba":
+        if name == "w_in":
+            return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp)))
+        if name == "conv_w":
+            return wrap((None, guard(core[1], tp, ntp)))
+        if name in ("conv_b", "dt_bias", "D"):
+            return wrap((guard(core[0], tp, ntp),))
+        if name == "w_x":
+            return wrap((guard(core[0], tp, ntp), None))
+        if name == "w_dt":
+            return wrap((None, guard(core[1], tp, ntp)))
+        if name == "A_log":
+            return wrap((guard(core[0], tp, ntp), None))
+        if name == "w_out":
+            return wrap((guard(core[0], tp, ntp), guard(core[1], fsdp, nf)))
+
+    # ---- rwkv ----------------------------------------------------------------
+    if parent == "tmix":
+        if name in ("wr", "wk", "wv", "wg"):
+            return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp)))
+        if name == "wo":
+            return wrap((guard(core[0], tp, ntp), guard(core[1], fsdp, nf)))
+        if name == "u":
+            return wrap((guard(core[0], tp, ntp), None))
+        return wrap((None,) * len(core))
+    if parent == "cmix":
+        if name == "wk":
+            return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp)))
+        if name == "wv":
+            return wrap((guard(core[0], tp, ntp), guard(core[1], fsdp, nf)))
+        if name == "wr":
+            return wrap((guard(core[0], fsdp, nf), None))
 
     # ---- norms, biases, everything small --------------------------------------
     return wrap((None,) * len(core))

@@ -23,7 +23,7 @@ from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref as _scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, einsum, mm
 
 Params = Dict[str, Any]
 
@@ -82,8 +82,8 @@ def _rwkv_projections(arch: ArchConfig, p: Params, x: torch.Tensor,
     dx = x_prev - x
     xxx = x + dx * p["x_maa"]
     # 5-way low-rank mixing coefficients
-    mix = torch.tanh(xxx @ p["tm_w1"]).reshape(B_, S_, 5, -1)
-    mix = torch.einsum("bstl,tld->bstd", mix, p["tm_w2"])  # (B, S, 5, d)
+    mix = torch.tanh(mm(xxx, p["tm_w1"])).reshape(B_, S_, 5, -1)
+    mix = einsum("bstl,tld->bstd", mix, p["tm_w2"])  # (B, S, 5, d)
     mw, mk, mv, mr, mg = mix.unbind(dim=2)
     xw = x + dx * (p["w_maa"] + mw)
     xk = x + dx * (p["k_maa"] + mk)
@@ -91,12 +91,12 @@ def _rwkv_projections(arch: ArchConfig, p: Params, x: torch.Tensor,
     xr = x + dx * (p["r_maa"] + mr)
     xg = x + dx * (p["g_maa"] + mg)
 
-    r = (xr @ p["wr"]).reshape(B_, S_, H, hd)
-    k = (xk @ p["wk"]).reshape(B_, S_, H, hd)
-    v = (xv @ p["wv"]).reshape(B_, S_, H, hd)
-    g = F.silu(xg @ p["wg"])
+    r = mm(xr, p["wr"]).reshape(B_, S_, H, hd)
+    k = mm(xk, p["wk"]).reshape(B_, S_, H, hd)
+    v = mm(xv, p["wv"]).reshape(B_, S_, H, hd)
+    g = F.silu(mm(xg, p["wg"]))
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32
-    ww = p["w0"] + torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]
+    ww = p["w0"] + mm(torch.tanh(mm(xw, p["td_w1"])), p["td_w2"])
     w = torch.exp(-torch.exp(ww.float())).reshape(B_, S_, H, hd)
     return r, k, v, g, w
 
@@ -145,7 +145,7 @@ def apply_rwkv_time_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
         y, new_state = wkv6_scan_ref(r.float(), k.float(), v.float(), w, u,
                                      state=wkv_state)
     y = _wkv_groupnorm(arch, p, y.to(x.dtype))
-    out = (y.to(x.dtype) * g) @ p["wo"]
+    out = mm(y.to(x.dtype) * g, p["wo"])
     return out, (x[:, -1], new_state)
 
 
@@ -172,9 +172,9 @@ def apply_rwkv_channel_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
     dx = x_prev - x
     xk = x + dx * p["k_maa"]
     xr = x + dx * p["r_maa"]
-    h = F.relu(xk @ p["wk"])
-    v = (h * h) @ p["wv"]
-    return torch.sigmoid(xr @ p["wr"]) * v, x[:, -1]
+    h = F.relu(mm(xk, p["wk"]))
+    v = mm(h * h, p["wv"])
+    return torch.sigmoid(mm(xr, p["wr"])) * v, x[:, -1]
 
 
 # ===========================================================================
@@ -245,7 +245,7 @@ def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
     m = arch.mamba
     dtr = m.resolved_dt_rank(arch.d_model)
 
-    xs, z = (x @ p["w_in"]).chunk(2, dim=-1)  # (B, S, di) each
+    xs, z = mm(x, p["w_in"]).chunk(2, dim=-1)  # (B, S, di) each
     if conv_state is not None:
         xs_ext = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
         conv = _mamba_conv_train(p, xs_ext)[:, conv_state.shape[1]:]
@@ -255,12 +255,12 @@ def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
     new_conv_state = xs_ext[:, -(m.d_conv - 1):] if m.d_conv > 1 else None
     h = F.silu(conv)
 
-    xdbl = h @ p["w_x"]  # (B, S, dtr + 2 ds)
+    xdbl = mm(h, p["w_x"])  # (B, S, dtr + 2 ds)
     dt_r = xdbl[..., :dtr]
     Bc = xdbl[..., dtr:dtr + m.d_state]
     Cc = xdbl[..., dtr + m.d_state:]
     # softplus as JAX writes it, logaddexp(x, 0), with no linear cut-off
-    delta = torch.logaddexp(dt_r @ p["w_dt"] + p["dt_bias"],
+    delta = torch.logaddexp(mm(dt_r, p["w_dt"]) + p["dt_bias"],
                             xdbl.new_zeros(()))
     A = -torch.exp(p["A_log"])
 
@@ -271,4 +271,4 @@ def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
         y, new_ssm = mamba_scan_ref(h, delta, A, Bc, Cc, p["D"],
                                     state=ssm_state)
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p["w_out"], (new_conv_state, new_ssm)
+    return mm(y, p["w_out"]), (new_conv_state, new_ssm)

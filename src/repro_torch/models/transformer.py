@@ -13,10 +13,16 @@ layer whose id ``layer_is_moe`` names has ``moe`` (an fp32 router, the
 experts and the shared experts) in place of ``mlp``.  The encoder-decoder
 family and learned or sinusoidal positions are not ported yet and raise.
 
+Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
+meet an fp32 compute dtype, promoted as jnp promotes them.  fp32
+parameters with a bf16 compute dtype have no reference (the JAX forward
+raises on them) and raise here.
+
 Modes:
-  * train   — full-sequence causal forward, chunked CE loss (dense
-              attention models without experts only; autograd gives the
-              backward)
+  * train   — full-sequence causal forward, chunked CE loss plus the MoE
+              load-balance aux loss; autograd gives the backward, with
+              each layer recomputed (``remat="full"``) or its
+              no-batch-dim products kept (``remat="dots"``)
   * prefill — forward returning logits of the last position + the cache
               (KV for attention layers; token-shift and wkv states for
               RWKV; conv and ssm states for Mamba)
@@ -45,12 +51,14 @@ class ModelSettings:
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    attn_impl: str = "masked"  # masked | kernel (twin of the JAX "pallas")
+    attn_impl: str = "masked"  # masked | tri | kernel (twin of "pallas")
+    attn_block: int = 1024
     attn_chunk: int = 1024
     # the wkv6 and mamba_scan kernels (twin of use_pallas_ssm)
     use_kernel_ssm: bool = False
     # training: recompute each layer in the backward (torch.utils.checkpoint
-    # per layer) — none | full; and the CE loss's sequence chunk
+    # per layer) — none | full | dots (keep the outputs of products without
+    # batch dims, recompute the rest); and the CE loss's sequence chunk
     remat: str = "full"
     loss_chunk: int = 2048
     # MoE dispatch token groups: routing, cumsum and capacity per group
@@ -76,10 +84,17 @@ def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: the port runs "
             f"decoder-only models with rope or no positions: dense, MoE, "
-            f"RWKV6 and hybrid Mamba (ROADMAP.md queue 1)")
-    if st.pdt() != st.cdt():
+            f"RWKV6 and hybrid Mamba (ROADMAP.md queue 1, item 9)")
+    if st.pdt() != st.cdt() and (st.pdt(), st.cdt()) != (torch.bfloat16,
+                                                          torch.float32):
         raise NotImplementedError(
-            "param_dtype != compute_dtype (mixed precision) is not ported yet")
+            f"param_dtype {st.param_dtype} with compute_dtype "
+            f"{st.compute_dtype} has no reference: the JAX package's own "
+            f"forward raises on it ('TypeError: scan body function carry "
+            f"input and carry output must have equal types', the bf16 "
+            f"embedding promoted by the first fp32 weight), so the port "
+            f"runs fp32/fp32, bf16/bf16 and bf16/fp32 (ROADMAP.md queue 1, "
+            f"'What has no reference')")
 
 
 def group_size(arch: ArchConfig) -> int:
@@ -167,13 +182,15 @@ def init_params(arch: ArchConfig, gen: torch.Generator, st: ModelSettings,
 def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  st: ModelSettings, layer_id: int,
                  cache: Optional[Params] = None, pos: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, Params]:
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
     or the new recurrent states, are written into ``cache`` in place).
-    Returns (x, the layer's cache)."""
+    Returns (x, its MoE aux loss or None, the layer's cache), as the
+    reference's ``_apply_layer`` does."""
     kind = layer_kind(arch, layer_id)
     if kind == "rwkv":
-        return _apply_rwkv_layer(arch, p, x, st, cache)
+        x, cache = _apply_rwkv_layer(arch, p, x, st, cache)
+        return x, None, cache
     h = L.apply_norm(arch, p["ln1"], x)
     if kind == "mamba":
         state = cache or {}
@@ -189,7 +206,8 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         q, k, v = L.attention_qkv(arch, p["attn"], h, positions)
         if cache is None:
             o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
-                         q_chunk=st.attn_chunk, kv_chunk=st.attn_chunk)
+                         block=st.attn_block, q_chunk=st.attn_chunk,
+                         kv_chunk=st.attn_chunk)
             cache = {"k": k, "v": v}
         else:
             kc, vc = cache["k"], cache["v"]
@@ -200,11 +218,13 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         out = L.attention_out(p["attn"], o)
     x = x + out
     h = L.apply_norm(arch, p["ln2"], x)
-    if "moe" in p:  # the aux loss is for training, which MoE does not yet
-        x = x + L.apply_moe(arch, p["moe"], h, groups=st.moe_groups)[0]
+    aux = None
+    if "moe" in p:
+        out, aux = L.apply_moe(arch, p["moe"], h, groups=st.moe_groups)
+        x = x + out
     else:
         x = x + L.apply_mlp(arch, p["mlp"], h)
-    return x, cache
+    return x, aux, cache
 
 
 def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
@@ -250,7 +270,7 @@ def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     for gi in range(n_groups(arch)):
         for off, per_group in enumerate(caches):
             lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
-            x, c = _apply_layer(arch, lp, x, positions, st, off)
+            x, _, c = _apply_layer(arch, lp, x, positions, st, off)
             per_group.append(c)
     x = L.apply_norm(arch, params["final_norm"], x)
     return x, {f"l{off}": {name: torch.stack([c[name] for c in cs])
@@ -269,33 +289,58 @@ def logits_from_hidden(arch: ArchConfig, params: Params,
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
-    """Raise for what the port cannot train yet."""
+def check_trainable(arch: ArchConfig, st: ModelSettings,
+                    model_axis: int = 1) -> None:
+    """Raise for what the port cannot train yet: what it cannot run
+    (``check_supported``: the encoder-decoder family, learned or sinusoidal
+    positions, fp32 parameters with a bf16 compute dtype), a model axis
+    above 1, or an unknown remat policy."""
     check_supported(arch, st)
-    if arch.attn_free or arch.is_hybrid:
+    if model_axis > 1:
         raise NotImplementedError(
-            f"training {arch.name} ({arch.family}) is not ported yet: the "
-            f"port trains dense attention models (ROADMAP.md queue 1)")
-    if arch.moe is not None:
-        raise NotImplementedError(
-            f"training {arch.name} with experts is not ported yet: the MoE "
-            f"aux loss in train_loss and the experts' backward are a later "
-            f"slice (ROADMAP.md queue 1)")
-    if st.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={st.remat!r} is not ported yet (none | full; "
-            f"ROADMAP.md queue 1)")
+            f"training with a model axis of {model_axis} (tensor "
+            f"parallelism) is not ported yet (ROADMAP.md queue 1, item 8)")
+    if st.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {st.remat!r} (none | full | dots)")
+
+
+#: the products ``remat="dots"`` keeps: JAX's
+#: ``dots_with_no_batch_dims_saveable``, as torch dispatches them
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(st: ModelSettings, fn, *args):
+    """``fn(*args)``, recomputed in the backward as ``st.remat`` says:
+    ``full`` keeps nothing (``jax.checkpoint`` with ``nothing_saveable``),
+    ``dots`` keeps the outputs of ``mm`` and ``addmm`` and recomputes the
+    rest, ``bmm`` included (``dots_with_no_batch_dims_saveable``)."""
+    if st.remat == "none":
+        return fn(*args)
+    if st.remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(
+                              _keep_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-                  st: ModelSettings) -> torch.Tensor:
-    """Train-mode forward: the final-normed hidden states (B, S, d), with
-    every layer recomputed in the backward when ``st.remat == "full"`` (the
-    JAX package checkpoints each scanned group)."""
+                  st: ModelSettings) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode forward: (the final-normed hidden states (B, S, d), the
+    sum of the MoE layers' aux losses, fp32), each layer recomputed in the
+    backward as ``st.remat`` says (the JAX package checkpoints each
+    scanned group)."""
     check_trainable(arch, st)
     B, Sq = tokens.shape
     x = params["embed"][tokens].to(st.cdt())
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     g = group_size(arch)
     # one unbind per stacked leaf: its backward stacks the layers' grads once
     layers = [_tree_map(lambda a: a.unbind(0), params["blocks"][f"l{off}"])
@@ -304,12 +349,13 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
         for off in range(g):
             lp = _tree_map(lambda a: a[gi], layers[off])
 
-            def layer(x_, lp=lp, off=off):
-                return _apply_layer(arch, lp, x_, positions, st, off)[0]
+            def layer(x_, lp=lp, off=off):  # (x, aux): the cache is dropped
+                return _apply_layer(arch, lp, x_, positions, st, off)[:2]
 
-            x = (checkpoint(layer, x, use_reentrant=False)
-                 if st.remat == "full" else layer(x))
-    return L.apply_norm(arch, params["final_norm"], x)
+            x, a = _remat(st, layer, x)
+            if a is not None:
+                aux = aux + a
+    return L.apply_norm(arch, params["final_norm"], x), aux
 
 
 def _ce_chunk(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):
@@ -340,8 +386,13 @@ def ce_loss_chunked(arch: ArchConfig, params: Params, hidden: torch.Tensor,
 
 def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                st: ModelSettings) -> torch.Tensor:
-    hidden = forward_train(arch, params, batch["tokens"], st)
-    return ce_loss_chunked(arch, params, hidden, batch["labels"], st)
+    """Mean token cross-entropy, plus 0.01 x the MoE aux loss a MoE layer
+    (the JAX package's weighting)."""
+    hidden, aux = forward_train(arch, params, batch["tokens"], st)
+    loss = ce_loss_chunked(arch, params, hidden, batch["labels"], st)
+    if arch.moe is not None:
+        loss = loss + 0.01 * aux / max(len(arch.moe_layer_ids()), 1)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +444,7 @@ def decode_step(arch: ArchConfig, params: Params, cache: Params,
         for off in range(group_size(arch)):
             lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
             lc = _tree_map(lambda a: a[gi], cache[f"l{off}"])
-            x, _ = _apply_layer(arch, lp, x, positions, st, off, lc, pos=pos)
+            x, _, _ = _apply_layer(arch, lp, x, positions, st, off, lc, pos=pos)
     x = L.apply_norm(arch, params["final_norm"], x)
     return logits_from_hidden(arch, params, x)[:, 0], cache
 

@@ -3,7 +3,8 @@
 
 Parameters and moments are nested dicts of tensors, as in the JAX package.
 The functions return new tensors and leave their inputs as they were; the
-gradient sync writes the results back in place where that saves memory.
+gradient sync updates the moments in place (``adamw_leaf(inplace=True)``)
+and writes the parameters back in place, where that saves memory.
 """
 from __future__ import annotations
 
@@ -40,18 +41,29 @@ def _f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
-def adamw_leaf(p, g, m, v, step, lr, cfg: AdamWConfig, clip_coef=1.0):
+def adamw_leaf(p, g, m, v, step, lr, cfg: AdamWConfig, clip_coef=1.0,
+               inplace: bool = False):
     """Single-leaf AdamW update in fp32.  Returns (new_p, new_m, new_v).
     ``step`` is the number of updates already made; ``lr`` and
-    ``clip_coef`` are floats or 0-d fp32 tensors."""
-    g = g.float() * _f32(clip_coef, g)
-    m = cfg.b1 * m + (1 - cfg.b1) * g
-    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-    t = _f32(step, g) + 1.0
-    mhat = m / (1 - torch.pow(_f32(cfg.b1, g), t))
-    vhat = v / (1 - torch.pow(_f32(cfg.b2, g), t))
-    upd = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-    new_p = (p.float() - _f32(lr, g) * upd).to(p.dtype)
+    ``clip_coef`` are floats or 0-d fp32 tensors.  With ``inplace`` the
+    fp32 ``g``, ``m`` and ``v`` are consumed: the moments are updated where
+    they lie and returned, and ``g`` is overwritten, so that a leaf's
+    update holds no second copy of them (the sync's use); otherwise the
+    inputs are left as they were.  Either way the arithmetic is the
+    reference's, operation for operation."""
+    g = g.float()
+    if not inplace:
+        g, m, v = g.clone(), m.clone(), v.clone()
+    g.mul_(_f32(clip_coef, g))
+    m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    v.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
+    del g
+    t = _f32(step, m) + 1.0
+    denom = (v / (1 - torch.pow(_f32(cfg.b2, m), t))).sqrt_().add_(cfg.eps)
+    upd = (m / (1 - torch.pow(_f32(cfg.b1, m), t))).div_(denom)
+    del denom
+    upd.add_(p.float() * cfg.weight_decay)
+    new_p = (p.float() - upd.mul_(_f32(lr, m))).to(p.dtype)
     return new_p, m, v
 
 

@@ -328,7 +328,10 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
     parameter tensors of ``params`` are updated in place (and returned);
     ``lr`` is a float or a 0-d fp32 tensor.  ``grads`` is consumed: each
     leaf is dropped from the tree once its section is synced, so that a
-    step holds a gradient only until then."""
+    step holds a gradient only until then.  So is ``sync_state``: each
+    section's entry moves out of it into the new state, where its EF, m
+    and v are replaced as they are updated, so that no step holds two
+    copies of them."""
     if ss.model_axis is not None and prims.axis_size(ss.model_axis) > 1:
         raise NotImplementedError("tensor parallelism (a model axis > 1) is "
                                   "not ported yet (ROADMAP.md queue 1)")
@@ -342,8 +345,9 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
     synced: Dict[str, Any] = {}
     new_sections: Dict[str, Any] = {}
     sqnorm = None
+    old_sections = sync_state["sections"]
     for sec in plan.sections:
-        entry = dict(sync_state["sections"][sec.name])
+        entry = old_sections.pop(sec.name)
         ef = entry.get("ef")
         bucket = len(sec.leaf_paths) > 1
         if bucket:
@@ -372,7 +376,7 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
         if new_ef is not None:
             entry["ef"] = new_ef
         new_sections[sec.name] = entry
-        del g
+        del g, ef
         for path in sec.leaf_paths:
             del gflat[path]
             _drop_leaf(grads, path)
@@ -398,7 +402,8 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
                 blk = p.shape[k] // n_fast
                 p_sh = p.narrow(k, idx * blk, blk)
             new_p_sh, entry["m"], entry["v"] = adamw_leaf(
-                p_sh, g, entry["m"], entry["v"], step, lr, opt_cfg, clip)
+                p_sh, g, entry["m"], entry["v"], step, lr, opt_cfg, clip,
+                inplace=True)
             # the all-gather carries UPDATED PARAMETERS (fused ZeRO-1);
             # gathers run up the fast tiers in reverse scatter order
             new = dfabric_all_gather(new_p_sh, ss.fast,
@@ -407,7 +412,8 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
             p_full = (_bucket_pack(pflat, sec, n_fast) if bucket
                       else pflat[sec.leaf_paths[0]])
             new, entry["m"], entry["v"] = adamw_leaf(
-                p_full, g, entry["m"], entry["v"], step, lr, opt_cfg, clip)
+                p_full, g, entry["m"], entry["v"], step, lr, opt_cfg, clip,
+                inplace=True)
         if bucket:
             for path, t in _bucket_unpack(new, sec, pflat).items():
                 pflat[path].copy_(t)

@@ -40,6 +40,7 @@ from repro_torch.core.topology import topology_from_mesh_sizes
 from repro_torch.convert import load_jax_params
 from repro_torch.models.registry import Model
 from repro_torch.models.sharding import MeshInfo
+from repro_torch.models.transformer import check_trainable
 from repro_torch.obs.metrics import MetricsLogger
 from repro_torch.optim import grad_sync
 from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
@@ -162,8 +163,8 @@ def make_dfabric_train_step(model: Model, mesh: prims.Mesh, plan: SyncPlan,
     ``params`` is the model's parameter tree, updated in place.  The loss
     is averaged over the DP members (``pmean``) and the gradients over the
     microbatches, as in the JAX step."""
-    if mesh.sizes.get("model", 1) > 1:
-        _not_ported("tensor parallelism (a model axis > 1)")
+    check_trainable(model.arch, model.settings,
+                    model_axis=mesh.sizes.get("model", 1))
     if not zero1:
         ss = dataclasses.replace(ss, mode="paper")
     dp_axes = dp_axes_of(mesh.sizes)
@@ -302,8 +303,8 @@ class Trainer:
 
         if cfg.mode != "dfabric":
             _not_ported(f"mode={cfg.mode!r} (the GSPMD step)")
-        if mesh.sizes.get("model", 1) > 1:
-            _not_ported("tensor parallelism (a model axis > 1)")
+        check_trainable(model.arch, model.settings,
+                        model_axis=mesh.sizes.get("model", 1))
         self.model, self.mesh, self.shape, self.cfg = model, mesh, shape, cfg
         self.topo = topo if topo is not None else topology_from_mesh_sizes(mesh.sizes)
         self.pipeline = data_pipeline or TokenPipeline(

@@ -1,7 +1,8 @@
 """The port's ``CheckpointManager`` (``repro_torch.checkpoint.manager``):
 every manager case of ``tests/test_fault_tolerance.py`` run on the port,
 the on-disk format held to the JAX manager's in both directions, the
-reference's sweep race made deterministic, and the bf16 refusal."""
+reference's sweep race made deterministic, and bf16 leaves in the
+reference's format."""
 import json
 import os
 import threading
@@ -268,20 +269,48 @@ def test_restart_does_not_sweep_a_pending_write(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# bf16 leaves: not a format the port writes yet
+# bf16 leaves: the reference's format, bit for bit in both directions
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("leaf", ["torch", "numpy"])
+@pytest.mark.parametrize("leaf", ["torch", "numpy", "jax"])
 def test_bf16_leaf_raises(tmp_path, leaf):
+    """A bf16 leaf no longer raises: saved by one package's manager (the
+    port's, from a torch or an ``ml_dtypes`` leaf; or the JAX one's) it
+    restores in the other's bit for bit (every high byte of a 16-bit
+    word, NaN and inf among them), with the same file name and
+    ``index.json`` entry (``"dtype": "bfloat16"``).  The port writes a
+    bf16 leaf as its 16-bit payload; the JAX manager ``np.save``s the
+    ``ml_dtypes`` array itself.  Both read back the 2-byte void array
+    ``np.load`` gives, which ``numpy_to_torch`` reads as bf16."""
     import ml_dtypes
-    x = (torch.ones(4, dtype=torch.bfloat16) if leaf == "torch"
-         else np.ones(4, dtype=ml_dtypes.bfloat16))
-    mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        mgr.save(1, {"params": {"w": x}})
-    assert mgr.latest_step() is None and os.listdir(tmp_path) == []
-    mgr.close()
+    from repro_torch.convert import numpy_to_torch
+    bits = np.arange(0, 1 << 16, 257, dtype=np.uint16).reshape(32, 8)
+    ref = bits.view(ml_dtypes.bfloat16)
+    fp32 = np.arange(6, dtype=np.float32)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    JaxManager(str(jdir), async_save=False).save(
+        1, {"params": {"w": jnp.asarray(ref), "b": jnp.asarray(fp32)}},
+        blocking=True)
+    w = (torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+         if leaf == "torch" else ref)
+    with CheckpointManager(str(pdir)) as mgr:
+        mgr.save(1, {"params": {"w": w, "b": torch.from_numpy(fp32)}})
+    step = "step_00000001"
+    assert json.loads((jdir / step / "index.json").read_text()) == \
+        json.loads((pdir / step / "index.json").read_text())
+    assert json.loads((pdir / step / "index.json").read_text())[
+        "trees"]["params"]["w"]["dtype"] == "bfloat16"
+    if leaf == "jax":  # saved by the JAX manager, restored by the port's
+        out = CheckpointManager(str(jdir), read_only=True).restore()["params"]
+    else:
+        out = JaxManager(str(pdir), async_save=False).restore()["params"]
+    got = np.asarray(out["w"])
+    assert got.dtype.itemsize == 2 and got.shape == bits.shape
+    np.testing.assert_array_equal(got.view(np.uint16), bits)
+    np.testing.assert_array_equal(
+        numpy_to_torch(got).view(torch.int16).numpy().view(np.uint16), bits)
+    np.testing.assert_array_equal(np.asarray(out["b"]), fp32)
 
 
 def test_assemble_takes_the_first_member_in_mesh_order():

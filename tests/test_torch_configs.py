@@ -238,7 +238,14 @@ def test_train_loss_matches_jax(weights, name):
 @pytest.mark.parametrize("name,experts", [(n, False) for n in MOE] + [(JAMBA, True)],
                          ids=list(MOE) + [JAMBA + "+experts"])
 def test_training_with_experts_raises(name, experts):
+    """Training with experts is ported (``test_torch_train_families.py``
+    holds it to JAX); only fp32 parameters with a bf16 compute dtype, which
+    has no reference, still raise."""
     arch = configs.get_smoke_arch(name)
     assert arch.moe is not None
+    for dt in ("float32", "bfloat16"):
+        check_trainable(arch, ModelSettings(param_dtype="bfloat16", compute_dtype=dt))
+    check_trainable(arch, ModelSettings(**FP32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_trainable(arch, ModelSettings(**FP32))
+        check_trainable(arch, ModelSettings(param_dtype="float32",
+                                            compute_dtype="bfloat16"))

@@ -90,12 +90,25 @@ def test_one_card_arch_keeps_the_published_widths():
 
 def test_jamba_with_experts_raises():
     """Jamba with its experts is served (tests/test_torch_configs.py holds
-    it to JAX); training it raises."""
+    it to JAX) and trained (tests/test_torch_train_families.py): MoE on
+    the odd offsets of its 8-layer group, and a finite loss with a
+    gradient for every leaf.  Training it raises only where nothing is
+    ported: a model axis above 1."""
     from repro_torch.models.transformer import check_trainable
-    model = build_model(get_smoke_arch(JAMBA), ModelSettings(**FP32), device="cpu")
-    assert "moe" in dict(model.blocks.l1.named_children())
+    model = build_model(get_smoke_arch(JAMBA), ModelSettings(**FP32, remat="none"),
+                        device="cpu")
+    kids = [dict(getattr(model.blocks, f"l{off}").named_children())
+            for off in range(8)]
+    assert [("moe" in k) for k in kids] == [off % 2 == 1 for off in range(8)]
+    check_trainable(model.arch, model.settings)
+    params = model.params()
+    leaves = [p.requires_grad_(True) for p in model.parameters()]
+    toks = torch.randint(0, model.arch.vocab, (2, 16))
+    loss = model.loss(params, {"tokens": toks, "labels": toks})
+    grads = torch.autograd.grad(loss, leaves)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     with pytest.raises(NotImplementedError, match="not ported"):
-        check_trainable(model.arch, model.settings)
+        check_trainable(model.arch, model.settings, model_axis=2)
 
 
 def test_full_width_param_count():
@@ -351,7 +364,7 @@ def test_layer_bf16_matches_jax(weights_bf16, off):
     jout, _, jcache = JT._apply_layer(
         jarch, jax_params(p), jx, jnp.arange(S)[None].repeat(B, 0), "prefill",
         None, JaxSettings(use_pallas_ssm=True), off)
-    out, cache = T._apply_layer(
+    out, _, cache = T._apply_layer(
         arch, tree_from_paths({k: numpy_to_torch(v) for k, v in p.items()}),
         numpy_to_torch(np.asarray(jx)), torch.arange(S)[None].expand(B, S),
         ModelSettings(use_kernel_ssm=True, attn_impl="kernel"), off)

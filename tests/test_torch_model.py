@@ -119,8 +119,12 @@ def test_attend_kernel_impl_matches_masked():
     b = L.attend(_t(q), _t(k), _t(v), causal=True, impl="masked", q_chunk=8,
                  kv_chunk=8)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.attend(_t(q), _t(k), _t(v), causal=True, impl="tri")
+    # tri decomposes seq 32 over blocks of 8; at the default block it
+    # runs masked
+    for block in (8, 1024):
+        c = L.attend(_t(q), _t(k), _t(v), causal=True, impl="tri", block=block,
+                     q_chunk=8, kv_chunk=8)
+        torch.testing.assert_close(c, b, atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="pallas"):
         L.attend(_t(q), _t(k), _t(v), causal=True, impl="pallas")
 

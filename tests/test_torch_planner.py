@@ -122,7 +122,8 @@ def _code(path: str) -> str:
                                     "sim/__init__.py", "sim/fabric_sim.py",
                                     "serve_sim/__init__.py",
                                     "serve_sim/workload.py",
-                                    "serve_sim/fleet.py"])
+                                    "serve_sim/fleet.py",
+                                    "roofline/analytics.py"])
 def test_copy_is_verbatim(module):
     """Docstrings and comments aside (the topology copy says its hardware
     defaults are the reference's, not this card's), the copy is the

@@ -84,13 +84,28 @@ def test_loss_chunk_does_not_change_the_loss(weights, batch):
 
 
 def test_untrainable_raise():
+    """What the port trains: every decoder family, remat none/full/dots,
+    tri attention, fp32/fp32, bf16/bf16 and bf16/fp32.  What still raises,
+    naming ROADMAP.md: the encoder-decoder (item 9), a model axis above 1
+    (item 8), and fp32 parameters with a bf16 compute dtype (no
+    reference)."""
+    from repro_torch.configs.base import EncoderConfig
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
-    for name in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
-        arch = get_smoke_arch(name).replace(moe=None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_trainable(arch, st)
+    for name in ("rwkv6-1.6b", "jamba-1.5-large-398b", "deepseek-moe-16b"):
+        check_trainable(get_smoke_arch(name), st)
+    for pdt, cdt in (("bfloat16", "bfloat16"), ("bfloat16", "float32")):
+        check_trainable(get_arch(ARCH), dataclasses.replace(
+            st, param_dtype=pdt, compute_dtype=cdt, remat="dots",
+            attn_impl="tri"))
+    encdec = get_smoke_arch(ARCH).replace(family="audio",
+                                          encoder=EncoderConfig(n_layers=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_trainable(get_arch(ARCH), dataclasses.replace(st, remat="dots"))
+        check_trainable(encdec, st)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
+        check_trainable(get_arch(ARCH), st, model_axis=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_trainable(get_arch(ARCH), dataclasses.replace(
+            st, compute_dtype="bfloat16"))
 
 
 # ---------------------------------------------------------------------------

@@ -70,13 +70,14 @@ def smoke_archs(arch: str = ARCH, n_layers=None, experts: bool = False):
 
 def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
               arch: str = ARCH, use_pallas_ssm: bool = False, n_layers=None,
-              experts: bool = False, **settings):
+              experts: bool = False, compute_dtype=None, **settings):
     """The JAX smoke model; ``settings`` override its ``ModelSettings``
-    (remat "none" unless given)."""
+    (remat "none" unless given); ``compute_dtype`` is ``dtype`` unless
+    given."""
     from repro.models import ModelSettings as JaxSettings
     from repro.models import build_model as jax_build_model
     settings.setdefault("remat", "none")
-    st = JaxSettings(param_dtype=dtype, compute_dtype=dtype,
+    st = JaxSettings(param_dtype=dtype, compute_dtype=compute_dtype or dtype,
                      attn_impl=attn_impl, max_seq=max_seq,
                      use_pallas_ssm=use_pallas_ssm, **settings)
     return jax_build_model(smoke_archs(arch, n_layers, experts)[0], st)
@@ -101,14 +102,48 @@ def jax_params(flat):
 
 def port_model(flat, attn_impl: str = "masked", dtype="float32",
                arch: str = ARCH, use_kernel_ssm: bool = False, n_layers=None,
-               experts: bool = False, **settings):
-    st = ModelSettings(param_dtype=dtype, compute_dtype=dtype,
+               experts: bool = False, compute_dtype=None, **settings):
+    st = ModelSettings(param_dtype=dtype, compute_dtype=compute_dtype or dtype,
                        attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm,
                        **settings)
     model = build_model(smoke_archs(arch, n_layers, experts)[1], st,
                         device="cpu")
     load_jax_params(model, flat)
     return model
+
+
+def port_loss_and_grads(model, batch):
+    """(loss, {path: gradient}) of ``model.loss`` on the numpy ``batch``,
+    under autograd."""
+    from repro_torch.utils.trees import tree_paths
+    params = model.params()
+    flat = tree_paths(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    loss = model.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.item(), dict(zip(flat, grads))
+
+
+def jax_loss_and_grads(jm, flat, batch):
+    """(loss, {path: gradient}) of the JAX model's loss under
+    ``jax.value_and_grad``, the same weights and batch."""
+    import jax
+    import jax.numpy as jnp
+    from repro.utils.trees import tree_paths
+    loss, grads = jax.value_and_grad(jm.loss)(
+        jax_params(flat), {k: jnp.asarray(v) for k, v in batch.items()})
+    return float(loss), {k: np.asarray(v) for k, v in tree_paths(grads).items()}
+
+
+def train_batch(arch, seed: int, B: int = 2, S: int = 16):
+    """A (B, S) next-token batch of the arch's vocab, three positions of
+    the first row ignored (label -1)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, arch.vocab, (B, S + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -1
+    return {"tokens": toks[:, :-1], "labels": labels}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -421,7 +456,9 @@ TRAIN_LOSS_CHUNK = 16
 def rank_trainer(rank, payload):
     """The port's ``Trainer`` on this rank, from ``payload["weights"]`` (a
     flat JAX tree of numpy arrays) on the mesh ``payload["sizes"]`` with
-    ``payload["cfg"]`` (TrainerConfig fields beside ``TRAIN``).  Returns
+    ``payload["cfg"]`` (TrainerConfig fields beside ``TRAIN``, which
+    ``payload["train"]`` may override), for the smoke config of
+    ``payload["arch"]`` (``ARCH`` unless given; experts included).  Returns
     (losses, final params flat as numpy, {section: {m, v[, ef]: this
     rank's local block}}, this rank's mesh coords as a sorted tuple)."""
     from repro_torch.configs import get_smoke_arch
@@ -432,12 +469,13 @@ def rank_trainer(rank, payload):
     mesh = prims.Mesh(payload["sizes"])
     st = ModelSettings(param_dtype="float32", compute_dtype="float32",
                        remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
-    model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+    model = build_model(get_smoke_arch(payload.get("arch", ARCH)), st,
+                        device="cpu")
     load_jax_params(model, payload["weights"])
     shape = ShapeConfig("t", TRAIN_SHAPE["seq_len"], TRAIN_SHAPE["global_batch"],
                         "train")
-    trainer = Trainer(model, mesh, shape,
-                      TrainerConfig(**TRAIN, **payload["cfg"]))
+    trainer = Trainer(model, mesh, shape, TrainerConfig(
+        **{**TRAIN, **payload.get("train", {})}, **payload["cfg"]))
     out = trainer.train()
     params = {k: v.detach().numpy().copy()
               for k, v in tree_paths(out["params"]).items()}
@@ -486,14 +524,16 @@ np.savez(os.environ["JAX_OUT"], **res)
 '''
 
 
-def jax_trainer_runs(runs, weights):
+def jax_trainer_runs(runs, weights, arch: str = ARCH, train=None):
     """The JAX ``Trainer`` on 8 fake devices for each of ``runs`` ({name:
-    (mesh sizes, TrainerConfig fields)}) from the flat ``weights``."""
+    (mesh sizes, TrainerConfig fields)}) from the flat ``weights``, on the
+    smoke config of ``arch``; ``train`` overrides fields of ``TRAIN``."""
     import json
     return run_jax_devices(TRAINER_JAX_SCRIPT, {
         "runs": np.array(json.dumps(runs)), "weights": np.array(weights, dtype=object),
-        "train": np.array(json.dumps(TRAIN)), "shape": np.array(json.dumps(TRAIN_SHAPE)),
-        "loss_chunk": np.array(TRAIN_LOSS_CHUNK), "arch": np.array(ARCH)})
+        "train": np.array(json.dumps({**TRAIN, **(train or {})})),
+        "shape": np.array(json.dumps(TRAIN_SHAPE)),
+        "loss_chunk": np.array(TRAIN_LOSS_CHUNK), "arch": np.array(arch)})
 
 
 def lossy(cfg) -> bool:
