@@ -76,6 +76,21 @@ layer of the jamba cut, forward and backward through K4's autograd wrapper
 against the plain path's gradients in fp32 and bf16, then the jamba smoke
 model with its experts, 3 steps, K4 and K1 in the forward and recompute.
 
+Last, tensor parallelism and the GSPMD step, four ranks sharing the card
+over gloo, each holding its block of every leaf: ``[train-tp]`` the CLI
+with a model axis of 2, full-width qwen2-0.5b in fp32 on (pod, data,
+model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 3
+steps of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
+step) and K2 as the local plan counts it, step 0's loss held to
+``[train]``'s at 1e-4; ``[train-gspmd]`` full-width qwen3-1.7b in bf16,
+``remat="full"``, FSDP over data x TP over model on (1, 2, 2), B=1 S=2048
+a DP member, 3 steps, K1 on 8 local heads (56 a rank a step), step 0's
+loss held to one unsharded forward on the global batch at 2e-2, and its
+step-2 checkpoint (≈ 17.2 GB under ``build/ckpt_gspmd``, deleted after)
+restored into a fresh model bit for bit.  Every block that two members
+hold alike (the replicated leaves over the model members, every leaf over
+the pod members) is compared bit for bit after every step.
+
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -377,11 +392,14 @@ def serve_line(name, server, launches) -> str:
             f"launches={launches}")
 
 
-def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=()):
+def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=(),
+                          locals_=()):
     """K1 against its plain version at the qwen2 and jamba paths' prefill
     shapes, at those of ``mains`` ((case name, arch) of the other serving
     paths), at the training paths' ``trains`` ((case name, rows a rank,
-    arch, seq, dtype)) and others.  Returns the per-case results."""
+    arch, seq, dtype)), at ``locals_`` ((case name, B, local heads, local
+    kv heads, seq, head dim, dtype) of a model member under TP) and others.
+    Returns the per-case results."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -400,6 +418,7 @@ def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=()):
            True, "bfloat16") for name, a in mains),
         *((name, B, a.n_heads, a.n_kv_heads, S, a.resolved_head_dim, True, dt)
           for name, B, a, S, dt in trains),
+        *((name, B, Hl, KVl, S, d, True, dt) for name, B, Hl, KVl, S, d, dt in locals_),
         ("hd128", 2, 8, 2, 1024, 128, True, "float32"),
         ("hd192", 1, 8, 1, 512, 192, True, "bfloat16"),
         ("hd160", 1, 4, 2, 130, 160, True, "bfloat16"),
@@ -615,10 +634,10 @@ def quantize_bound_ms(n, block, dtype_name):
     return bound(3.0 * n, n * itemsize + n + 4 * (n // block) + 4 * n, "float32")
 
 
-def plan_slow_chunks(sizes) -> int:
-    """The int8 slow chunks (K2 launches) of one training step: the shared
-    planner's plan for full-width qwen2-0.5b on a mesh of ``sizes``, built
-    on the meta device."""
+def qwen_plan(sizes):
+    """The shared planner's int8 plan for full-width qwen2-0.5b (fp32) on a
+    mesh of ``sizes``, built on the meta device (no memory); with a model
+    axis its sections come from each model member's local shapes."""
     from repro_torch.configs import get_arch
     from repro_torch.core.topology import topology_from_mesh_sizes
     from repro_torch.models import ModelSettings, build_model
@@ -628,23 +647,19 @@ def plan_slow_chunks(sizes) -> int:
                         device="meta")
     plan, _ = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes),
                              codec="int8")
-    return sum(len(s.schedule.slow_legs) for s in plan.sections)
+    return plan
+
+
+def plan_slow_chunks(sizes) -> int:
+    """The int8 slow chunks (K2 launches) of one training step of
+    full-width qwen2-0.5b on a mesh of ``sizes``."""
+    return sum(len(s.schedule.slow_legs) for s in qwen_plan(sizes).sections)
 
 
 def train_sections():
     """The padded slow-leg sizes of the training path's 9 sections: the
-    shared planner's plan for full-width qwen2-0.5b on (pod, data, model) =
-    (2, 1, 1) with the int8 codec, built on the meta device (no memory)."""
-    from repro_torch.configs import get_arch
-    from repro_torch.core.topology import topology_from_mesh_sizes
-    from repro_torch.models import ModelSettings, build_model
-    from repro_torch.runtime.train_loop import make_sync_plan
-    sizes = {"pod": 2, "data": 1, "model": 1}
-    model = build_model(get_arch("qwen2-0.5b"),
-                        ModelSettings(param_dtype="float32", compute_dtype="float32"),
-                        device="meta")
-    plan, _ = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes),
-                             codec="int8")
+    plan for full-width qwen2-0.5b on (pod, data, model) = (2, 1, 1)."""
+    plan = qwen_plan({"pod": 2, "data": 1, "model": 1})
     return {s.name: s.numel + (-s.numel) % s.sync.codec_block
             for s in plan.sections}
 
@@ -715,6 +730,10 @@ def check_quantize(torch, gen, dev):
     fam_sizes, fam_timed = family_k2_sizes()
     cases += [(name, n, 2048, "float32", "grad")
               for name, n in sorted(fam_sizes.items(), key=lambda kv: -kv[1])]
+    tp_sizes = tp_k2_sizes()
+    fam_timed = set(fam_timed) | {max(tp_sizes, key=tp_sizes.get)}
+    cases += [(name, n, 2048, "float32", "grad")
+              for name, n in sorted(tp_sizes.items(), key=lambda kv: -kv[1])]
     cases += [("halves-512", 16 * 512, 512, "float32", "halves"),
               ("unaligned-512", 64 * 512, 512, "float32", "unaligned"),
               ("bf16-8192-512", 8192, 512, "bfloat16", "randn"),
@@ -1494,6 +1513,288 @@ def family_phases(torch, gen, dev, card, phase_done):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism and the GSPMD step: four ranks share the card over gloo
+# ---------------------------------------------------------------------------
+
+#: ``[train-tp]``: the CLI's run with a model axis of 2, full-width
+#: qwen2-0.5b in fp32, mesh (pod, data, model) = (2, 1, 2), the int8 slow
+#: tier, ZeRO-1, B=2 S=2048 a DP member (``[train]``'s global batch)
+TP_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,1,2", "--codec", "int8",
+           "--steps", "3", "--batch", "4", "--seq", "2048",
+           "--backend", "gloo", "--device", "cuda"]
+TP_RANKS, TP_TOKENS = 4, 4 * 2048
+#: ``[train-gspmd]``: full-width qwen3-1.7b, bf16 parameters and compute,
+#: ``remat="full"``, FSDP over data x TP over model on (1, 2, 2), B=1
+#: S=2048 a DP member, 3 steps, a checkpoint at step 2
+GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
+GSPMD_FIELDS = dict(param_dtype="bfloat16", compute_dtype="bfloat16",
+                    remat="full", attn_impl="kernel", loss_chunk=2048)
+GSPMD_ROWS, GSPMD_SEQ, GSPMD_STEPS, GSPMD_CKPT = 2, 2048, 3, 2
+
+
+def tp_k2_sizes():
+    """{case: padded input size} of every K2 launch of ``[train-tp]``: each
+    section's int8 slow chunks on a model member's local blocks."""
+    sizes = {"pod": 2, "data": 1, "model": 2}
+    out = {}
+    for sec in qwen_plan(sizes).sections:
+        n = sec.schedule.numel // len(sec.schedule.slow_legs)
+        out.setdefault(n + (-n) % sec.sync.codec_block, f"tp-{sec.name}"[:60])
+    return {name: n for n, name in out.items()}
+
+
+def blocks_agree(params, layout, mesh):
+    """Whether every two members that hold the same block of a leaf (a
+    leaf replicated over the model members, every leaf over the pod
+    members) hold it bit for bit: each member's leaf digests and block
+    coords gathered to all.  Returns (agree, the groups of two or more
+    members compared)."""
+    import torch.distributed as dist
+    from repro_torch.models.sharding import block_coords
+    mine = {k: (block_coords(layout.specs[k], mesh.coords, mesh.sizes), d)
+            for k, d in leaf_digests(params).items()}
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    groups = {}
+    for rec in everyone:
+        for k, (idx, d) in rec.items():
+            groups.setdefault((k, idx), set()).add(d)
+    members = {}
+    for rec in everyone:
+        for k, (idx, _) in rec.items():
+            members[(k, idx)] = members.get((k, idx), 0) + 1
+    shared = [g for g, n in members.items() if n > 1]
+    return all(len(groups[g]) == 1 for g in groups), len(shared)
+
+
+def tp_rank(rank, world, init_method, tag, ckpt_dir):
+    """One rank of ``[train-tp]`` (the CLI's ``run_rank`` with
+    ``TP_ARGV``) or ``[train-gspmd]`` (the ``Trainer`` in GSPMD mode,
+    checkpointing at step 2, then that checkpoint restored into a fresh
+    model and state on this rank).  Each step records every kernel's
+    launches, the collectives of the model's TP/FSDP Functions, loss,
+    step time, peak memory, and whether the members' blocks agree."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.models.registry import count_params
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    kernels = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
+               "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
+    rec = {"steps": []}
+    live = {}
+
+    def start(trainer):
+        live["trainer"] = trainer
+        torch.cuda.synchronize()
+        rec["mem_after_init_gb"] = torch.cuda.memory_allocated() / 1e9
+        rec["local_params"] = sum(p.numel() for p in trainer.model.parameters())
+        rec["n_params"] = count_params(trainer.model)
+        rec["plan_k2"] = (sum(len(s.schedule.slow_legs) for s in trainer.plan.sections)
+                          if trainer.plan is not None else 0)
+        rec["expected"] = expected_launches(trainer.model.arch, trainer.model.settings)
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0  # just before the path
+        for k in prims.TP_CALLS:
+            prims.TP_CALLS[k] = 0
+        live["last"] = {name: 0 for name in kernels}
+        live["calls"] = dict(prims.TP_CALLS)
+
+    def on_step(step, params, opt, metrics):
+        torch.cuda.synchronize()
+        launches = {name: mod.LAUNCHES - live["last"][name]
+                    for name, mod in kernels.items()}
+        live["last"] = {name: mod.LAUNCHES for name, mod in kernels.items()}
+        calls = {k: v - live["calls"][k] for k, v in prims.TP_CALLS.items()}
+        live["calls"] = dict(prims.TP_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        trainer = live["trainer"]
+        agree, shared = blocks_agree(params, trainer.model.layout, trainer.mesh)
+        rec["steps"].append(dict(step=step, loss=metrics["loss"], dt=metrics["dt"],
+                                 grad_norm=metrics["grad_norm"], launches=launches,
+                                 calls=calls, agree=agree, shared=shared,
+                                 check_s=time.perf_counter() - t0, peak_gb=peak))
+        if tag == "train-gspmd" and step + 1 == GSPMD_CKPT:
+            rec["ckpt_digests"] = state_digests(params, opt)
+
+    if tag == "train-tp":
+        args = train_cli.resolve_args(train_cli.build_parser().parse_args(TP_ARGV))
+        train_cli.run_rank(args, rank, world, init_method, on_step=on_step,
+                           before_train=lambda trainer, params, opt: start(trainer))
+        rec["coords"] = live["trainer"].mesh.coords
+        return rec
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world,
+                            rank=rank)
+    try:
+        mesh = prims.Mesh(GSPMD_SIZES)
+        arch = get_arch("qwen3-1.7b")
+        st = ModelSettings(**GSPMD_FIELDS)
+        shape = ShapeConfig("custom", GSPMD_SEQ, GSPMD_ROWS, "train")
+        cfg = TrainerConfig(steps=GSPMD_STEPS, lr=3e-4, warmup=1, mode="gspmd",
+                            ckpt_dir=ckpt_dir, ckpt_every=GSPMD_CKPT)
+        trainer = Trainer(build_model(arch, st, device="cuda", seed=0), mesh,
+                          shape, cfg)
+        params, opt, step0 = trainer.init_state()
+        start(trainer)
+        trainer.train(params, opt, step0, on_step=on_step)
+        rec["coords"] = mesh.coords
+        rec["ckpt_log"], rec["writes"] = trainer.ckpt_log, trainer.ckpt.stats
+        del trainer, params, opt
+        live.clear()
+        torch.cuda.empty_cache()
+        # the step-2 checkpoint into a fresh model (other seed) and state
+        fresh = Trainer(build_model(arch, st, device="cuda", seed=1), mesh, shape, cfg)
+        params, opt, step = fresh.try_restore()
+        got = state_digests(params, opt)
+        rec["restore"] = dict(step=step, restore_s=fresh.restore_s, leaves=len(got),
+                              equal=sum(got[k] == v for k, v in rec["ckpt_digests"].items()))
+        del fresh, params, opt
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def state_digests(params, opt) -> dict:
+    """Digests of the parameters and the GSPMD moments (this member's
+    blocks), and the step."""
+    out = {f"p/{k}": v for k, v in leaf_digests(params).items()}
+    for key in ("m", "v"):
+        out.update({f"{key}/{k}": v for k, v in leaf_digests(opt[key]).items()})
+    out["step"] = str(opt["step"])
+    return out
+
+
+def gspmd_reference_loss(torch):
+    """Step 0's loss of ``[train-gspmd]`` from one unsharded qwen3-1.7b on
+    this process (seed 0, bf16, K1), on the same global batch: the
+    reference its four ranks are held to."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import ModelSettings, build_model
+    arch = get_arch("qwen3-1.7b")
+    model = build_model(arch, ModelSettings(**GSPMD_FIELDS), device="cuda", seed=0)
+    pipe = TokenPipeline(arch, ShapeConfig("custom", GSPMD_SEQ, GSPMD_ROWS, "train"),
+                         DataConfig(seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    before = fa_kernel.LAUNCHES
+    with torch.no_grad():
+        loss = model.loss(model.params(), batch).item()
+    if fa_kernel.LAUNCHES - before != arch.n_layers:
+        raise AssertionError("the reference forward did not run K1 in every layer")
+    del model, batch
+    torch.cuda.empty_cache()
+    return loss
+
+
+def check_tp_steps(tag, recs, card, tokens, want_loss0, tol):
+    """Log and check every rank's steps of a TP/GSPMD phase: launches as
+    ``expected_launches`` and the plan's K2 count give them, finite
+    losses the ranks agree on, the members' blocks bit-equal, and step 0's
+    loss within ``tol`` relative of ``want_loss0``; then the card's memory
+    left beside the four peaks."""
+    import torch
+    r0 = recs[0]
+    want = dict(r0["expected"], quantize_ef_fwd=r0["plan_k2"])
+    for rank, rec in enumerate(recs):
+        for st in rec["steps"]:
+            log(f"[{tag}] rank {rank} {rec['coords']} step {st['step']}: "
+                f"loss={st['loss']:.6f} grad_norm={st['grad_norm']:.4f} "
+                f"step_s={st['dt']:.3f} tok/s={tokens / st['dt']:.0f} (global batch) "
+                f"launches={st['launches']} (expected {want}) TP/FSDP collectives "
+                f"{st['calls']} blocks_bit_equal={st['agree']} ({st['shared']} "
+                f"blocks held by 2+ members; checked in {st['check_s']:.2f} s) "
+                f"peak_mem_gb={st['peak_gb']:.2f} | {card}")
+            if st["launches"] != want:
+                raise AssertionError(f"[{tag}] rank {rank} step {st['step']} launched "
+                                     f"{st['launches']}, expected {want}")
+            if not (math.isfinite(st["loss"]) and st["agree"] and st["shared"] > 0):
+                raise AssertionError(f"[{tag}] rank {rank} step {st['step']}: {st}")
+        if [a["loss"] for a in rec["steps"]] != [a["loss"] for a in r0["steps"]]:
+            raise AssertionError(f"[{tag}] rank {rank} disagrees on the loss")
+    loss0 = r0["steps"][0]["loss"]
+    rel = abs(loss0 - want_loss0) / abs(want_loss0)
+    log(f"[{tag}] step-0 loss {loss0!r} against {want_loss0!r}: rel diff {rel:.2e} "
+        f"(tol {tol}); params {r0['n_params']}, {r0['local_params']} a rank; memory "
+        f"after init {r0['mem_after_init_gb']:.2f} GB a rank")
+    if rel > tol:
+        raise AssertionError(f"[{tag}] step 0's loss is off its reference")
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    peaks = [max(st["peak_gb"] for st in rec["steps"]) for rec in recs]
+    log(f"[{tag}] the card's {total:.2f} GB less the four ranks' peaks "
+        f"({', '.join(f'{p:.2f}' for p in peaks)} GB allocated): "
+        f"{total - sum(peaks):.2f} GB free of allocations | {card}")
+
+
+def tp_phases(torch, card, train_recs, phase_done):
+    """``[train-tp]`` against ``[train]``'s step-0 loss, and
+    ``[train-gspmd]`` against one unsharded forward, its step-2
+    checkpoint restored bit for bit."""
+    from repro_torch.launch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(tp_rank, TP_RANKS, "train-tp", None, timeout=900)
+    log(f"[train-tp] qwen2-0.5b fp32 (pod, data, model) = (2, 1, 2), int8 slow tier, "
+        f"ZeRO-1, B=2 S=2048 a DP member, 3 steps through the CLI: "
+        f"{time.perf_counter() - t0:.1f} s wall; {recs[0]['plan_k2']} int8 slow "
+        f"chunks a rank a step (the plan on local shapes) | {card}")
+    check_tp_steps("train-tp", recs, card, TP_TOKENS,
+                   train_recs[0]["steps"][0]["loss"], 1e-4)
+    phase_done("train-tp: qwen2-0.5b at TP 2, 4 ranks")
+
+    ckpt_dir = os.path.join(HERE, "build", "ckpt_gspmd")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    need = int(1_720_574_976 * (2 + 8) * 1.25)  # bf16 params, fp32 m and v
+
+    free = shutil.disk_usage(ckpt_dir).free
+    if free < need:
+        raise RuntimeError(f"{free} bytes free under {ckpt_dir}; [train-gspmd] needs {need}")
+    t0 = time.perf_counter()
+    ref = gspmd_reference_loss(torch)
+    log(f"[train-gspmd] unsharded qwen3-1.7b bf16 forward on the global batch (2 x "
+        f"{GSPMD_SEQ}) with K1, this process: loss {ref!r} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(tp_rank, TP_RANKS, "train-gspmd", ckpt_dir, timeout=1200)
+    log(f"[train-gspmd] qwen3-1.7b {GSPMD_FIELDS} GSPMD (pod, data, model) = "
+        f"{tuple(GSPMD_SIZES.values())}, FSDP over data x TP over model, B=1 S=2048 a "
+        f"DP member, {GSPMD_STEPS} steps, a checkpoint at step {GSPMD_CKPT}: "
+        f"{time.perf_counter() - t0:.1f} s wall | {card}")
+    check_tp_steps("train-gspmd", recs, card, GSPMD_ROWS * GSPMD_SEQ, ref, 2e-2)
+    step_dir = os.path.join(ckpt_dir, f"step_{GSPMD_CKPT:08d}")
+    save = recs[0]["ckpt_log"][0]
+    write = recs[0]["writes"][0]
+    log(f"[train-gspmd] checkpoint step {GSPMD_CKPT}: {dir_bytes(step_dir)} bytes; "
+        f"gather to member 0 {save['gather_s']:.2f} s, blocking {save['blocking_s']:.2f} s, "
+        f"writer {write['write_s']:.2f} s | {card}")
+    for rank, rec in enumerate(recs):
+        r = rec["restore"]
+        log(f"[train-gspmd] rank {rank}: restored step {r['step']} into a fresh model "
+            f"in {r['restore_s']:.2f} s; {r['equal']} of {r['leaves']} blocks "
+            f"(parameters, m, v, step) bit-equal to this rank's at step {GSPMD_CKPT}")
+        if r["step"] != GSPMD_CKPT or r["equal"] != r["leaves"] \
+                or r["leaves"] != len(rec["ckpt_digests"]):
+            raise AssertionError(f"[train-gspmd] rank {rank}'s restore differs: {r}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    phase_done("train-gspmd: qwen3-1.7b FSDP x TP, 4 ranks, checkpoint")
+    return recs
+
+
 def dir_bytes(path) -> int:
     return sum(e.stat().st_size for e in os.scandir(os.path.join(path, "arrays"))) \
         + os.path.getsize(os.path.join(path, "index.json"))
@@ -1911,7 +2212,13 @@ def main() -> None:
         trains=(("main-train-bf16", 2, qwen, S_MAIN, "bfloat16"),
                 ("main-train-moe", 1, deepseek, S_MAIN, "bfloat16"),
                 ("main-train-jamba-smoke", 2,
-                 family_arch("jamba-1.5-large-398b-smoke")[0], 512, "bfloat16")))
+                 family_arch("jamba-1.5-large-398b-smoke")[0], 512, "bfloat16")),
+        # a model member's local heads in [train-tp] and [train-gspmd]
+        locals_=(("main-train-tp-fp32", 2, qwen.n_heads // 2, qwen.n_kv_heads // 2,
+                  S_MAIN, qwen.resolved_head_dim, "float32"),
+                 ("main-train-gspmd-bf16", 1, qwen3.n_heads // 2,
+                  qwen3.n_kv_heads // 2, S_MAIN, qwen3.resolved_head_dim,
+                  "bfloat16")))
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
@@ -2025,6 +2332,9 @@ def main() -> None:
 
     # ---- training beyond dense fp32: bf16, experts, RWKV6, Jamba ----------
     family_phases(torch, gen, dev, card, phase_done)
+
+    # ---- tensor parallelism and the GSPMD step: 4 ranks on the card -------
+    tp_phases(torch, card, recs, phase_done)
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -76,6 +76,16 @@ def _host_copy(v) -> np.ndarray:
     return arr
 
 
+def owned_host_array(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor that nothing else holds as a numpy array over the same
+    memory (a bf16 one as its 16-bit payload): what ``save`` keeps as it
+    is, with no second copy."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_FILE_DTYPE)
+    return t.numpy()
+
+
 def _dtype_name(arr: np.ndarray) -> str:
     """The dtype ``index.json`` records: the reference's ``str(dtype)``,
     ``"bfloat16"`` for a bf16 payload."""
@@ -244,13 +254,16 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+    def restore(self, step: Optional[int] = None,
+                mmap: bool = False) -> Optional[Dict[str, Any]]:
         """Returns {'__step__', '__metadata__', 'params': tree of global
         numpy arrays, ...}, or None if there is no checkpoint (or no
         checkpoint of the explicit ``step``).  A bf16 leaf comes back as
         the reference's ``np.load`` gives it, its 16-bit payload as a
         2-byte void array, which ``convert.numpy_to_torch`` reads as
-        bf16."""
+        bf16.  With ``mmap`` the arrays are read-only memory maps of the
+        files, so that a member that keeps a block of each reads only
+        that."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -264,7 +277,8 @@ class CheckpointManager:
         out: Dict[str, Any] = {"__step__": index["step"],
                                "__metadata__": index["metadata"]}
         for name, entries in index["trees"].items():
-            flat = {k: np.load(os.path.join(cdir, "arrays", meta["file"]))
+            flat = {k: np.load(os.path.join(cdir, "arrays", meta["file"]),
+                               mmap_mode="r" if mmap else None)
                     for k, meta in entries.items()}
             out[name] = (tree_from_paths(flat) if "__leaf__" not in flat
                          else flat["__leaf__"])

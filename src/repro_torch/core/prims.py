@@ -181,6 +181,16 @@ def pmean(x: torch.Tensor, axes: Axes) -> torch.Tensor:
     return psum(x, axes) / n
 
 
+def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Elementwise max over one axis (``lax.pmax``)."""
+    if axis_size(axis_name) == 1:
+        return x
+    y = x.detach().contiguous().clone()
+    group = current_mesh().groups[axis_name]
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
 def reduce_scatter_tiled(x: torch.Tensor, axis_name: str,
                          dim: int) -> torch.Tensor:
     """Tiled reduce-scatter along ``dim``: member *i* keeps block *i* of
@@ -279,3 +289,82 @@ def all_gather_stacked(x: torch.Tensor, axis_name: str,
                    async_op=async_op)
         out.result = flat.view((n,) + tuple(x.shape))
     return out if async_op else out.wait()
+
+
+# ---------------------------------------------------------------------------
+# collectives that carry a gradient
+# ---------------------------------------------------------------------------
+#
+# What GSPMD inserts for the JAX package's auto-sharded model, written out
+# as autograd Functions over the ops above (the Megatron "f" and "g"
+# operators, and FSDP's gather-on-use).  Each is the identity when the
+# axis has one member.  ``TP_CALLS`` counts the collectives they run, a
+# recomputed layer's again: the sums in the forward and in the backward,
+# the gathers and the reduce-scatters.
+
+TP_CALLS = {"psum_fwd": 0, "psum_bwd": 0, "gather": 0, "reduce_scatter": 0}
+
+
+class _PsumIdentityGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        TP_CALLS["psum_fwd"] += 1
+        return psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IdentityPsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        TP_CALLS["psum_bwd"] += 1
+        return psum(g, ctx.axis), None
+
+
+class _GatherScatterGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        TP_CALLS["gather"] += 1
+        return all_gather_tiled(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        TP_CALLS["reduce_scatter"] += 1
+        return reduce_scatter_tiled(g, ctx.axis, ctx.dim), None, None
+
+
+def psum_replicated(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """Sum over ``axis`` whose backward is the identity: the output of a
+    row-parallel product, after which every member computes alike, so
+    each holds the whole gradient already."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    return _PsumIdentityGrad.apply(x, axis)
+
+
+def to_parallel(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """The identity whose backward sums over ``axis``: a replicated tensor
+    entering a region where each member computes its own part (a
+    column-parallel input, or a replicated leaf used on local heads), so
+    that its gradient is the sum of the members' parts."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    return _IdentityPsumGrad.apply(x, axis)
+
+
+def gather_on_use(x: torch.Tensor, axis: Optional[str],
+                  dim: int) -> torch.Tensor:
+    """FSDP's gather of a leaf's blocks along ``dim`` over ``axis``; the
+    backward reduce-scatters the gradient back onto the blocks (the sum
+    of every member's gradient, each member keeping its block)."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    return _GatherScatterGrad.apply(x, axis, dim)

@@ -8,13 +8,19 @@ run it under ``torchrun`` (which sets ``WORLD_SIZE``), or let it spawn the
 ranks itself.  ``--device cuda`` (the default) raises without a card.
 With ``--ckpt-dir`` and ``--ckpt-every`` member 0 checkpoints every that
 many steps (and on SIGTERM), and a second run with the same ``--ckpt-dir``
-resumes from the newest one, on this mesh or another.
+resumes from the newest one, on this mesh or another.  A ``--mesh`` with
+a model axis above 1 splits dense and MoE layers over it (tensor
+parallelism), and ``--mode gspmd`` runs the FSDP x TP step (dense models);
+RWKV6 and Mamba under a model axis raise, naming ROADMAP.md.
 
 Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --smoke --mesh 2,2,2,1 --steps 6 --batch 8 --seq 32 \\
         --device cpu --backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --mode gspmd --mesh 2,2,2 --steps 4 --batch 8 --seq 32 \\
+        --device cpu   # FSDP over data x TP over model, 8 ranks
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --mesh 2,1,1 --codec int8 --steps 3 --batch 4 --seq 2048 \\
         --backend gloo   # two ranks sharing one card

@@ -17,12 +17,20 @@ and ``tri`` (the static triangular decomposition of causal attention)
 is the JAX package's, in plain PyTorch.
 
 The MoE layer (``apply_moe``) is the JAX package's capacity-based
-gather/scatter dispatch, run on one device: its expert products are plain
-batched matmuls, and a planned dispatch schedule is executed as the same
-slice/concat walk, with no collective.  Where the reference scatter-adds
-the experts' outputs back to their tokens, the port gathers each token's
-k slots and sums them in one reduction over k, so that the layer and its
-backward repeat bit for bit on the card.
+gather/scatter dispatch: its expert products are plain batched matmuls,
+and a planned dispatch schedule is executed as the same slice/concat
+walk, with no collective.  Where the reference scatter-adds the experts'
+outputs back to their tokens, the port gathers each token's k slots and
+sums them in one reduction over k, so that the layer and its backward
+repeat bit for bit on the card.  Under a model axis the experts split
+over it (``dispatch_spec``): every member routes its tokens alike, runs
+its own experts' slabs, and the members' combined outputs are summed.
+
+Tensor parallelism.  The functions here take this member's blocks of the
+leaves; where a caller splits heads, d_ff, experts or the vocab over a
+mesh axis it names that axis, and the collectives of ``core.prims`` that
+carry gradients (``to_parallel``, ``psum_replicated``) go where GSPMD
+puts them for the JAX package.
 
 Products of mixed float dtypes (``mm``, ``einsum``) promote as jnp does:
 with bf16 parameters and an fp32 compute dtype, the bf16 weight is cast
@@ -37,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prims
 
 Params = Dict[str, Any]
 
@@ -73,6 +82,21 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
 def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return w.mul_(0.02).to(dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 vocab_axis: Optional[str] = None) -> torch.Tensor:
+    """``table[tokens]``; with ``vocab_axis`` the table is this member's
+    rows of the vocab, the lookup reads only those (the others give
+    zeros, and their gradient is zero) and the members' rows are summed:
+    every token's row comes from the one member that holds it."""
+    if vocab_axis is None or prims.axis_size(vocab_axis) == 1:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - prims.axis_rank(vocab_axis) * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], table[local.clamp(0, n - 1)], 0.0)
+    return prims.psum_replicated(rows, vocab_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +386,15 @@ def apply_mlp(arch: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return mm(h, p["wo"])
 
 
+def apply_mlp_tp(arch: ArchConfig, p: Params, x: torch.Tensor,
+                 ff_axis: Optional[str]) -> torch.Tensor:
+    """:func:`apply_mlp` on this member's d_ff columns of ``wi``/``wg``
+    and rows of ``wo`` (column- then row-parallel), the members' outputs
+    summed over ``ff_axis``; with no axis, the whole MLP."""
+    return prims.psum_replicated(
+        apply_mlp(arch, p, prims.to_parallel(x, ff_axis)), ff_axis)
+
+
 # ---------------------------------------------------------------------------
 # MoE (capacity-based gather/scatter dispatch)
 # ---------------------------------------------------------------------------
@@ -479,15 +512,26 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
-              dispatch_spec=None, dispatch_schedule=None
+              dispatch_spec=None, dispatch_schedule=None,
+              shared_axis: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_load_balance_loss).  x: (B, S, d).
 
     ``groups`` > 1 splits the tokens into independent dispatch groups
     (routing, cumsum and capacity per group; the aux loss is the mean of
     the groups'), run as one batched group dim where the JAX package
-    vmaps.  ``dispatch_spec`` (a GSPMD sharding hint there) is not ported
-    and must be None.
+    vmaps.
+
+    ``dispatch_spec``: (dp, tp), the JAX package's placement of the
+    dispatched (G, E, C, d) buffers: groups over ``dp``, experts over
+    ``tp``.  Here each DP member already holds its own rows, so ``dp``
+    is where they lie; ``tp`` names the mesh axis the experts split over:
+    ``we_in``/``we_gate``/``we_out`` are then this member's ``E / n``
+    experts (``n`` members of ``tp``), the tokens route alike on every
+    member (the router stays replicated and fp32), each member runs its
+    experts' slabs only, and the members' outputs are summed.  Without a
+    ``tp`` the leaves must hold every expert.  ``shared_axis`` names the
+    axis that splits the shared experts' d_ff (as a dense MLP's), if any.
 
     ``dispatch_schedule``: the planner's ``kind="all_to_all"`` schedule for
     this layer's dispatch (:func:`moe_dispatch_schedule`).  It is executed:
@@ -497,11 +541,18 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     the capacity ``C_exec``, at which the layer dispatches.  A schedule
     whose payload does not match the dispatch buffer actually built
     (capacity drift) raises."""
-    if dispatch_spec is not None:
-        raise NotImplementedError(
-            "dispatch_spec (a GSPMD sharding hint for the dispatch buffers) "
-            "is not ported: ROADMAP.md queue 1")
     moe = arch.moe
+    expert_axis = dispatch_spec[1] if dispatch_spec is not None else None
+    n_ex = prims.axis_size(expert_axis) if expert_axis is not None else 1
+    El = p["we_in"].shape[-3]
+    if El * n_ex != moe.num_experts:
+        raise ValueError(
+            f"{El} experts on each of {n_ex} member(s) of "
+            f"{expert_axis or 'no axis'}: the layer has {moe.num_experts}")
+    if n_ex > 1 and dispatch_schedule is not None:
+        raise NotImplementedError(
+            "a planned dispatch schedule with the experts split over a model "
+            "axis is not ported yet (ROADMAP.md queue 1, item 8)")
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -547,10 +598,11 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
                     f"members={n}) — rebuild with moe_dispatch_schedule()")
     y, aux = _moe_dispatch(arch, p, xt.reshape(G, T // G, d),
                            capacity=sched_capacity,
-                           dispatch_schedule=dispatch_schedule)
+                           dispatch_schedule=dispatch_schedule,
+                           expert_axis=expert_axis if n_ex > 1 else None)
     y = y.reshape(T, d)
-    if moe.num_shared_experts:
-        y = y + apply_mlp(arch, p["shared"], xt)  # d_ff read from the leaves
+    if moe.num_shared_experts:  # d_ff read from the leaves
+        y = y + apply_mlp_tp(arch, p["shared"], xt, shared_axis)
     return y.reshape(B, S, d), aux.mean()
 
 
@@ -600,7 +652,8 @@ def _slab_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
 
 
 def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
-                  capacity: Optional[int] = None, dispatch_schedule=None
+                  capacity: Optional[int] = None, dispatch_schedule=None,
+                  expert_axis: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k dispatch on grouped (G, Tl, d) token slabs;
     returns (y (G, Tl, d), aux (G,)).
@@ -621,10 +674,21 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
 
     ``capacity`` overrides :func:`moe_capacity` with a planned ``C_exec``;
     ``dispatch_schedule`` routes each group's buffer through the planned
-    chunk walk (:func:`_execute_dispatch`)."""
+    chunk walk (:func:`_execute_dispatch`).
+
+    With ``expert_axis`` this member holds experts ``[e0, e0 + El)`` of
+    the ``E``: routing, positions and capacity are the whole layer's, the
+    gather builds the (G, El, C, d) slabs of those experts only, a slot
+    of another member's expert reads nothing here, and the members'
+    outputs are summed over the axis.  The tokens and the gates enter the
+    experts' part through ``to_parallel``, so their gradients are the sum
+    of every member's experts'; the router and the aux loss, computed
+    alike on every member, are not summed."""
     moe = arch.moe
     G, Tl, d = xg.shape
     E, k = moe.num_experts, moe.top_k
+    El = p["we_in"].shape[0]
+    e0 = prims.axis_rank(expert_axis) * El if expert_axis is not None else 0
     dev = xg.device
 
     logits = xg.float() @ p["router"]  # (G, Tl, E)
@@ -641,21 +705,22 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
         else moe_capacity(Tl, k, E, moe.capacity_factor)
 
     flat_e = topk_idx.reshape(G, Tl * k)
-    flat_g = gate_vals.reshape(G, Tl * k)
+    flat_g = prims.to_parallel(gate_vals.reshape(G, Tl * k), expert_axis)
     tok_id = torch.arange(Tl, device=dev).repeat_interleave(k).expand(G, -1)
     pos = _slab_positions(flat_e, E)  # (G, Tl*k)
     if DROP_LOG is not None:
         DROP_LOG.append((pos >= C).sum(dim=1))
 
-    # per-group token ids and (token, k) pair ids into (G, E, C); an
-    # overflowing slot (pos >= C) goes to a dump column E*C that is cut off
-    kept = pos < C  # (G, Tl*k)
-    slot = torch.where(kept, flat_e * C + pos, E * C)
-    dis = torch.full((G, E * C + 1), Tl, dtype=torch.long, device=dev)
-    dis = dis.scatter_(1, slot, tok_id)[:, :E * C].reshape(G, E, C)
+    # per-group token ids and (token, k) pair ids into (G, El, C) of this
+    # member's experts; an overflowing slot (pos >= C), or one of another
+    # member's expert, goes to a dump column El*C that is cut off
+    kept = (pos < C) & (flat_e >= e0) & (flat_e < e0 + El)  # (G, Tl*k)
+    slot = torch.where(kept, (flat_e - e0) * C + pos, El * C)
+    dis = torch.full((G, El * C + 1), Tl, dtype=torch.long, device=dev)
+    dis = dis.scatter_(1, slot, tok_id)[:, :El * C].reshape(G, El, C)
     g_off = torch.arange(G, device=dev)[:, None]
-    # each pair's slot in the flat (G*E*C, d) buffer: slot 0 when dropped
-    pair_slot = torch.where(kept, slot, 0) + g_off * (E * C)  # (G, Tl*k)
+    # each pair's slot in the flat (G*El*C, d) buffer: slot 0 when dropped
+    pair_slot = torch.where(kept, slot, 0) + g_off * (El * C)  # (G, Tl*k)
 
     def token_slots():  # each token's k slots; the sentinel row reads none
         pad = (0, 0, 0, 1)
@@ -664,17 +729,18 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
 
     def slot_pairs():  # each slot's one pair (none for an empty slot)
         pair_id = torch.arange(Tl * k, device=dev) + g_off * (Tl * k)
-        inv = torch.zeros((G, E * C + 1), dtype=torch.long, device=dev)
-        filled = torch.zeros((G, E * C + 1), dtype=torch.bool, device=dev)
-        return (inv.scatter_(1, slot, pair_id)[:, :E * C].reshape(-1, 1),
-                filled.scatter_(1, slot, kept)[:, :E * C].reshape(-1, 1))
+        inv = torch.zeros((G, El * C + 1), dtype=torch.long, device=dev)
+        filled = torch.zeros((G, El * C + 1), dtype=torch.bool, device=dev)
+        return (inv.scatter_(1, slot, pair_id)[:, :El * C].reshape(-1, 1),
+                filled.scatter_(1, slot, kept)[:, :El * C].reshape(-1, 1))
 
     # group-global flat gather, the sentinel row Tl of each group zero; a
     # token row's gradient is the sum of its kept slots', the sentinel's 0
-    x_pad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
+    xp = prims.to_parallel(xg, expert_axis)
+    x_pad = torch.cat([xp, xp.new_zeros(G, 1, d)], dim=1)
     xf = x_pad.reshape(G * (Tl + 1), d)
     gidx = dis + (torch.arange(G, device=dev) * (Tl + 1))[:, None, None]
-    xe = _GatherRows.apply(xf, gidx.reshape(-1), token_slots).reshape(G, E, C, d)
+    xe = _GatherRows.apply(xf, gidx.reshape(-1), token_slots).reshape(G, El, C, d)
     if dispatch_schedule is not None:
         # the planned walk runs on each group's buffer, as under JAX's vmap
         xe = torch.cat([_execute_dispatch(dispatch_schedule, xe[g:g + 1])
@@ -683,14 +749,15 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     h = _act(arch.activation, einsum("gecd,edf->gecf", xe, p["we_in"]))
     if arch.glu:
         h = h * einsum("gecd,edf->gecf", xe, p["we_gate"])
-    ye = einsum("gecf,efd->gecd", h, p["we_out"])  # (G, E, C, d)
+    ye = einsum("gecf,efd->gecd", h, p["we_out"])  # (G, El, C, d)
 
     # combine: each token's k slot outputs, gated, summed over k in one
     # reduction; a slot's gradient is its one pair's (0 for an empty slot)
-    rows = _GatherRows.apply(ye.reshape(G * E * C, d), pair_slot.reshape(-1),
+    rows = _GatherRows.apply(ye.reshape(G * El * C, d), pair_slot.reshape(-1),
                              slot_pairs)
     gate = torch.where(kept, flat_g, 0.0).to(ye.dtype)
-    return rows.reshape(G, Tl, k, d).mul(gate.reshape(G, Tl, k, 1)).sum(dim=2), aux
+    y = rows.reshape(G, Tl, k, d).mul(gate.reshape(G, Tl, k, 1)).sum(dim=2)
+    return prims.psum_replicated(y, expert_axis), aux
 
 
 class _GatherRows(torch.autograd.Function):

@@ -6,12 +6,20 @@
 read as ``.`` (``blocks/l0/attn/wq`` is ``blocks.l0.attn.wq``), and with
 the JAX shapes, so ``convert.load_jax_params`` can load a JAX tree leaf by
 leaf.  The layer code works on the nested dict that ``params()`` returns.
+
+Under a model axis (tensor parallelism) or an FSDP axis, :meth:`Model.shard`
+keeps this member's block of every leaf, as its spec gives it, and records
+the :class:`Layout`; the layers then run on the blocks with the
+collectives GSPMD would put in for the JAX package.  ``param_shapes`` and
+``param_specs`` stay the global tree's, as ``jax.eval_shape`` gives them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,7 +31,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ModelSettings
 from repro_torch.utils.trees import tree_from_paths, tree_paths
 
-__all__ = ["ModelSettings", "build_model", "Model", "count_params",
+__all__ = ["ModelSettings", "build_model", "Model", "Layout", "count_params",
            "count_active_params", "resolve_device", "numpy_dtype_name"]
 
 
@@ -45,6 +53,40 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@dataclass(frozen=True)
+class Layout:
+    """How one member holds the parameters: ``specs`` ({path: spec}), the
+    mesh ``sizes`` and this member's ``coords``; ``tp`` and ``fsdp`` name
+    the model and FSDP axes (None when absent); ``loss_axes`` are the DP
+    axes over which the loss is one mean over the whole batch (the GSPMD
+    step's; the DFabric step averages the members' means instead)."""
+
+    specs: Dict[str, Tuple]
+    sizes: Dict[str, int]
+    coords: Dict[str, int]
+    tp: Optional[str] = None
+    fsdp: Optional[str] = None
+    loss_axes: Tuple[str, ...] = ()
+
+    @functools.cached_property
+    def tree(self) -> Dict[str, Any]:
+        """The specs as a tree, an axis of one member read as None (what
+        the layers read: such a dim is whole)."""
+        return tree_from_paths({
+            k: tuple(e if any(self.split(a) for a in sharding.entry_axes(e))
+                     else None for e in sp)
+            for k, sp in self.specs.items()})
+
+    def split(self, axis: Optional[str]) -> bool:
+        return axis is not None and self.sizes.get(axis, 1) > 1
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any leaf is split over a member axis."""
+        return any(self.split(a) for sp in self.specs.values()
+                   for a in sharding.spec_axes(sp))
+
+
 class Model(nn.Module):
     def __init__(self, arch: ArchConfig, settings: ModelSettings,
                  device: torch.device, seed: int = 0):
@@ -63,10 +105,39 @@ class Model(nn.Module):
                     node.add_module(part, nn.Module())
                 node = node._modules[part]
             node.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+        self.layout: Optional[Layout] = None
+        self._global_shapes: Optional[Dict[str, Any]] = None
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def shard(self, mi: sharding.MeshInfo, sizes: Dict[str, int],
+              coords: Dict[str, int], loss_axes: Tuple[str, ...] = ()
+              ) -> Layout:
+        """Keep this member's block of every leaf under ``mi``'s specs on
+        a mesh of ``sizes`` (this member at ``coords``), in place; the
+        blocks are contiguous copies, so the global leaves are freed.  A
+        model is cut once: a second call with another layout raises
+        unless neither layout splits a leaf."""
+        specs = tree_paths(self.param_specs(mi))
+        layout = Layout(specs, dict(sizes), dict(coords), tp=mi.tp,
+                        fsdp=mi.fsdp, loss_axes=tuple(loss_axes))
+        if self.layout is not None and self.layout != layout:
+            if self.layout.sharded or layout.sharded:
+                raise ValueError(f"the model is already cut for {self.layout}; "
+                                 f"build a new one for {layout}")
+            self.layout = layout  # whole leaves either way
+            return layout
+        shapes = self.param_shapes()
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                spec = specs[name.replace(".", "/")]
+                blk = sharding.local_block(p.data, spec, coords, sizes)
+                if tuple(blk.shape) != tuple(p.shape):
+                    p.data = blk.contiguous().clone()
+        self._global_shapes, self.layout = shapes, layout
+        return layout
 
     def params(self) -> Dict[str, Any]:
         """The parameters as the JAX package's nested dict tree."""
@@ -75,7 +146,10 @@ class Model(nn.Module):
 
     def param_shapes(self) -> Dict[str, Any]:
         """The tree of :class:`ShapeDtype` records (shape, numpy dtype
-        name) — the port of ``jax.eval_shape`` over ``init``."""
+        name) — the port of ``jax.eval_shape`` over ``init``: the global
+        shapes, also once the model holds blocks."""
+        if self._global_shapes is not None:
+            return self._global_shapes
         return tree_from_paths({
             n.replace(".", "/"): ShapeDtype(tuple(p.shape),
                                             numpy_dtype_name(p.dtype))
@@ -91,14 +165,23 @@ class Model(nn.Module):
         """Mean next-token loss of ``batch`` ({'tokens', 'labels'}: (B, S)
         integer) under ``params`` (a tree like ``params()``); differentiable
         in ``params``."""
-        return T.train_loss(self.arch, params, batch, self.settings)
+        return T.train_loss(self.arch, params, batch, self.settings,
+                            self.layout)
+
+    def _whole(self, what: str) -> None:
+        if self.layout is not None and self.layout.sharded:
+            raise NotImplementedError(
+                f"{what} over a model or FSDP axis is not ported yet: the "
+                f"DecodeServer over a model axis (ROADMAP.md queue 1, item 8)")
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
+        self._whole("prefill")
         return T.prefill(self.arch, self.params(), tokens, self.settings)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, pos: int):
+        self._whole("decode")
         return T.decode_step(self.arch, self.params(), cache, tokens, pos,
                              self.settings)
 
@@ -118,7 +201,10 @@ def build_model(arch: ArchConfig, settings: Optional[ModelSettings] = None, *,
 
 
 def count_params(model: Model) -> int:
-    return sum(p.numel() for p in model.parameters())
+    """Parameters of the global tree (a member holding blocks counts them
+    all)."""
+    return sum(math.prod(leaf.shape)
+               for leaf in tree_paths(model.param_shapes()).values())
 
 
 def count_active_params(model: Model) -> int:

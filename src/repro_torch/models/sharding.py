@@ -3,19 +3,22 @@ RWKV6) — ``MeshInfo`` and ``param_specs`` of ``repro.models.sharding``,
 copied (the encoder-decoder's cross attention is not ported).
 
 A spec is a tuple with one entry per dim: an axis name, or None where the
-dim is not sharded (the JAX package's ``PartitionSpec``).  The port runs DP
-only (``model`` of size 1), where no leaf is split; the planner still reads
-which dims the rules give to the TP axis, and keeps its scatter off them,
-so both packages plan alike.  Rules are name+shape driven and
-divisibility-guarded.
+dim is not sharded (the JAX package's ``PartitionSpec``); the sync state's
+specs may also name a tuple of axes, major first.  Rules are name+shape
+driven and divisibility-guarded, so a rule may leave a leaf replicated
+where its dim does not split.  Under a model axis (tensor parallelism) or
+an FSDP axis each member holds the block of every leaf that its spec gives
+it (:func:`local_block`); :func:`assemble` puts the global array back
+together from the blocks, as ``jax.device_get`` does.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import ArchConfig
 
-Spec = Tuple[Optional[str], ...]
+Spec = Tuple[Any, ...]
 
 
 def _div(n: int, size: Optional[int]) -> bool:
@@ -154,3 +157,106 @@ def param_specs(arch: ArchConfig, shapes: Dict[str, Tuple[int, ...]],
     """{path: spec} for a flat {path: shape} tree."""
     return {path: _spec_for_leaf(arch, path, tuple(shape), mi)
             for path, shape in shapes.items()}
+
+
+def batch_specs(arch: ArchConfig, mi: MeshInfo) -> Dict[str, Spec]:
+    """The batch's rows over the DP axes (a tuple of them, slowest major,
+    when there are several), the rest replicated."""
+    dp = (mi.dp_axes if len(mi.dp_axes) > 1
+          else (mi.dp_axes[0] if mi.dp_axes else None))
+    if arch.is_encdec:
+        raise NotImplementedError("the encoder-decoder's batch (frames) is not "
+                                  "ported yet (ROADMAP.md queue 1, item 9)")
+    return {"tokens": (dp, None), "labels": (dp, None)}
+
+
+# ---------------------------------------------------------------------------
+# blocks of a global array
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axes one spec entry names, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis a spec names."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """The block of a global ``shape`` that one member holds under
+    ``spec`` (axes absent from ``sizes`` count as size 1)."""
+    out = []
+    for d, n in enumerate(shape):
+        parts = math.prod(sizes.get(a, 1) for a in
+                          entry_axes(spec[d] if d < len(spec) else None))
+        if n % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"under {spec} on {sizes}")
+        out.append(n // parts)
+    return tuple(out)
+
+
+def _block_index(entry, coords: Dict[str, int], sizes: Dict[str, int]) -> int:
+    idx = 0
+    for a in entry_axes(entry):  # major first
+        idx = idx * sizes.get(a, 1) + coords.get(a, 0)
+    return idx
+
+
+def block_coords(spec: Spec, coords: Dict[str, int],
+                 sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """Which block of the global array the member at ``coords`` holds
+    under ``spec``: its index along each dim.  Two members with the same
+    block coords hold the same block."""
+    return tuple(_block_index(e, coords, sizes) for e in spec)
+
+
+def local_block(x, spec: Spec, coords: Dict[str, int],
+                sizes: Dict[str, int]):
+    """The member at ``coords``'s block of a global array ``x`` (numpy or
+    torch; a view) under ``spec``."""
+    for d, entry in enumerate(spec):
+        parts = math.prod(sizes.get(a, 1) for a in entry_axes(entry))
+        if parts > 1:
+            blk = x.shape[d] // parts
+            i = _block_index(entry, coords, sizes)
+            x = x[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
+    return x
+
+
+def assemble(blocks: Dict[Tuple, Any], spec: Spec, shape: Sequence[int],
+             sizes: Dict[str, int], concat: Callable):
+    """The global array from every member's block: ``blocks`` maps a
+    member's coords (a tuple of (axis, index) pairs) to its block;
+    ``concat(parts, dim)`` joins numpy arrays or tensors.  Where several
+    members hold the same block (a dim replicated over an axis), the block
+    of the first of them in mesh order (slowest axis major, the order of
+    ``sizes``) is taken: the copy ``jax.device_get`` returns, that of the
+    device with ``replica_id`` 0.  It matters for a state that differs
+    across an axis its spec does not name: the int8 error feedback of the
+    pod members (ROADMAP.md queue 3)."""
+    def mesh_order(item):
+        coords = dict(item[0])
+        return tuple(coords.get(a, 0) for a in sizes)
+
+    by_index: Dict[Tuple[int, ...], Any] = {}
+    for key, blk in sorted(blocks.items(), key=mesh_order):
+        coords = dict(key)
+        by_index.setdefault(tuple(_block_index(e, coords, sizes)
+                                  for e in spec), blk)
+
+    def build(prefix: Tuple[int, ...]):
+        d = len(prefix)
+        if d == len(spec):
+            return by_index[prefix]
+        parts = math.prod(sizes.get(a, 1) for a in entry_axes(spec[d]))
+        pieces = [build(prefix + (i,)) for i in range(parts)]
+        return pieces[0] if parts == 1 else concat(pieces, d)
+
+    return build(())

@@ -13,6 +13,15 @@ layer whose id ``layer_is_moe`` names has ``moe`` (an fp32 router, the
 experts and the shared experts) in place of ``mlp``.  The encoder-decoder
 family and learned or sinusoidal positions are not ported yet and raise.
 
+Training under a model axis (tensor parallelism; dense and MoE layers) and
+an FSDP axis (the GSPMD step) runs on each member's blocks of the leaves
+(``registry.Layout``): the code reads each leaf's spec, never assumes a
+split, and puts in the collectives GSPMD puts in for the JAX package —
+local heads with a row-parallel ``wo`` then a sum, column- then
+row-parallel MLPs, the vocab-sharded embedding and loss, experts split
+over the axis, and each layer's FSDP blocks gathered on use (again in the
+recompute) with their gradients reduce-scattered back.
+
 Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
 meet an fp32 compute dtype, promoted as jnp promotes them.  fp32
 parameters with a bf16 compute dtype have no reference (the JAX forward
@@ -39,6 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prims
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
@@ -63,6 +73,12 @@ class ModelSettings:
     loss_chunk: int = 2048
     # MoE dispatch token groups: routing, cumsum and capacity per group
     moe_groups: int = 1
+    # the JAX package's sequence-parallel settings (the residual stream's
+    # sequence over ``seq_axis``, its batch over ``batch_axes``, kv heads
+    # repeated per query head): not ported yet, they raise when set
+    seq_axis: Optional[str] = None
+    batch_axes: Optional[Tuple[str, ...]] = None
+    gqa_repeat: bool = False
 
     def pdt(self) -> torch.dtype:
         return _dtype(self.param_dtype)
@@ -80,6 +96,10 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port does not run yet."""
+    if st.seq_axis is not None or st.batch_axes is not None or st.gqa_repeat:
+        raise NotImplementedError(
+            "the sequence-parallel settings (seq_axis, batch_axes, "
+            "gqa_repeat) are not ported yet (ROADMAP.md queue 1, item 8)")
     if arch.is_encdec or arch.positional not in ("rope", "none"):
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: the port runs "
@@ -179,14 +199,51 @@ def init_params(arch: ArchConfig, gen: torch.Generator, st: ModelSettings,
 # ---------------------------------------------------------------------------
 
 
+def _axis(specs: Optional[Params], *path) -> Optional[str]:
+    """The mesh axis ``specs`` gives dim ``path[-1]`` of the leaf at
+    ``path[:-1]`` (None without specs, or where the dim is whole)."""
+    if specs is None:
+        return None
+    node = specs
+    for key in path[:-1]:
+        node = node[key]
+    return node[path[-1]]
+
+
+def _attention_tp(arch: ArchConfig, p: Params, h: torch.Tensor, positions,
+                  st: ModelSettings, heads: str, kv: Optional[str]):
+    """Attention on this member's heads: ``wq``/``bq`` and, where their
+    spec splits them, ``wk``/``wv``/``bk``/``bv`` are local; the
+    replicated ``q_norm``/``k_norm`` (and k, v when whole) enter through
+    ``to_parallel``, so their gradients sum the members' heads.  Each
+    local query head attends its own kv head; ``wo`` is row-parallel and
+    the members' outputs are summed."""
+    pa = dict(p)
+    names = ("q_norm", "k_norm") + (() if kv else ("wk", "wv", "bk", "bv"))
+    for name in names:
+        if name in pa:
+            pa[name] = prims.to_parallel(pa[name], heads)
+    q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads), positions)
+    if kv is None:  # whole kv heads: each local query head takes its own
+        Hl, G = q.shape[2], arch.n_heads // arch.n_kv_heads
+        idx = (prims.axis_rank(heads) * Hl
+               + torch.arange(Hl, device=q.device)) // G
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    o = L.attend(q, k, v, causal=True, impl=st.attn_impl, block=st.attn_block,
+                 q_chunk=st.attn_chunk, kv_chunk=st.attn_chunk)
+    return prims.psum_replicated(L.attention_out(pa, o), heads)
+
+
 def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  st: ModelSettings, layer_id: int,
-                 cache: Optional[Params] = None, pos: Optional[int] = None
+                 cache: Optional[Params] = None, pos: Optional[int] = None,
+                 specs: Optional[Params] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
     or the new recurrent states, are written into ``cache`` in place).
     Returns (x, its MoE aux loss or None, the layer's cache), as the
-    reference's ``_apply_layer`` does."""
+    reference's ``_apply_layer`` does.  ``specs`` (training only): the
+    layer's leaf specs, by which its leaves are this member's blocks."""
     kind = layer_kind(arch, layer_id)
     if kind == "rwkv":
         x, cache = _apply_rwkv_layer(arch, p, x, st, cache)
@@ -202,6 +259,11 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         else:
             cache["conv"].copy_(conv)
             cache["ssm"].copy_(ssm)
+    elif _axis(specs, "attn", "wq", 1) is not None:
+        out = _attention_tp(arch, p["attn"], h, positions, st,
+                            _axis(specs, "attn", "wq", 1),
+                            _axis(specs, "attn", "wk", 1))
+        cache = None
     else:
         q, k, v = L.attention_qkv(arch, p["attn"], h, positions)
         if cache is None:
@@ -220,10 +282,15 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
     h = L.apply_norm(arch, p["ln2"], x)
     aux = None
     if "moe" in p:
-        out, aux = L.apply_moe(arch, p["moe"], h, groups=st.moe_groups)
+        experts = _axis(specs, "moe", "we_in", 0)
+        shared = (_axis(specs, "moe", "shared", "wi", 1)
+                  if "shared" in p["moe"] else None)
+        out, aux = L.apply_moe(arch, p["moe"], h, groups=st.moe_groups,
+                               dispatch_spec=(None, experts) if experts
+                               else None, shared_axis=shared)
         x = x + out
     else:
-        x = x + L.apply_mlp(arch, p["mlp"], h)
+        x = x + L.apply_mlp_tp(arch, p["mlp"], h, _axis(specs, "mlp", "wi", 1))
     return x, aux, cache
 
 
@@ -293,13 +360,15 @@ def check_trainable(arch: ArchConfig, st: ModelSettings,
                     model_axis: int = 1) -> None:
     """Raise for what the port cannot train yet: what it cannot run
     (``check_supported``: the encoder-decoder family, learned or sinusoidal
-    positions, fp32 parameters with a bf16 compute dtype), a model axis
-    above 1, or an unknown remat policy."""
+    positions, fp32 parameters with a bf16 compute dtype), RWKV6 or Mamba
+    layers under a model axis above 1, or an unknown remat policy."""
     check_supported(arch, st)
-    if model_axis > 1:
+    if model_axis > 1 and (arch.attn_free or arch.is_hybrid):
         raise NotImplementedError(
-            f"training with a model axis of {model_axis} (tensor "
-            f"parallelism) is not ported yet (ROADMAP.md queue 1, item 8)")
+            f"training {arch.name} ({arch.family}: RWKV6 or Mamba layers) with "
+            f"a model axis of {model_axis} (tensor parallelism) is not ported "
+            f"yet: the port splits dense and MoE layers only (ROADMAP.md "
+            f"queue 1, item 8)")
     if st.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {st.remat!r} (none | full | dots)")
 
@@ -330,32 +399,79 @@ def _remat(st: ModelSettings, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def _gather_fsdp(p: Params, specs: Optional[Params],
+                 fsdp: Optional[str]) -> Params:
+    """Every leaf of ``p`` with the dims its spec gives the FSDP axis
+    gathered (``prims.gather_on_use``: the backward reduce-scatters the
+    gradient back onto the blocks); the dims of other axes stay local."""
+    if fsdp is None or specs is None:
+        return p
+    if isinstance(p, dict):
+        return {k: _gather_fsdp(v, specs[k], fsdp) for k, v in p.items()}
+    for d, entry in enumerate(specs):
+        if entry == fsdp:
+            p = prims.gather_on_use(p, fsdp, d)
+    return p
+
+
+def _layer_specs(layout, off: int) -> Optional[Params]:
+    """The specs of within-group offset ``off``'s leaves with the stacked
+    group dim dropped (those of one layer), or None without a layout."""
+    if layout is None:
+        return None
+    return _tree_map(lambda sp: tuple(sp[1:]), layout.tree["blocks"][f"l{off}"])
+
+
+def _head(arch: ArchConfig, params: Params, layout) -> Tuple[torch.Tensor, Optional[str]]:
+    """The (d, vocab) output head (this member's vocab columns under a
+    vocab-sharded layout, its FSDP blocks gathered) and the axis that
+    splits its vocab, or None."""
+    name = "embed" if arch.tie_embeddings else "lm_head"
+    head = params[name]
+    spec = layout.tree[name] if layout is not None else None
+    head = _gather_fsdp(head, spec, layout.fsdp if layout is not None else None)
+    head = head.T if arch.tie_embeddings else head
+    vocab = None if spec is None else (spec[0] if arch.tie_embeddings else spec[1])
+    return head, vocab
+
+
 def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-                  st: ModelSettings) -> Tuple[torch.Tensor, torch.Tensor]:
+                  st: ModelSettings, layout=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-mode forward: (the final-normed hidden states (B, S, d), the
     sum of the MoE layers' aux losses, fp32), each layer recomputed in the
     backward as ``st.remat`` says (the JAX package checkpoints each
-    scanned group)."""
-    check_trainable(arch, st)
+    scanned group).  With a ``layout`` the leaves are this member's
+    blocks; each layer's FSDP blocks are gathered inside the recomputed
+    function, so that a remat gathers them again in the backward."""
+    check_trainable(arch, st, model_axis=(layout.sizes.get(layout.tp, 1)
+                                          if layout is not None and layout.tp
+                                          else 1))
     B, Sq = tokens.shape
-    x = params["embed"][tokens].to(st.cdt())
+    fsdp = layout.fsdp if layout is not None else None
+    espec = layout.tree["embed"] if layout is not None else None
+    x = L.embed_lookup(_gather_fsdp(params["embed"], espec, fsdp), tokens,
+                       espec[0] if espec is not None else None).to(st.cdt())
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     g = group_size(arch)
     # one unbind per stacked leaf: its backward stacks the layers' grads once
     layers = [_tree_map(lambda a: a.unbind(0), params["blocks"][f"l{off}"])
               for off in range(g)]
+    specs = [_layer_specs(layout, off) for off in range(g)]
     for gi in range(n_groups(arch)):
         for off in range(g):
             lp = _tree_map(lambda a: a[gi], layers[off])
 
             def layer(x_, lp=lp, off=off):  # (x, aux): the cache is dropped
-                return _apply_layer(arch, lp, x_, positions, st, off)[:2]
+                lp_ = _gather_fsdp(lp, specs[off], fsdp)
+                return _apply_layer(arch, lp_, x_, positions, st, off,
+                                    specs=specs[off])[:2]
 
             x, a = _remat(st, layer, x)
             if a is not None:
                 aux = aux + a
-    return L.apply_norm(arch, params["final_norm"], x), aux
+    return L.apply_norm(arch, params["final_norm"], x), aux  # never split
 
 
 def _ce_chunk(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):
@@ -366,30 +482,60 @@ def _ce_chunk(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
+def _ce_chunk_vocab(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor,
+                    axis: str):
+    """:func:`_ce_chunk` with ``head`` this member's vocab columns: the
+    max, the sum of exponentials and the target logit (which lies on one
+    member; the others mask it) are taken over the members, so that no
+    member holds the whole (B, c, vocab) logits."""
+    logits = (prims.to_parallel(hc, axis) @ head.to(hc.dtype)).float()
+    Vl = logits.shape[-1]
+    m = prims.pmax(logits.detach().amax(dim=-1), axis)
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(prims.psum_replicated(se, axis))
+    local = yc - prims.axis_rank(axis) * Vl
+    inside = (local >= 0) & (local < Vl)
+    gold = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = prims.psum_replicated(torch.where(inside, gold, 0.0), axis)
+    valid = (yc >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
 def ce_loss_chunked(arch: ArchConfig, params: Params, hidden: torch.Tensor,
-                    labels: torch.Tensor, st: ModelSettings) -> torch.Tensor:
+                    labels: torch.Tensor, st: ModelSettings,
+                    layout=None) -> torch.Tensor:
     """Mean token cross-entropy, chunked over the sequence so the
     (B, S, V) logits never materialize: each chunk's logits are recomputed
-    in the backward (``jax.checkpoint`` in the JAX package)."""
+    in the backward (``jax.checkpoint`` in the JAX package).  Under a
+    vocab-sharded layout each member computes its vocab columns' logits
+    (:func:`_ce_chunk_vocab`); with ``layout.loss_axes`` the token count
+    is the whole batch's, summed over those axes, so that the members'
+    losses add up to the batch mean."""
     B, Sq, d = hidden.shape
     chunk = min(st.loss_chunk, Sq)
     if Sq % chunk:
         raise ValueError(f"seq {Sq} is not a multiple of loss_chunk {chunk}")
-    head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
+    head, vocab = _head(arch, params, layout)
+    vocab = vocab if vocab is not None and prims.axis_size(vocab) > 1 else None
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, Sq, chunk):
-        t, n = checkpoint(_ce_chunk, hidden[:, c:c + chunk],
-                          labels[:, c:c + chunk], head, use_reentrant=False)
+        args = (hidden[:, c:c + chunk], labels[:, c:c + chunk], head)
+        if vocab is None:
+            t, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            t, n = checkpoint(_ce_chunk_vocab, *args, vocab, use_reentrant=False)
         tot, cnt = tot + t, cnt + n
+    if layout is not None and layout.loss_axes:
+        cnt = prims.psum(cnt, layout.loss_axes)
     return tot / torch.clamp_min(cnt, 1.0)
 
 
 def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
-               st: ModelSettings) -> torch.Tensor:
+               st: ModelSettings, layout=None) -> torch.Tensor:
     """Mean token cross-entropy, plus 0.01 x the MoE aux loss a MoE layer
     (the JAX package's weighting)."""
-    hidden, aux = forward_train(arch, params, batch["tokens"], st)
-    loss = ce_loss_chunked(arch, params, hidden, batch["labels"], st)
+    hidden, aux = forward_train(arch, params, batch["tokens"], st, layout)
+    loss = ce_loss_chunked(arch, params, hidden, batch["labels"], st, layout)
     if arch.moe is not None:
         loss = loss + 0.01 * aux / max(len(arch.moe_layer_ids()), 1)
     return loss

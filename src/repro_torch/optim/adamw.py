@@ -67,9 +67,25 @@ def adamw_leaf(p, g, m, v, step, lr, cfg: AdamWConfig, clip_coef=1.0,
     return new_p, m, v
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = list(tree_paths(tree).values())
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  With ``specs`` ({path: spec}) the
+    leaves are this member's blocks (the GSPMD step's sharded gradients):
+    the squared sums of the leaves split over the same axes are summed
+    over those axes of the bound mesh, so that each block counts once and
+    a replicated leaf is not counted once a member."""
+    flat = tree_paths(tree)
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.float()))
+                              for l in flat.values()))
+    from repro_torch.core import prims
+    from repro_torch.models.sharding import spec_axes
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for path, leaf in flat.items():
+        axes = tuple(sorted(a for a in spec_axes(specs[path])
+                            if prims.axis_size(a) > 1))
+        sq = torch.sum(torch.square(leaf.float()))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    return torch.sqrt(sum(prims.psum(sq, axes) for axes, sq in groups.items()))
 
 
 def clip_coefficient(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:

@@ -20,19 +20,29 @@ Two modes, as in the JAX package:
 
 Optional int8 compression with error feedback runs on the slow tier only.
 
+Tensor parallelism.  With a model axis each model member syncs its own
+blocks of the gradients over its DP groups (the JAX package's nested
+model-manual ``shard_map``): the plan's sections come from the local
+shapes, a section whose leaf the model axis splits is ``model_sharded``,
+and the squared gradient norm of those sections alone is summed over the
+model axis too (a replicated leaf's is the same on every member, and
+counted once).
+
 State layout.  The JAX package holds the sync state as global arrays with
-``PartitionSpec``s (:func:`sync_state_specs`); here each rank holds only
-its local block of each array, the shard its spec assigns to this member.
-:func:`local_block` and :func:`assemble` map between the two (for tests
-and for checkpoints, which hold the global arrays).  Parameters are
-updated in place.
+``PartitionSpec``s (:func:`merged_state_specs`: the DP scatter of
+:func:`sync_state_specs` merged with the parameter's TP spec); here each
+rank holds only its local block of each array, the shard its spec assigns
+to this member.  :func:`local_block` and :func:`assemble` map between the
+two (for tests and for checkpoints, which hold the global arrays).
+Parameters are updated in place.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import prims
@@ -40,6 +50,8 @@ from repro_torch.core.collectives import (dfabric_all_gather,
                                           dfabric_all_reduce,
                                           dfabric_reduce_scatter)
 from repro_torch.core.planner import Section, SyncPlan
+from repro_torch.models.sharding import (assemble, local_block,  # noqa: F401
+                                         local_shape)
 from repro_torch.optim.adamw import AdamWConfig, adamw_leaf, clip_coefficient
 from repro_torch.utils.trees import tree_paths
 
@@ -95,8 +107,7 @@ class SyncSettings:
     slow_axis: Optional[str] = "pod"
     n_fast: int = 1
     n_slow: int = 1
-    # TP-sharded sections' sq-norms psum over this axis (not ported: the
-    # port runs DP only)
+    # model_sharded sections' squared norms are summed over this axis
     model_axis: Optional[str] = None
     fast_axes: Optional[Tuple[str, ...]] = None  # ordered, fastest first
 
@@ -221,82 +232,72 @@ def sync_state_specs(plan: SyncPlan, param_shapes: Dict[str, Any],
     return specs
 
 
-def _entry_axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
+def inner_state_specs(plan: SyncPlan, param_specs_flat: Dict[str, Spec],
+                      param_shapes_flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The sync state's specs over the model axis: a one-leaf section
+    inherits its parameter's TP spec; a bucket holds TP-replicated leaves
+    only."""
+    specs: Dict[str, Any] = {"step": (), "sections": {}}
+    for sec in plan.sections:
+        if len(sec.leaf_paths) == 1:
+            pspec = tuple(param_specs_flat[sec.leaf_paths[0]])
+            nd = len(param_shapes_flat[sec.leaf_paths[0]].shape)
+            sp = pspec + (None,) * (nd - len(pspec))
+        else:
+            sp = (None,)
+        entry = {"m": sp, "v": sp}
+        if init_entry_has_ef(sec):
+            entry["ef"] = sp
+        specs["sections"][sec.name] = entry
+    return specs
 
 
-def local_shape(shape: Sequence[int], spec: Spec,
-                sizes: Dict[str, int]) -> Tuple[int, ...]:
-    """The block of a global ``shape`` that one member holds under
-    ``spec``."""
+def merge_specs(a: Spec, b: Spec, ndim: int) -> Spec:
+    """Entry-wise union of two specs (on disjoint dims; where both name
+    axes, ``a``'s are major)."""
+    ea = tuple(a) + (None,) * (ndim - len(a))
+    eb = tuple(b) + (None,) * (ndim - len(b))
     out = []
-    for d, n in enumerate(shape):
-        parts = math.prod(sizes[a] for a in _entry_axes(spec[d]))
-        assert n % parts == 0, (shape, spec, sizes)
-        out.append(n // parts)
+    for x, y in zip(ea, eb):
+        if x is not None and y is not None:
+            xs = x if isinstance(x, tuple) else (x,)
+            ys = y if isinstance(y, tuple) else (y,)
+            out.append(xs + ys)
+        else:
+            out.append(x if x is not None else y)
     return tuple(out)
 
 
-def _block_index(entry, coords: Dict[str, int], sizes: Dict[str, int]) -> int:
-    idx = 0
-    for a in _entry_axes(entry):  # major first
-        idx = idx * sizes[a] + coords[a]
-    return idx
-
-
-def local_block(x, spec: Spec, coords: Dict[str, int],
-                sizes: Dict[str, int]):
-    """The member at ``coords``'s block of a global array ``x`` (numpy or
-    torch) under ``spec``."""
-    for d, entry in enumerate(spec):
-        parts = math.prod(sizes[a] for a in _entry_axes(entry))
-        if parts > 1:
-            blk = x.shape[d] // parts
-            i = _block_index(entry, coords, sizes)
-            x = x[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
-    return x
-
-
-def assemble(blocks: Dict[Tuple, Any], spec: Spec, shape: Sequence[int],
-             sizes: Dict[str, int], concat: Callable):
-    """The global array from every member's block: ``blocks`` maps a
-    member's coords (a tuple of (axis, index) pairs) to its block;
-    ``concat(parts, dim)`` joins numpy arrays or tensors.  Where several
-    members hold the same block (a dim replicated over an axis), the block
-    of the first of them in mesh order (slowest axis major, the order of
-    ``sizes``) is taken: the copy ``jax.device_get`` returns, that of the
-    device with ``replica_id`` 0.  It matters for a state that differs
-    across an axis its spec does not name: the int8 error feedback of the
-    pod members (ROADMAP.md queue 3)."""
-    def mesh_order(item):
-        coords = dict(item[0])
-        return tuple(coords.get(a, 0) for a in sizes)
-
-    by_index: Dict[Tuple[int, ...], Any] = {}
-    for key, blk in sorted(blocks.items(), key=mesh_order):
-        coords = dict(key)
-        by_index.setdefault(tuple(_block_index(e, coords, sizes)
-                                  for e in spec), blk)
-
-    def build(prefix: Tuple[int, ...]):
-        d = len(prefix)
-        if d == len(spec):
-            return by_index[prefix]
-        parts = math.prod(sizes[a] for a in _entry_axes(spec[d]))
-        pieces = [build(prefix + (i,)) for i in range(parts)]
-        return pieces[0] if parts == 1 else concat(pieces, d)
-
-    return build(())
+def merged_state_specs(plan: SyncPlan, param_shapes: Dict[str, Any],
+                       param_specs_tree, ss: SyncSettings) -> Dict[str, Any]:
+    """The full specs of the sync state's global arrays: the DP scatter
+    (:func:`sync_state_specs`) merged with the parameter's TP spec
+    (:func:`inner_state_specs`).  Every member holds its block under
+    these."""
+    outer = sync_state_specs(plan, param_shapes, ss)
+    shapes = tree_paths(param_shapes)
+    inner = inner_state_specs(plan, tree_paths(param_specs_tree), shapes)
+    merged: Dict[str, Any] = {"step": (), "sections": {}}
+    for sec in plan.sections:
+        o, i = outer["sections"][sec.name], inner["sections"][sec.name]
+        nd = (len(shapes[sec.leaf_paths[0]].shape)
+              if len(sec.leaf_paths) == 1 else 1)
+        merged["sections"][sec.name] = {k: merge_specs(o[k], i[k], nd)
+                                        for k in o}
+    return merged
 
 
 def init_sync_state(plan: SyncPlan, param_shapes: Dict[str, Any],
-                    ss: SyncSettings, device) -> Dict[str, Any]:
+                    ss: SyncSettings, device,
+                    param_specs_tree=None) -> Dict[str, Any]:
     """This member's local block of the optimizer state: moments per
-    Section (+EF when the Section uses a codec), zero."""
+    Section (+EF when the Section uses a codec), zero.  With the
+    parameters' specs the blocks are those of :func:`merged_state_specs`
+    (the model axis splits them too)."""
     flat = tree_paths(param_shapes)
-    specs = sync_state_specs(plan, param_shapes, ss)
+    specs = (sync_state_specs(plan, param_shapes, ss)
+             if param_specs_tree is None else
+             merged_state_specs(plan, param_shapes, param_specs_tree, ss))
     sizes = {a: prims.axis_size(a) for a in prims.current_mesh().axis_names}
     state: Dict[str, Any] = {"step": 0, "sections": {}}
     for sec in plan.sections:
@@ -306,6 +307,69 @@ def init_sync_state(plan: SyncPlan, param_shapes: Dict[str, Any],
                            device=device)
             for k, sp in specs["sections"][sec.name].items()}
     return state
+
+
+def _section_leaves(names, leaf_paths) -> Dict[str, Tuple[str, ...]]:
+    """{section name: its leaves in packing order} for the sections of a
+    plan made on ``leaf_paths`` (the planner's rules: a one-leaf section
+    is named by its path, '/' read as '.'; the other leaves, in path
+    order, fill the buckets ``bucket[<first>...x<count>]`` in turn)."""
+    dotted = {p.replace("/", "."): p for p in leaf_paths}
+    out = {n: (dotted[n],) for n in names if n in dotted}
+    small = [p for p in sorted(leaf_paths) if p.replace("/", ".") not in out]
+    start = {p.replace("/", "."): i for i, p in enumerate(small)}
+    for n in names:
+        if n in out:
+            continue
+        first, sep, count = n.removeprefix("bucket[").removesuffix("]").rpartition("...x")
+        if not n.startswith("bucket[") or not sep or first not in start:
+            raise ValueError(f"the checkpoint's section {n!r} names no leaf "
+                             f"of this model")
+        i = start[first]
+        out[n] = tuple(small[i:i + int(count)])
+    return out
+
+
+def resection_state(saved: Dict[str, Any], plan: SyncPlan,
+                    param_shapes: Dict[str, Any],
+                    ss: SyncSettings) -> Dict[str, Any]:
+    """A checkpoint's sync state (``{section: {m, v[, ef]: global
+    array}}``) written under another plan, cut anew for ``plan``: each
+    entry is split into its leaves (a bucket is their flat concatenation,
+    padded) and the leaves are packed as ``plan``'s sections pack them.
+    AdamW and the error feedback are elementwise, so this moves no value.
+    A section's entry holds the keys that all of its leaves had."""
+    flat = tree_paths(param_shapes)
+    owner = _section_leaves(saved, flat)
+    per_leaf: Dict[str, Dict[str, Any]] = {}
+    for name, leaves in owner.items():
+        off = 0
+        for path in leaves:
+            shape = tuple(flat[path].shape)
+            n = math.prod(shape)
+            per_leaf[path] = {
+                k: (a if len(leaves) == 1 else
+                    a.reshape(-1)[off:off + n]).reshape(shape)
+                for k, a in saved[name].items()}
+            off += n
+    if set(per_leaf) != set(flat):
+        raise ValueError(f"the checkpoint's sync state lacks the leaves "
+                         f"{sorted(set(flat) - set(per_leaf))}")
+    out: Dict[str, Any] = {}
+    for sec in plan.sections:
+        keys = set.intersection(*(set(per_leaf[p]) for p in sec.leaf_paths))
+        if len(sec.leaf_paths) == 1:
+            out[sec.name] = {k: per_leaf[sec.leaf_paths[0]][k] for k in keys}
+            continue
+        size = bucket_padded_numel(sec, ss.n_fast)
+        entry = {}
+        for k in keys:
+            parts = [per_leaf[p][k].reshape(-1) for p in sec.leaf_paths]
+            packed = np.zeros((size,), dtype=np.float32)
+            packed[:sec.numel] = np.concatenate(parts)
+            entry[k] = packed
+        out[sec.name] = entry
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +396,6 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
     section's entry moves out of it into the new state, where its EF, m
     and v are replaced as they are updated, so that no step holds two
     copies of them."""
-    if ss.model_axis is not None and prims.axis_size(ss.model_axis) > 1:
-        raise NotImplementedError("tensor parallelism (a model axis > 1) is "
-                                  "not ported yet (ROADMAP.md queue 1)")
     pflat = tree_paths(params)
     gflat = tree_paths(grads)
     step = sync_state["step"]
@@ -356,6 +417,8 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
         else:
             g = gflat[sec.leaf_paths[0]].float()
             k = max(sec.scatter_dim, 0)
+        model_axes = ((ss.model_axis,) if (ss.model_axis and sec.model_sharded)
+                      else ())
         lane_off = sec.schedule.lane_offset if sec.schedule is not None else 0
         staging = sec.schedule.staging if sec.schedule is not None else None
         if _zero1_path(sec, ss):
@@ -364,14 +427,15 @@ def sync_and_update(params, grads, sync_state, plan: SyncPlan,
                 schedule=sec.schedule, lane_offset=lane_off, staging=staging)
             shard = shard * inv_dp
             synced[sec.name] = ("shard", shard, k)
-            sq = prims.psum(torch.sum(torch.square(shard)), ss.fast)
+            sq = prims.psum(torch.sum(torch.square(shard)),
+                            ss.fast + model_axes)
         else:
             full, new_ef = dfabric_all_reduce(
                 g, ss.fast, ss.slow_axis, sec.sync, scatter_dim=k, ef=ef,
                 schedule=sec.schedule, lane_offset=lane_off, staging=staging)
             full = full * inv_dp
             synced[sec.name] = ("full", full, k)
-            sq = torch.sum(torch.square(full))
+            sq = prims.psum(torch.sum(torch.square(full)), model_axes)
         sqnorm = sq if sqnorm is None else sqnorm + sq
         if new_ef is not None:
             entry["ef"] = new_ef

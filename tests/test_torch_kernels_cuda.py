@@ -669,3 +669,91 @@ def test_flash_attention_bf16_backward_in_a_training_step(cuda_device):
         print(f"leaf {i} {tuple(g.shape)}: max |g| {gm.abs().max().item():.3e}, "
               f"relative error {rel:.3e}")
         assert norm > 0 and rel <= 3e-2, (i, rel)
+
+
+def _moe_tp_rank(rank, store, queue):
+    """One of two ranks sharing the card over gloo: one deepseek-moe-16b
+    MoE layer in fp32 (seed 8), whole on this rank, then this rank's half
+    of the routed experts and of the shared experts' d_ff on the mesh
+    ``{"model": 2}``, forward and backward run twice."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.configs import get_arch
+        from repro_torch.core import prims
+        from repro_torch.models import layers as L
+        from repro_torch.utils.trees import tree_from_paths, tree_paths
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=2, rank=rank)
+        arch = get_arch("deepseek-moe-16b")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        p = L.init_moe(arch, gen, (), torch.float32, dev)
+        x = torch.randn((1, 2048, arch.d_model), generator=gen, device=dev)
+        gy = torch.randn((1, 2048, arch.d_model), generator=gen, device=dev)
+        with torch.no_grad():
+            whole = L.apply_moe(arch, p, x)[0]
+        E, F = arch.moe.num_experts // 2, p["shared"]["wi"].shape[1] // 2
+
+        def cut(path, t):
+            if path.startswith("we_"):
+                return t[rank * E:(rank + 1) * E]
+            if path in ("shared/wi", "shared/wg"):
+                return t[:, rank * F:(rank + 1) * F]
+            if path == "shared/wo":
+                return t[rank * F:(rank + 1) * F]
+            return t
+        local = tree_from_paths({k: cut(k, t).contiguous().requires_grad_(True)
+                                 for k, t in tree_paths(p).items()})
+        leaves = tree_paths(local)
+        runs = []
+        with prims.bind(prims.Mesh({"model": 2})):
+            for _ in range(2):
+                xi = x.clone().requires_grad_(True)
+                y, aux = L.apply_moe(arch, local, xi,
+                                     dispatch_spec=(None, "model"),
+                                     shared_axis="model")
+                grads = torch.autograd.grad(
+                    (y, aux), [xi] + list(leaves.values()), (gy, torch.ones_like(aux)))
+                runs.append([y.detach()] + [aux.detach()] + list(grads))
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+        err = (runs[0][0] - whole).abs().max().item()
+        scale = whole.abs().max().item()
+        dist.destroy_process_group()
+        queue.put((rank, (same, err, scale, leaves["we_in"].shape[0]), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+@pytest.mark.cuda
+def test_moe_layer_at_model_2_on_card(cuda_device, tmp_path):
+    """The deepseek MoE layer with its experts split over a model axis of
+    2 (two ranks on the card over gloo, 32 routed experts and half the
+    shared d_ff each): the output, the aux loss and every gradient
+    bit-equal over two runs, and the output equal to the unsharded
+    layer's within 1e-5 (fp32) of its largest value."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_moe_tp_rank, args=(r, str(tmp_path / "store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(2):
+            rank, res, err = queue.get(timeout=600)
+            assert err is None, err
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    for rank, (same, err, scale, experts) in out.items():
+        assert experts == 32
+        assert all(same), f"rank {rank}: {same.count(False)} of {len(same)} differ"
+        assert err <= 1e-5 * scale, (rank, err, scale)

@@ -370,12 +370,34 @@ def test_capacity_drift_raises_where_jax_does():
             mod.moe_dispatch_schedule(ar, 64, plan)
 
 
-def test_dispatch_spec_is_not_ported():
+def test_dispatch_spec_is_not_ported(tmp_path):
+    """``dispatch_spec`` (dp, tp), the JAX package's placement hint, is
+    ported as the expert placement: with no ``tp``, or a ``tp`` of one
+    member, the layer is the one without it, bit for bit; leaves that do
+    not hold the experts the axis gives a member raise.  The split over
+    two members is held against the JAX layer in
+    ``test_torch_tp.py``."""
+    import torch.distributed as dist
+    from repro_torch.core import prims
     _, arch = archs()
-    x = torch.zeros(1, 8, arch.d_model)
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        L.apply_moe(arch, _port(moe_weights(arch, seed=0)), x,
-                    dispatch_spec=("data", "model"))
+    p = _port(moe_weights(arch, seed=0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 8, arch.d_model)).astype(np.float32))
+    want = L.apply_moe(arch, p, x)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        with prims.bind(prims.Mesh({"data": 1, "model": 1})):
+            for spec in (("data", None), ("data", "model")):
+                got = L.apply_moe(arch, p, x, dispatch_spec=spec)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+            half = {k: (v[:v.shape[0] // 2] if k.startswith("we_") else v)
+                    for k, v in p.items()}
+            with pytest.raises(ValueError, match="experts"):
+                L.apply_moe(arch, half, x, dispatch_spec=("data", "model"))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

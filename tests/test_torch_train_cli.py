@@ -1,6 +1,7 @@
 """The port's training CLI (``python -m repro_torch.launch.train``): the
-3-tier run on 8 gloo CPU ranks that it spawns itself, its mesh rules (the
-JAX CLI's), and what it refuses."""
+3-tier run on 8 gloo CPU ranks that it spawns itself, runs with a model
+axis and in the GSPMD step, its mesh rules (the JAX CLI's), and what it
+refuses."""
 import json
 import os
 import subprocess
@@ -88,16 +89,37 @@ def test_cli_refusals():
         launch_mesh.rank_device("cuda", "nccl", 0, 2)
 
 
-@pytest.mark.parametrize("cfg,sizes", [
-    (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}),
-    (dict(), {"pod": 1, "data": 2, "model": 2}),
-    # checkpoints are ported; a checkpointed run with TP is still refused,
-    # before the checkpoint manager makes or sweeps its directory
-    (dict(ckpt_every=2, ckpt_dir="/nonexistent"), {"pod": 1, "data": 2, "model": 2}),
+@pytest.mark.parametrize("mode,arch,mesh", [
+    ("dfabric", "qwen2-0.5b", "1,1,2"), ("gspmd", "qwen3-1.7b", "1,2,2")])
+def test_cli_trains_tp_and_gspmd_on_cpu(tmp_path, mode, arch, mesh):
+    """A model axis of 2 (tensor parallelism) in the DFabric step, and the
+    GSPMD step (FSDP over data x TP over model): the loss falls."""
+    out = tmp_path / "metrics.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--mode", mode, "--mesh", mesh, "--steps", "4",
+         "--batch", "4", "--seq", "32", "--lr", "8e-3", "--device", "cpu",
+         "--metrics-out", str(out)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    losses = [m["loss"] for m in json.loads(out.read_text())]
+    assert len(losses) == 4 and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("cfg,sizes,arch", [
+    # the GSPMD step runs dense models only, yet
+    (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}, "rwkv6-1.6b"),
+    # RWKV6 and Mamba layers under a model axis
+    (dict(), {"pod": 1, "data": 2, "model": 2}, "rwkv6-1.6b"),
+    # refused before the checkpoint manager makes or sweeps its directory
+    (dict(ckpt_every=2, ckpt_dir="/nonexistent"), {"pod": 1, "data": 2, "model": 2},
+     "jamba-1.5-large-398b"),
 ])
-def test_trainer_refuses_what_is_not_ported(cfg, sizes):
+def test_trainer_refuses_what_is_not_ported(cfg, sizes, arch):
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
-    model = build_model(get_smoke_arch("qwen2-0.5b"), st, device="meta")
+    model = build_model(get_smoke_arch(arch), st, device="meta")
     mesh = types.SimpleNamespace(sizes=sizes)  # refused before any collective
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
         Trainer(model, mesh, ShapeConfig("t", 32, 8, "train"), TrainerConfig(**cfg))

@@ -906,3 +906,328 @@ def check_params_close(params, jax_params, int8: bool, steps: int):
             np.testing.assert_allclose(v, jax_params[k], atol=2e-5, rtol=0,
                                        err_msg=k)
     assert far <= 1e-2 * total, (far, total)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism and the GSPMD step (both packages)
+# ---------------------------------------------------------------------------
+
+
+def rank_tp_grads(rank, payload):
+    """:func:`tp_grads` for each case of ``payload["cases"]``, in order."""
+    return [tp_grads(rank, case) for case in payload["cases"]]
+
+
+def tp_grads(rank, payload):
+    """The port's loss and gradients on this rank with the model cut for
+    the mesh ``payload["sizes"]`` (TP over ``model``; FSDP over ``data``
+    when ``payload["fsdp"]``, the loss then the batch mean summed over the
+    DP members), from ``payload["weights"]`` of ``payload["arch"]``'s
+    smoke config, on this member's rows of ``payload["batch"]``.  Returns
+    (the loss, summed over the DP axes under FSDP; {path: this member's
+    gradient block, summed over the DP axes its spec does not name}; the
+    coords; the layout's specs)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import prims
+    from repro_torch.runtime.train_loop import dp_axes_of, local_rows, mesh_info
+    from repro_torch.models.sharding import spec_axes
+    from repro_torch.utils.trees import tree_paths
+    sizes, fsdp = payload["sizes"], payload.get("fsdp", False)
+    mesh = prims.Mesh(sizes)
+    torch.manual_seed(0)
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat=payload.get("remat", "none"),
+                       loss_chunk=payload.get("loss_chunk", 2048))
+    model = build_model(get_smoke_arch(payload["arch"]), st, device="cpu")
+    dp = dp_axes_of(sizes)
+    model.shard(mesh_info(sizes, fsdp=fsdp), sizes, mesh.coords,
+                loss_axes=dp if fsdp else ())
+    load_jax_params(model, payload["weights"])
+    batch = {k: torch.from_numpy(v)
+             for k, v in local_rows(payload["batch"], mesh).items()}
+    with prims.bind(mesh):
+        params = model.params()
+        flat = tree_paths(params)
+        for t in flat.values():
+            t.requires_grad_(True)
+        loss = model.loss(params, batch)
+        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+        specs = model.layout.specs
+        if fsdp:
+            loss = prims.psum(loss.detach(), dp)
+            grads = {k: prims.psum(g, tuple(a for a in dp
+                                            if a not in spec_axes(specs[k])))
+                     for k, g in grads.items()}
+        else:
+            loss = prims.pmean(loss.detach(), dp)
+    return (loss.item(), {k: g.numpy().copy() for k, g in grads.items()},
+            tuple(sorted(mesh.coords.items())), dict(specs))
+
+
+def assemble_blocks(per_rank, shapes, sizes, what: str = ""):
+    """{path: global array} from each rank's (blocks {path: array}, coords
+    tuple, specs {path: spec}); every two members that hold the same block
+    of a leaf must hold it bit for bit (the replicated leaves across the
+    model members, the DP invariant)."""
+    from repro_torch.models import sharding
+    out = {}
+    for k, shape in shapes.items():
+        spec = per_rank[0][2][k]
+        seen = {}
+        for blocks, coords, _ in per_rank:
+            idx = sharding.block_coords(spec, dict(coords), sizes)
+            if idx in seen:
+                np.testing.assert_array_equal(
+                    blocks[k], seen[idx], err_msg=f"{what} {k}: block {idx} "
+                    f"differs between members")
+            seen.setdefault(idx, blocks[k])
+        got = sharding.assemble({c: b[k] for b, c, _ in per_rank}, spec, shape,
+                                sizes, lambda ps, d: np.concatenate(ps, d))
+        assert got.shape == tuple(shape), (k, got.shape, shape)
+        out[k] = got
+    return out
+
+
+def rank_tp_trainer(rank, payload):
+    """A sequence of the port's ``Trainer`` runs on this rank
+    (``payload["runs"]``: each {arch, sizes, cfg: TrainerConfig fields
+    beside ``TRAIN``, optionally train: fields of ``TRAIN`` to override,
+    copy_to: a dir member 0 copies the checkpoint dir to after the run}),
+    each on a new model of its arch's smoke config (experts included)
+    loaded from ``payload["weights"][arch]`` (a run with ``ckpt_dir``
+    restores the newest checkpoint there first).  Every mesh has the
+    world's ranks.  Returns one record a run: losses, this member's
+    parameter blocks, its optimizer-state blocks (flat), its coords, the
+    layout's specs, the state's specs and whether it restored."""
+    import shutil
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    from repro_torch.utils.trees import tree_paths
+    records = []
+    for run in payload["runs"]:
+        sizes = run["sizes"]
+        st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                           remat=run.get("remat", "none"),
+                           loss_chunk=TRAIN_LOSS_CHUNK)
+        model = build_model(get_smoke_arch(run["arch"]), st, device="cpu")
+        load_jax_params(model, payload["weights"][run["arch"]])
+        shape = ShapeConfig("t", TRAIN_SHAPE["seq_len"],
+                            TRAIN_SHAPE["global_batch"], "train")
+        mesh = prims.Mesh(sizes)
+        trainer = Trainer(model, mesh, shape, TrainerConfig(
+            **{**TRAIN, **run.get("train", {})}, **run["cfg"]))
+        out = trainer.train()
+        if run.get("copy_to") and rank == 0:  # the writes were drained
+            shutil.copytree(run["cfg"]["ckpt_dir"], run["copy_to"])
+        opt = out["opt"]
+        state = ({f"{n}/{k}": t.numpy().copy()
+                  for n, e in opt["sections"].items() for k, t in e.items()}
+                 if "sections" in opt else
+                 {f"{key}/{k}": t.numpy().copy() for key in ("m", "v")
+                  for k, t in tree_paths(opt[key]).items()})
+        records.append(dict(
+            losses=[m["loss"] for m in out["metrics"]],
+            params={k: v.detach().numpy().copy()
+                    for k, v in tree_paths(out["params"]).items()},
+            state=state, coords=tuple(sorted(mesh.coords.items())),
+            specs=dict(model.layout.specs),
+            state_specs=_flat_state_specs(trainer),
+            restored=trainer.restore_s is not None))
+    return records
+
+
+def _flat_state_specs(trainer):
+    """{"<section>/<key>" or "m|v/<path>": spec} of a trainer's optimizer
+    state."""
+    if trainer.plan is None:
+        return {f"{key}/{k}": sp for key in ("m", "v")
+                for k, sp in trainer.moment_specs.items()}
+    return {f"{n}/{k}": sp for n, e in trainer.state_specs()["sections"].items()
+            for k, sp in e.items()}
+
+
+TP_JAX_SCRIPT = r'''
+import os, json, shutil
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_arch
+from repro.models import ModelSettings, build_model
+from repro.runtime.train_loop import Trainer, TrainerConfig, mesh_info
+from repro.utils.jax_compat import make_mesh
+from repro.utils.trees import tree_from_paths, tree_paths
+
+z = np.load(os.environ["JAX_IN"], allow_pickle=True)
+runs, all_weights = json.loads(str(z["runs"])), z["weights"].item()
+train, shp = json.loads(str(z["train"])), json.loads(str(z["shape"]))
+
+class Shape:
+    global_batch, seq_len = shp["global_batch"], shp["seq_len"]
+    name, kind = "t", "train"
+
+st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                   remat="none", loss_chunk=int(z["loss_chunk"]), max_seq=64)
+res = {}
+for run in runs:
+    name, sizes, cfg = run["name"], run["sizes"], run["cfg"]
+    model = build_model(get_smoke_arch(run["arch"]), st)
+    weights = all_weights[run["arch"]]
+    mesh = make_mesh(tuple(sizes.values()), tuple(sizes))
+    tr = Trainer(model, mesh, Shape(),
+                 TrainerConfig(**{**train, **run.get("train", {})}, **cfg))
+    if run.get("restore"):
+        out = tr.train()
+    else:
+        params = tree_from_paths({k: jnp.asarray(v) for k, v in weights.items()})
+        if cfg.get("mode") == "gspmd":
+            params = jax.device_put(params, tr.pshard)
+            opt = jax.device_put(
+                {"m": jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params),
+                 "v": jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params),
+                 "step": jnp.zeros((), jnp.int32)}, tr.oshard)
+        else:
+            params = jax.device_put(params, jax.tree.map(
+                lambda s: NamedSharding(mesh, s), model.param_specs(mesh_info(mesh))))
+            opt = jax.device_put(tr._init_state(), tr.state_sharding)
+        out = tr.train(params, opt, 0)
+    if run.get("copy_to"):
+        shutil.copytree(cfg["ckpt_dir"], run["copy_to"])
+    res[f"{name}/loss"] = np.array([m["loss"] for m in out["metrics"]])
+    for k, v in tree_paths(out["params"]).items():
+        res[f"{name}/p/{k}"] = np.asarray(v)
+    opt = out["opt"]
+    if "sections" in opt:
+        for sec, entry in opt["sections"].items():
+            for k, v in entry.items():
+                res[f"{name}/s/{sec}/{k}"] = np.asarray(v)
+    else:
+        for key in ("m", "v"):
+            for k, v in tree_paths(opt[key]).items():
+                res[f"{name}/s/{key}/{k}"] = np.asarray(v)
+np.savez(os.environ["JAX_OUT"], **res)
+'''
+
+
+def jax_tp_runs(runs, weights):
+    """The JAX ``Trainer`` on 8 fake devices for each of ``runs`` in order
+    (a list of {name, arch, sizes, cfg: TrainerConfig fields beside
+    ``TRAIN``, and optionally train: fields of ``TRAIN`` to override,
+    restore: start from the newest checkpoint of ``cfg["ckpt_dir"]``
+    rather than ``weights[arch]``, copy_to: a dir the checkpoint dir is
+    copied to after the run}), in ``dfabric`` or ``gspmd`` mode, on the
+    arch's smoke config.  Returns {name/loss, name/p/<path>,
+    name/s/<section>/<key> or name/s/m|v/<path>}."""
+    import json
+    return run_jax_devices(TP_JAX_SCRIPT, {
+        "runs": np.array(json.dumps(runs)),
+        "weights": np.array(weights, dtype=object),
+        "train": np.array(json.dumps(TRAIN)),
+        "shape": np.array(json.dumps(TRAIN_SHAPE)),
+        "loss_chunk": np.array(TRAIN_LOSS_CHUNK)})
+
+
+def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True):
+    """A port run (each rank's ``rank_tp_trainer`` record) against the JAX
+    one: the loss curve (rtol 1e-4, 1e-3 with a lossy codec), the final
+    parameters put together from the blocks (atol 2e-5; the key biases to
+    2 x lr x steps; with a lossy codec 99% of the elements to 2e-5, every
+    one to 2 x lr x steps), with ``state`` the optimizer state put
+    together (m and v to 1e-4 of their range, the EF to 1e-2 in 99%), and
+    every block held alike by two members bit-equal (``assemble_blocks``).
+    Returns the global parameters."""
+    steps = steps or TRAIN["steps"]
+    int8 = lossy(cfg)
+    losses = recs[0]["losses"]
+    assert len(losses) == len(jax_out[f"{name}/loss"]) and np.isfinite(losses).all()
+    np.testing.assert_allclose(losses, jax_out[f"{name}/loss"],
+                               rtol=1e-3 if int8 else 1e-4)
+    for r in recs[1:]:
+        assert r["losses"] == losses
+    shapes = {k[len(f"{name}/p/"):]: v.shape for k, v in jax_out.items()
+              if k.startswith(f"{name}/p/")}
+    params = assemble_blocks([(r["params"], r["coords"], r["specs"]) for r in recs],
+                             shapes, sizes, name)
+    far = total = 0
+    bound = 2 * TRAIN["lr"] * steps
+    for k, v in params.items():
+        want = jax_out[f"{name}/p/{k}"]
+        d = np.abs(v - want)
+        if k.endswith("attn/bk") or int8:
+            assert d.max() <= bound, (k, d.max())
+            if int8:
+                far += int((d > 2e-5).sum())
+                total += d.size
+        else:
+            np.testing.assert_allclose(v, want, atol=2e-5, rtol=0, err_msg=k)
+    assert far <= 1e-2 * total, (far, total)
+    if not state:
+        return params
+    sshapes = {k[len(f"{name}/s/"):]: v.shape for k, v in jax_out.items()
+               if k.startswith(f"{name}/s/")}
+    assert set(sshapes) == set(recs[0]["state"]), (
+        sorted(set(sshapes) ^ set(recs[0]["state"])))
+    state = assemble_blocks([(r["state"], r["coords"], r["state_specs"])
+                             for r in recs], sshapes, sizes, name) \
+        if not any(k.endswith("/ef") for k in sshapes) else \
+        _assemble_first(recs, sshapes, sizes)
+    for k, got in state.items():
+        want = jax_out[f"{name}/s/{k}"]
+        rel = 1e-2 if k.endswith("/ef") else 1e-4
+        close = np.abs(got - want) <= rel * np.abs(want).max() + 1e-12
+        if int8:
+            assert close.mean() >= 0.99, (k, close.mean())
+        else:
+            assert close.all(), (k, np.abs(got - want).max())
+    return params
+
+
+def _assemble_first(recs, shapes, sizes):
+    """The optimizer state put together without the bit-equality check
+    (the int8 EF differs across the pod members its spec does not name:
+    the first member's block is taken, as ``jax.device_get`` does)."""
+    from repro_torch.models import sharding
+    return {k: sharding.assemble({r["coords"]: r["state"][k] for r in recs},
+                                 recs[0]["state_specs"][k], shape, sizes,
+                                 lambda ps, d: np.concatenate(ps, d))
+            for k, shape in shapes.items()}
+
+
+def rank_gspmd_zero_opt(rank, payload):
+    """Two steps of the port's GSPMD step on this rank from
+    ``payload["weights"]`` (qwen3's smoke config) on the mesh
+    ``payload["sizes"]``, once with the moments laid out as the
+    parameters and once with ``zero_opt`` (split further by
+    ``zero_moment_specs``).  Returns ({path: parameter block} of each,
+    the moments' block shapes of the second)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import local_rows, make_gspmd_train_step
+    from repro_torch.utils.trees import tree_paths
+    mesh = prims.Mesh(payload["sizes"])
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    pipe = TokenPipeline(get_smoke_arch("qwen3-1.7b"),
+                         ShapeConfig("t", TRAIN_SHAPE["seq_len"],
+                                     TRAIN_SHAPE["global_batch"], "train"),
+                         DataConfig(seed=TRAIN["seed"]))
+    out = []
+    for zero_opt in (False, True):
+        model = build_model(get_smoke_arch("qwen3-1.7b"), st, device="cpu")
+        load_jax_params(model, payload["weights"])
+        step_fn, init_opt, mspecs = make_gspmd_train_step(
+            model, mesh, AdamWConfig(), cosine_schedule(TRAIN["lr"], 1, 4),
+            zero_opt=zero_opt)
+        model.requires_grad_(True)
+        params, opt = model.params(), init_opt()
+        for step in range(2):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in local_rows(pipe.batch_at(step), mesh).items()}
+            params, opt, _ = step_fn(params, opt, batch, step)
+        out.append({k: v.detach().numpy().copy()
+                    for k, v in tree_paths(params).items()})
+    return out[0], out[1], {k: tuple(v.shape)
+                            for k, v in tree_paths(opt["m"]).items()}
