@@ -85,7 +85,8 @@ step) and K2 as the local plan counts it, step 0's loss held to
 ``[train]``'s at 1e-4; ``[train-gspmd]`` full-width qwen3-1.7b in bf16,
 ``remat="full"``, FSDP over data x TP over model on (1, 2, 2), B=1 S=2048
 a DP member, 3 steps, K1 on 8 local heads (56 a rank a step), step 0's
-loss held to one unsharded forward on the global batch at 2e-2, and its
+loss and gradient norm held to one unsharded forward and backward on the
+global batch at 1e-3 and 1e-2 relative, and its
 step-2 checkpoint (≈ 17.2 GB under ``build/ckpt_gspmd``, deleted after)
 restored into a fresh model bit for bit.  Every block that two members
 hold alike (the replicated leaves over the model members, every leaf over
@@ -1676,36 +1677,47 @@ def state_digests(params, opt) -> dict:
     return out
 
 
-def gspmd_reference_loss(torch):
-    """Step 0's loss of ``[train-gspmd]`` from one unsharded qwen3-1.7b on
-    this process (seed 0, bf16, K1), on the same global batch: the
-    reference its four ranks are held to."""
+def gspmd_reference(torch):
+    """Step 0's loss and gradient norm of ``[train-gspmd]`` from one
+    unsharded qwen3-1.7b on this process (seed 0, bf16, K1 in the forward
+    and the recompute), on the same global batch: the reference its four
+    ranks are held to."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import ModelSettings, build_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.utils.trees import tree_paths
     arch = get_arch("qwen3-1.7b")
-    model = build_model(arch, ModelSettings(**GSPMD_FIELDS), device="cuda", seed=0)
+    st = ModelSettings(**GSPMD_FIELDS)
+    model = build_model(arch, st, device="cuda", seed=0)
     pipe = TokenPipeline(arch, ShapeConfig("custom", GSPMD_SEQ, GSPMD_ROWS, "train"),
                          DataConfig(seed=0))
     batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
     before = fa_kernel.LAUNCHES
-    with torch.no_grad():
-        loss = model.loss(model.params(), batch).item()
-    if fa_kernel.LAUNCHES - before != arch.n_layers:
-        raise AssertionError("the reference forward did not run K1 in every layer")
-    del model, batch
+    params = tree_paths(model.params())
+    for t in params.values():
+        t.requires_grad_(True)
+    loss = model.loss(model.params(), batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    gnorm = global_norm(dict(zip(params, grads))).item()
+    if fa_kernel.LAUNCHES - before != expected_launches(arch, st)["flash_attention_fwd"]:
+        raise AssertionError("the reference step did not run K1 in every layer "
+                             "and its recompute")
+    del model, batch, params, grads
     torch.cuda.empty_cache()
-    return loss
+    return loss.item(), gnorm
 
 
-def check_tp_steps(tag, recs, card, tokens, want_loss0, tol):
+def check_tp_steps(tag, recs, card, tokens, want_loss0, tol, want_gnorm0=None,
+                   gnorm_tol=None):
     """Log and check every rank's steps of a TP/GSPMD phase: launches as
     ``expected_launches`` and the plan's K2 count give them, finite
-    losses the ranks agree on, the members' blocks bit-equal, and step 0's
-    loss within ``tol`` relative of ``want_loss0``; then the card's memory
-    left beside the four peaks."""
+    losses the ranks agree on, the members' blocks bit-equal, step 0's
+    loss within ``tol`` relative of ``want_loss0`` and, given, its
+    gradient norm within ``gnorm_tol`` relative of ``want_gnorm0``; then
+    the card's memory left beside the four peaks."""
     import torch
     r0 = recs[0]
     want = dict(r0["expected"], quantize_ef_fwd=r0["plan_k2"])
@@ -1732,6 +1744,13 @@ def check_tp_steps(tag, recs, card, tokens, want_loss0, tol):
         f"after init {r0['mem_after_init_gb']:.2f} GB a rank")
     if rel > tol:
         raise AssertionError(f"[{tag}] step 0's loss is off its reference")
+    if want_gnorm0 is not None:
+        gnorm0 = r0["steps"][0]["grad_norm"]
+        rel = abs(gnorm0 - want_gnorm0) / abs(want_gnorm0)
+        log(f"[{tag}] step-0 grad_norm {gnorm0!r} against {want_gnorm0!r}: rel diff "
+            f"{rel:.2e} (tol {gnorm_tol})")
+        if not rel <= gnorm_tol:
+            raise AssertionError(f"[{tag}] step 0's gradient norm is off its reference")
     total = torch.cuda.get_device_properties(0).total_memory / 1e9
     peaks = [max(st["peak_gb"] for st in rec["steps"]) for rec in recs]
     log(f"[{tag}] the card's {total:.2f} GB less the four ranks' peaks "
@@ -1765,17 +1784,18 @@ def tp_phases(torch, card, train_recs, phase_done):
     if free < need:
         raise RuntimeError(f"{free} bytes free under {ckpt_dir}; [train-gspmd] needs {need}")
     t0 = time.perf_counter()
-    ref = gspmd_reference_loss(torch)
-    log(f"[train-gspmd] unsharded qwen3-1.7b bf16 forward on the global batch (2 x "
-        f"{GSPMD_SEQ}) with K1, this process: loss {ref!r} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    ref, ref_gnorm = gspmd_reference(torch)
+    log(f"[train-gspmd] unsharded qwen3-1.7b bf16 forward and backward on the global "
+        f"batch (2 x {GSPMD_SEQ}) with K1, this process: loss {ref!r}, grad_norm "
+        f"{ref_gnorm!r} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     recs = train_cli.run_ranks(tp_rank, TP_RANKS, "train-gspmd", ckpt_dir, timeout=1200)
     log(f"[train-gspmd] qwen3-1.7b {GSPMD_FIELDS} GSPMD (pod, data, model) = "
         f"{tuple(GSPMD_SIZES.values())}, FSDP over data x TP over model, B=1 S=2048 a "
         f"DP member, {GSPMD_STEPS} steps, a checkpoint at step {GSPMD_CKPT}: "
         f"{time.perf_counter() - t0:.1f} s wall | {card}")
-    check_tp_steps("train-gspmd", recs, card, GSPMD_ROWS * GSPMD_SEQ, ref, 2e-2)
+    check_tp_steps("train-gspmd", recs, card, GSPMD_ROWS * GSPMD_SEQ, ref, 1e-3,
+                   ref_gnorm, 1e-2)
     step_dir = os.path.join(ckpt_dir, f"step_{GSPMD_CKPT:08d}")
     save = recs[0]["ckpt_log"][0]
     write = recs[0]["writes"][0]

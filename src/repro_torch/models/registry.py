@@ -118,12 +118,15 @@ class Model(nn.Module):
         """Keep this member's block of every leaf under ``mi``'s specs on
         a mesh of ``sizes`` (this member at ``coords``), in place; the
         blocks are contiguous copies, so the global leaves are freed.  A
-        model is cut once: a second call with another layout raises
-        unless neither layout splits a leaf."""
+        model is cut once: a second call with the same layout keeps the
+        blocks as they are, and one with another layout raises unless
+        neither layout splits a leaf."""
         specs = tree_paths(self.param_specs(mi))
         layout = Layout(specs, dict(sizes), dict(coords), tp=mi.tp,
                         fsdp=mi.fsdp, loss_axes=tuple(loss_axes))
-        if self.layout is not None and self.layout != layout:
+        if self.layout == layout:
+            return layout
+        if self.layout is not None:
             if self.layout.sharded or layout.sharded:
                 raise ValueError(f"the model is already cut for {self.layout}; "
                                  f"build a new one for {layout}")

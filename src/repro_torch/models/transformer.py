@@ -210,30 +210,6 @@ def _axis(specs: Optional[Params], *path) -> Optional[str]:
     return node[path[-1]]
 
 
-def _attention_tp(arch: ArchConfig, p: Params, h: torch.Tensor, positions,
-                  st: ModelSettings, heads: str, kv: Optional[str]):
-    """Attention on this member's heads: ``wq``/``bq`` and, where their
-    spec splits them, ``wk``/``wv``/``bk``/``bv`` are local; the
-    replicated ``q_norm``/``k_norm`` (and k, v when whole) enter through
-    ``to_parallel``, so their gradients sum the members' heads.  Each
-    local query head attends its own kv head; ``wo`` is row-parallel and
-    the members' outputs are summed."""
-    pa = dict(p)
-    names = ("q_norm", "k_norm") + (() if kv else ("wk", "wv", "bk", "bv"))
-    for name in names:
-        if name in pa:
-            pa[name] = prims.to_parallel(pa[name], heads)
-    q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads), positions)
-    if kv is None:  # whole kv heads: each local query head takes its own
-        Hl, G = q.shape[2], arch.n_heads // arch.n_kv_heads
-        idx = (prims.axis_rank(heads) * Hl
-               + torch.arange(Hl, device=q.device)) // G
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    o = L.attend(q, k, v, causal=True, impl=st.attn_impl, block=st.attn_block,
-                 q_chunk=st.attn_chunk, kv_chunk=st.attn_chunk)
-    return prims.psum_replicated(L.attention_out(pa, o), heads)
-
-
 def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  st: ModelSettings, layer_id: int,
                  cache: Optional[Params] = None, pos: Optional[int] = None,
@@ -259,14 +235,25 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         else:
             cache["conv"].copy_(conv)
             cache["ssm"].copy_(ssm)
-    elif _axis(specs, "attn", "wq", 1) is not None:
-        out = _attention_tp(arch, p["attn"], h, positions, st,
-                            _axis(specs, "attn", "wq", 1),
-                            _axis(specs, "attn", "wk", 1))
-        cache = None
     else:
-        q, k, v = L.attention_qkv(arch, p["attn"], h, positions)
+        # this member's heads (all of them when ``heads`` is None): the
+        # replicated q_norm/k_norm, and wk/wv/bk/bv where the kv heads stay
+        # whole, enter through ``to_parallel``, so their gradients sum the
+        # members' heads; ``wo`` is row-parallel, its outputs summed
+        heads = _axis(specs, "attn", "wq", 1)
+        kv = _axis(specs, "attn", "wk", 1)
+        names = ("q_norm", "k_norm") + (() if kv else ("wk", "wv", "bk", "bv"))
+        pa = {n: prims.to_parallel(t, heads) if n in names else t
+              for n, t in p["attn"].items()}
+        q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads),
+                                  positions)
         if cache is None:
+            if heads is not None and kv is None:
+                # whole kv heads: each local query head takes its own
+                Hl, G = q.shape[2], arch.n_heads // arch.n_kv_heads
+                idx = (prims.axis_rank(heads) * Hl
+                       + torch.arange(Hl, device=q.device)) // G
+                k, v = k.index_select(2, idx), v.index_select(2, idx)
             o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
                          block=st.attn_block, q_chunk=st.attn_chunk,
                          kv_chunk=st.attn_chunk)
@@ -277,7 +264,7 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
             vc[:, pos:pos + 1] = v.to(vc.dtype)
             lens = torch.full((x.shape[0],), pos + 1, device=x.device)
             o = L.attend_decode(q, kc, vc, lens)
-        out = L.attention_out(p["attn"], o)
+        out = prims.psum_replicated(L.attention_out(pa, o), heads)
     x = x + out
     h = L.apply_norm(arch, p["ln2"], x)
     aux = None

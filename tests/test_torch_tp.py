@@ -28,8 +28,8 @@ import numpy as np  # noqa: E402
 
 from torch_harness import (DEEPSEEK, assemble_blocks,  # noqa: E402
                            check_tp_run, jax_loss_and_grads, jax_model,
-                           jax_tp_runs, rank_tp_grads, rank_tp_trainer,
-                           smoke_archs, smoke_weights, spawn_ranks,
+                           jax_tp_runs, rank_second_cut, rank_tp_grads,
+                           rank_tp_trainer, smoke_archs, smoke_weights, spawn_ranks,
                            train_batch)
 
 QWEN3 = "qwen3-1.7b"
@@ -142,3 +142,18 @@ def test_tp_checkpoint_restores_on_a_dp_mesh_and_in_jax(trainer_runs):
     assert all(r["restored"] for r in dp) and len(dp[0]["losses"]) == 2
     assert set(dp[0]["state"]) != set(port["ckpt"][0]["state"])  # re-cut
     check_tp_run("restore", dp, jax, DP, CK, steps=ON["steps"], state=False)
+
+
+def test_a_second_step_function_keeps_the_cut():
+    """``make_dfabric_train_step`` twice on one model at model = 2: the
+    second call finds the model cut for its layout and keeps every block
+    (a second cut would halve the heads, the ff and the vocab rows again);
+    a step then runs.  A step function for another layout (the GSPMD
+    step's FSDP) raises rather than cut the blocks again."""
+    batch = train_batch(smoke_archs("qwen2-0.5b")[1], seed=9, B=2, S=16)
+    for cuts, want, loss, err in spawn_ranks(2, rank_second_cut,
+                                             dict(sizes=TP2, batch=batch)):
+        assert cuts[0] == want and cuts[1] == want
+        assert want["embed"][0] * 2 == smoke_archs("qwen2-0.5b")[1].vocab
+        assert np.isfinite(loss)
+        assert err is not None and "already cut" in err

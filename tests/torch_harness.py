@@ -918,6 +918,49 @@ def rank_tp_grads(rank, payload):
     return [tp_grads(rank, case) for case in payload["cases"]]
 
 
+def rank_second_cut(rank, payload):
+    """Two ``make_dfabric_train_step`` calls on one model on the mesh
+    ``payload["sizes"]``, then ``make_gspmd_train_step`` (FSDP, another
+    layout) on it.  Returns ({path: shape} after each DFabric call, the
+    shapes the first cut should give, the loss of one step after the
+    second call, the GSPMD call's error or None)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import prims
+    from repro_torch.models.sharding import local_shape
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import (local_rows,
+                                                make_dfabric_train_step,
+                                                make_gspmd_train_step,
+                                                make_sync_plan, mesh_info)
+    from repro_torch.utils.trees import tree_paths
+    sizes = payload["sizes"]
+    mesh = prims.Mesh(sizes)
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
+    model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+    shapes = {k: v.shape for k, v in tree_paths(model.param_shapes()).items()}
+    specs = tree_paths(model.param_specs(mesh_info(sizes)))
+    want = {k: local_shape(sh, specs[k], sizes) for k, sh in shapes.items()}
+    plan, ss = make_sync_plan(model, sizes, run_topology(sizes, {}))
+    lr = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["steps"])
+    cuts = []
+    for _ in range(2):
+        step_fn, init_state = make_dfabric_train_step(model, mesh, plan, ss,
+                                                      AdamWConfig(), lr)
+        cuts.append({k: tuple(v.shape)
+                     for k, v in tree_paths(model.params()).items()})
+    model.requires_grad_(True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in local_rows(payload["batch"], mesh).items()}
+    _, _, metrics = step_fn(model.params(), init_state(), batch, 0)
+    try:
+        make_gspmd_train_step(model, mesh, AdamWConfig(), lr)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return cuts, want, float(metrics["loss"]), err
+
+
 def tp_grads(rank, payload):
     """The port's loss and gradients on this rank with the model cut for
     the mesh ``payload["sizes"]`` (TP over ``model``; FSDP over ``data``
