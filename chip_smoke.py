@@ -68,10 +68,11 @@ compute, both ``remat="full"`` (K1's bf16 body in (a), its fp32 body in
 model bit for bit; ``[train-moe]`` deepseek-moe-16b at every published
 width, cut to 2 layers (``configs.one_card_train_arch``: a third adds
 about 18.8 GB over the two ranks), bf16, B=1 S=2048 a rank, 3 steps, its
-CE and aux parts and dropped slots; ``[train-rwkv]`` rwkv6-1.6b whole,
+CE and aux parts and dropped slots; ``[train-rwkv]`` rwkv6-1.6b at every
+width, cut to 4 of its 24 layers (``[train-gspmd-rwkv]`` runs them all),
 bf16, B=1 S=2048 a rank, 2 steps, K3 in every layer's forward and
-recompute (48 a rank a step; the backward
-recomputes the plain recurrence); ``[train-jamba]`` one full-width Mamba
+recompute (8 a rank a step; the backward recomputes the plain
+recurrence); ``[train-jamba]`` one full-width Mamba
 layer of the jamba cut, forward and backward through K4's autograd wrapper
 against the plain path's gradients in fp32 and bf16, then the jamba smoke
 model with its experts, 3 steps, K4 and K1 in the forward and recompute.
@@ -82,15 +83,31 @@ with a model axis of 2, full-width qwen2-0.5b in fp32 on (pod, data,
 model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 3
 steps of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
 step) and K2 as the local plan counts it, step 0's loss held to
-``[train]``'s at 1e-4; ``[train-gspmd]`` full-width qwen3-1.7b in bf16,
-``remat="full"``, FSDP over data x TP over model on (1, 2, 2), B=1 S=2048
-a DP member, 3 steps, K1 on 8 local heads (56 a rank a step), step 0's
-loss and gradient norm held to one unsharded forward and backward on the
-global batch at 1e-3 and 1e-2 relative, and its
-step-2 checkpoint (≈ 17.2 GB under ``build/ckpt_gspmd``, deleted after)
-restored into a fresh model bit for bit.  Every block that two members
-hold alike (the replicated leaves over the model members, every leaf over
-the pod members) is compared bit for bit after every step.
+``[train]``'s at 1e-4; ``[train-gspmd]`` qwen3-1.7b at every width, cut
+to 14 of its 28 layers, in bf16, ``remat="full"``, FSDP over data x TP
+over model on (1, 2, 2), B=1 S=2048 a DP member, 3 steps, K1 on 8 local
+heads (28 a rank a step), step 0's loss and gradient norm held to one
+unsharded forward and backward on the global batch at 1e-3 and 1e-2
+relative, and its step-2 checkpoint (≈ 10.2 GB under ``build/ckpt_gspmd``,
+deleted after) restored into a fresh model bit for bit;
+``[train-gspmd-rwkv]`` full-width rwkv6-1.6b at all 24 layers, bf16
+parameters with fp32 compute, FSDP x TP on (1, 2, 2), B=1 S=1024 a DP
+member, 2 steps, K3 on 16 local heads (24 a rank a step), step 0's loss
+held to an unsharded step's at 1e-3 and its gradient norm one layer from
+the loss (``tail_norm``) at 1e-2; and
+``[train-tp-hybrid]``: (a) the jamba smoke with its experts in the
+DFabric step on (2, 1, 2) with the int8 slow tier, (b) in the GSPMD step
+on (1, 2, 2), (c) the rwkv6 smoke in the DFabric step on (2, 1, 2), 3
+steps each, every kernel's launches checked; (d) one full-width Mamba
+layer of the jamba cut over model = 2 (8192 channels a member, K4 on
+them), fp32 on one DP member and bf16 on the other, its gradients put
+together against the unsharded layer's with K4 in this process (1e-4 and
+2e-2); (e) one deepseek-moe-16b MoE layer in fp32 under FSDP x TP, each DP
+member one row of a 2-row batch routed as one batch: the members' dropped
+slots summed equal to the unsharded layer's, the output within 1e-5.
+Every block that two members hold alike (the replicated leaves over the
+model members, every leaf over the pod members) is compared bit for bit
+after every step.
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -493,6 +510,10 @@ def check_wkv6(torch, gen, dev, arch):
         ("main-fp32", B_MAIN, H, S_MAIN, hd, "float32"),
         ("decode-S1", 8, H, 1, hd, "bfloat16"),
         ("prefill-B1", 1, H, S_MAIN, hd, "bfloat16"),  # splits each head's columns
+        # [train-gspmd-rwkv]: a model member's 16 heads at S=1024, fp32
+        # compute (its main path), and bf16
+        ("main-train-member", 1, H // 2, 1024, hd, "float32"),
+        ("member-bf16", 1, H // 2, 1024, hd, "bfloat16"),
         ("ragged-S40", 2, H, 40, hd, "float32"),
         ("ragged-S100", 2, H, 100, hd, "bfloat16"),
         ("ragged-S333", 2, H, 333, hd, "float32"),
@@ -559,6 +580,8 @@ def check_mamba_scan(torch, gen, dev, arch):
         # smoke model's (d_model 64, d_state 4, 2 rows of 512 a rank)
         ("main-train-B1", 1, S_MAIN, di, m.d_state, "bfloat16"),
         ("main-train-smoke", 2, 512, 128, 4, "bfloat16"),
+        # [train-tp-hybrid] (d): a model member's 8192 channels of that layer
+        ("main-train-member", 1, S_MAIN, di // 2, m.d_state, "bfloat16"),
         ("decode-S1", 8, 1, di, m.d_state, "bfloat16"),
         ("ragged-S40", 2, 40, di, m.d_state, "float32"),
         ("ragged-S100", 2, 100, di, m.d_state, "bfloat16"),
@@ -696,8 +719,8 @@ def family_k2_sizes():
     from repro_torch.runtime.train_loop import make_sync_plan
     out, largest = {}, set()
     for tag, (arch_name, fields, *_rest) in FAMILY_RUNS.items():
-        model = build_model(family_arch(arch_name)[0], ModelSettings(**fields),
-                            device="meta")
+        model = build_model(family_arch(arch_name, FAMILY_DEPTH.get(tag))[0],
+                            ModelSettings(**fields), device="meta")
         plan, _ = make_sync_plan(model, FAMILY_SIZES,
                                  topology_from_mesh_sizes(FAMILY_SIZES), codec="int8")
         sizes = {}
@@ -1226,16 +1249,24 @@ FAMILY_RUNS = {
                     2, 512, 3, None),
 }
 FAMILY_SIZES = {"pod": 2, "data": 1, "model": 1}
+#: depth cuts of the family runs: rwkv6-1.6b runs every layer in
+#: ``[train-gspmd-rwkv]``, so ``[train-rwkv]`` keeps 4 of its 24
+FAMILY_DEPTH = {"train-rwkv": 4}
 
 
-def family_arch(name):
+def family_arch(name, depth=None):
     """(the arch a family run trains, its cuts): the registered smoke
     config for a ``-smoke`` name (jamba's with its experts), else
-    ``one_card_train_arch``."""
+    ``one_card_train_arch``; cut to ``depth`` layers if given."""
     from repro_torch.configs import get_smoke_arch, one_card_train_arch
     if name.endswith("-smoke"):
-        return get_smoke_arch(name[:-len("-smoke")]), ()
-    return one_card_train_arch(name)
+        arch, cuts = get_smoke_arch(name[:-len("-smoke")]), ()
+    else:
+        arch, cuts = one_card_train_arch(name)
+    if depth is not None and depth < arch.n_layers:
+        cuts = cuts + (f"n_layers: {arch.n_layers} -> {depth}",)
+        arch = arch.replace(n_layers=depth)
+    return arch, cuts
 
 
 def expected_launches(arch, st) -> dict:
@@ -1275,24 +1306,19 @@ def family_rank(rank, world, init_method, tag, ckpt_dir):
     import torch.distributed as dist
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import prims
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
-    from repro_torch.kernels.quantize import kernel as q_kernel
-    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.models import ModelSettings, build_model
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import count_active_params, count_params
     from repro_torch.runtime.train_loop import Trainer, TrainerConfig
     arch_name, fields, rows, seq, steps, ckpt_at = FAMILY_RUNS[tag]
-    kernels = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
-               "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
+    kernels = kernel_modules()
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=init_method, world_size=world,
                             rank=rank)
     rec = {"steps": []}
     try:
-        arch, _ = family_arch(arch_name)
+        arch, _ = family_arch(arch_name, FAMILY_DEPTH.get(tag))
         st = ModelSettings(loss_chunk=min(2048, seq), **fields)
         model = build_model(arch, st, device="cuda", seed=0)
         rec.update(n_params=count_params(model), n_active=count_active_params(model),
@@ -1366,7 +1392,7 @@ def run_family(tag, card, ckpt_root):
     import torch
     from repro_torch.launch import train as train_cli
     arch_name, fields, rows, seq, steps, ckpt_at = FAMILY_RUNS[tag]
-    arch, cuts = family_arch(arch_name)
+    arch, cuts = family_arch(arch_name, FAMILY_DEPTH.get(tag))
     ckpt_dir = os.path.join(ckpt_root, tag)
     t0 = time.perf_counter()
     recs = train_cli.run_ranks(family_rank, 2, tag, ckpt_dir, timeout=1200)
@@ -1525,13 +1551,53 @@ TP_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,1,2", "--codec", "int8",
            "--steps", "3", "--batch", "4", "--seq", "2048",
            "--backend", "gloo", "--device", "cuda"]
 TP_RANKS, TP_TOKENS = 4, 4 * 2048
-#: ``[train-gspmd]``: full-width qwen3-1.7b, bf16 parameters and compute,
-#: ``remat="full"``, FSDP over data x TP over model on (1, 2, 2), B=1
-#: S=2048 a DP member, 3 steps, a checkpoint at step 2
 GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
-GSPMD_FIELDS = dict(param_dtype="bfloat16", compute_dtype="bfloat16",
-                    remat="full", attn_impl="kernel", loss_chunk=2048)
-GSPMD_ROWS, GSPMD_SEQ, GSPMD_STEPS, GSPMD_CKPT = 2, 2048, 3, 2
+#: the GSPMD step's runs, FSDP over data x TP over model on (1, 2, 2), B=1 a
+#: DP member (rows: the global batch's): ``[train-gspmd]`` qwen3-1.7b at
+#: every width, cut to 14 of its 28 layers since ``[train-gspmd-rwkv]``
+#: joined the run (time), in bf16, ``remat="full"``, S=2048, 3 steps, a
+#: checkpoint at step 2; ``[train-gspmd-rwkv]`` full-width rwkv6-1.6b at every layer,
+#: bf16 parameters with fp32 compute (in bf16 compute its step-0 gradient
+#: is rounding noise: ``tail_norm``), K3 on each member's 16 heads, S=1024
+#: (cut from 2048: the plain recurrence's backward is a Python loop over
+#: the sequence), 2 steps, ``remat="none"`` (four peaks leave more than 10
+#: GB of the card free).  ``norm``: which step-0 gradient norm is held to
+#: the unsharded step's, the whole model's or ``tail_norm``'s
+GSPMD_RUNS = {
+    "train-gspmd": dict(arch="qwen3-1.7b", depth=14, sizes=GSPMD_SIZES, rows=2,
+                        seq=2048, steps=3, ckpt=2, norm="whole",
+                        fields=dict(BF16, remat="full", attn_impl="kernel",
+                                    loss_chunk=2048)),
+    "train-gspmd-rwkv": dict(arch="rwkv6-1.6b", sizes=GSPMD_SIZES, rows=2,
+                             seq=1024, steps=2, ckpt=None, norm="tail",
+                             fields=dict(param_dtype="bfloat16",
+                                         compute_dtype="float32", remat="none",
+                                         use_kernel_ssm=True, loss_chunk=1024)),
+}
+
+
+def gspmd_arch(run):
+    """The arch of a ``GSPMD_RUNS`` run, cut to its ``depth`` if it has one."""
+    from repro_torch.configs import get_arch
+    arch = get_arch(run["arch"])
+    return arch.replace(n_layers=run["depth"]) if run.get("depth") else arch
+
+
+def tail_norm(grads, specs=None) -> float:
+    """The norm of a step's gradients over the leaves nearest the loss:
+    every leaf but the embedding, a stacked leaf at its last layer (group)
+    only; with ``specs`` ({path: spec}) the gradients are this member's
+    blocks, as ``adamw.global_norm`` takes them.  A deep random RWKV6's
+    backward amplifies rounding layer by layer (the whole model's norm is
+    printed, not held); these leaves' gradients are one layer from the
+    loss."""
+    from repro_torch.optim.adamw import global_norm
+    keep = {k: (g[-1] if k.startswith("blocks/") else g)
+            for k, g in grads.items() if k != "embed"}
+    cut = None if specs is None else {
+        k: tuple(specs[k][1:]) if k.startswith("blocks/") else specs[k]
+        for k in keep}
+    return global_norm(keep, cut).item()
 
 
 def tp_k2_sizes():
@@ -1569,29 +1635,17 @@ def blocks_agree(params, layout, mesh):
     return all(len(groups[g]) == 1 for g in groups), len(shared)
 
 
-def tp_rank(rank, world, init_method, tag, ckpt_dir):
-    """One rank of ``[train-tp]`` (the CLI's ``run_rank`` with
-    ``TP_ARGV``) or ``[train-gspmd]`` (the ``Trainer`` in GSPMD mode,
-    checkpointing at step 2, then that checkpoint restored into a fresh
-    model and state on this rank).  Each step records every kernel's
-    launches, the collectives of the model's TP/FSDP Functions, loss,
-    step time, peak memory, and whether the members' blocks agree."""
+def step_recorder(rec, tag=None, ckpt_at=None):
+    """(start(trainer), on_step) for a ``Trainer`` run on this rank: from
+    ``start`` (every count set to 0 just before the path) each step
+    appends to ``rec["steps"]`` every kernel's launches, the collectives
+    of the model's TP/FSDP Functions, loss, step time, peak memory and
+    whether the members' blocks agree; at step ``ckpt_at`` the digests of
+    this member's blocks go to ``rec["ckpt_digests"]``."""
     import torch
-    import torch.distributed as dist
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import prims
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
-    from repro_torch.kernels.quantize import kernel as q_kernel
-    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
-    from repro_torch.launch import train as train_cli
-    from repro_torch.models import ModelSettings, build_model
     from repro_torch.models.registry import count_params
-    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
-    kernels = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
-               "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
-    rec = {"steps": []}
+    kernels = kernel_modules()
     live = {}
 
     def start(trainer):
@@ -1603,6 +1657,7 @@ def tp_rank(rank, world, init_method, tag, ckpt_dir):
         rec["plan_k2"] = (sum(len(s.schedule.slow_legs) for s in trainer.plan.sections)
                           if trainer.plan is not None else 0)
         rec["expected"] = expected_launches(trainer.model.arch, trainer.model.settings)
+        rec["coords"] = trainer.mesh.coords
         torch.cuda.reset_peak_memory_stats()
         for mod in kernels.values():
             mod.LAUNCHES = 0  # just before the path
@@ -1626,42 +1681,83 @@ def tp_rank(rank, world, init_method, tag, ckpt_dir):
                                  grad_norm=metrics["grad_norm"], launches=launches,
                                  calls=calls, agree=agree, shared=shared,
                                  check_s=time.perf_counter() - t0, peak_gb=peak))
-        if tag == "train-gspmd" and step + 1 == GSPMD_CKPT:
+        if ckpt_at is not None and step + 1 == ckpt_at:
             rec["ckpt_digests"] = state_digests(params, opt)
 
+    return start, on_step
+
+
+def kernel_modules() -> dict:
+    """{kernel name: its module}, each module's ``LAUNCHES`` its count."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    return {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
+            "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
+
+
+def tp_rank(rank, world, init_method, tag, ckpt_dir):
+    """One rank of ``[train-tp]`` (the CLI's ``run_rank`` with
+    ``TP_ARGV``) or of a ``GSPMD_RUNS`` run (the ``Trainer`` in GSPMD mode;
+    one with a checkpoint step then restores that checkpoint into a fresh
+    model and state on this rank), recorded by :func:`step_recorder`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    rec = {"steps": []}
     if tag == "train-tp":
+        start, on_step = step_recorder(rec)
         args = train_cli.resolve_args(train_cli.build_parser().parse_args(TP_ARGV))
         train_cli.run_rank(args, rank, world, init_method, on_step=on_step,
                            before_train=lambda trainer, params, opt: start(trainer))
-        rec["coords"] = live["trainer"].mesh.coords
         return rec
+    run = GSPMD_RUNS[tag]
+    start, on_step = step_recorder(rec, tag, run["ckpt"])
+    if run["norm"] == "tail":  # the step's gradients pass through its norm
+        from repro_torch.runtime import train_loop
+        whole_norm = train_loop.global_norm
+
+        def recording(grads, specs=None):
+            rec.setdefault("tail_norms", []).append(tail_norm(grads, specs))
+            return whole_norm(grads, specs)
+
+        train_loop.global_norm = recording
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=init_method, world_size=world,
                             rank=rank)
     try:
-        mesh = prims.Mesh(GSPMD_SIZES)
-        arch = get_arch("qwen3-1.7b")
-        st = ModelSettings(**GSPMD_FIELDS)
-        shape = ShapeConfig("custom", GSPMD_SEQ, GSPMD_ROWS, "train")
-        cfg = TrainerConfig(steps=GSPMD_STEPS, lr=3e-4, warmup=1, mode="gspmd",
-                            ckpt_dir=ckpt_dir, ckpt_every=GSPMD_CKPT)
+        mesh = prims.Mesh(run["sizes"])
+        arch = gspmd_arch(run)
+        st = ModelSettings(**run["fields"])
+        shape = ShapeConfig("custom", run["seq"], run["rows"], "train")
+        cfg = TrainerConfig(steps=run["steps"], lr=3e-4, warmup=1, mode="gspmd",
+                            ckpt_dir=ckpt_dir if run["ckpt"] else None,
+                            ckpt_every=run["ckpt"] or 0)
         trainer = Trainer(build_model(arch, st, device="cuda", seed=0), mesh,
                           shape, cfg)
         params, opt, step0 = trainer.init_state()
         start(trainer)
         trainer.train(params, opt, step0, on_step=on_step)
-        rec["coords"] = mesh.coords
-        rec["ckpt_log"], rec["writes"] = trainer.ckpt_log, trainer.ckpt.stats
+        if run["ckpt"]:
+            rec["ckpt_log"], rec["writes"] = trainer.ckpt_log, trainer.ckpt.stats
         del trainer, params, opt
-        live.clear()
         torch.cuda.empty_cache()
-        # the step-2 checkpoint into a fresh model (other seed) and state
-        fresh = Trainer(build_model(arch, st, device="cuda", seed=1), mesh, shape, cfg)
-        params, opt, step = fresh.try_restore()
-        got = state_digests(params, opt)
-        rec["restore"] = dict(step=step, restore_s=fresh.restore_s, leaves=len(got),
-                              equal=sum(got[k] == v for k, v in rec["ckpt_digests"].items()))
-        del fresh, params, opt
+        if run["ckpt"]:
+            # the checkpoint into a fresh model (other seed) and state
+            fresh = Trainer(build_model(arch, st, device="cuda", seed=1), mesh,
+                            shape, cfg)
+            params, opt, step = fresh.try_restore()
+            got = state_digests(params, opt)
+            rec["restore"] = dict(step=step, restore_s=fresh.restore_s,
+                                  leaves=len(got),
+                                  equal=sum(got[k] == v
+                                            for k, v in rec["ckpt_digests"].items()))
+            del fresh, params, opt
     finally:
         dist.destroy_process_group()
     return rec
@@ -1677,45 +1773,46 @@ def state_digests(params, opt) -> dict:
     return out
 
 
-def gspmd_reference(torch):
-    """Step 0's loss and gradient norm of ``[train-gspmd]`` from one
-    unsharded qwen3-1.7b on this process (seed 0, bf16, K1 in the forward
-    and the recompute), on the same global batch: the reference its four
-    ranks are held to."""
-    from repro_torch.configs import get_arch
+def gspmd_reference(torch, tag):
+    """Step 0's loss, gradient norm and :func:`tail_norm` of the
+    ``GSPMD_RUNS`` run ``tag`` from one unsharded model on this process
+    (seed 0, its settings, its kernels in the forward and any recompute),
+    on the same global batch: the reference its four ranks are held to."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import ModelSettings, build_model
     from repro_torch.optim.adamw import global_norm
     from repro_torch.utils.trees import tree_paths
-    arch = get_arch("qwen3-1.7b")
-    st = ModelSettings(**GSPMD_FIELDS)
+    run = GSPMD_RUNS[tag]
+    arch = gspmd_arch(run)
+    st = ModelSettings(**run["fields"])
     model = build_model(arch, st, device="cuda", seed=0)
-    pipe = TokenPipeline(arch, ShapeConfig("custom", GSPMD_SEQ, GSPMD_ROWS, "train"),
+    pipe = TokenPipeline(arch, ShapeConfig("custom", run["seq"], run["rows"], "train"),
                          DataConfig(seed=0))
     batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
-    before = fa_kernel.LAUNCHES
+    kernels = kernel_modules()
+    before = {name: mod.LAUNCHES for name, mod in kernels.items()}
     params = tree_paths(model.params())
     for t in params.values():
         t.requires_grad_(True)
     loss = model.loss(model.params(), batch)
     grads = torch.autograd.grad(loss, list(params.values()))
-    gnorm = global_norm(dict(zip(params, grads))).item()
-    if fa_kernel.LAUNCHES - before != expected_launches(arch, st)["flash_attention_fwd"]:
-        raise AssertionError("the reference step did not run K1 in every layer "
-                             "and its recompute")
+    grads = dict(zip(params, grads))
+    gnorm, tail = global_norm(grads).item(), tail_norm(grads)
+    launched = {name: mod.LAUNCHES - before[name] for name, mod in kernels.items()}
+    if launched != dict(expected_launches(arch, st), quantize_ef_fwd=0):
+        raise AssertionError(f"the reference step launched {launched}")
     del model, batch, params, grads
     torch.cuda.empty_cache()
-    return loss.item(), gnorm
+    return loss.item(), gnorm, tail
 
 
-def check_tp_steps(tag, recs, card, tokens, want_loss0, tol, want_gnorm0=None,
-                   gnorm_tol=None):
+def check_tp_steps(tag, recs, card, tokens, want_loss0=None, tol=None,
+                   want_gnorm0=None, gnorm_tol=None):
     """Log and check every rank's steps of a TP/GSPMD phase: launches as
     ``expected_launches`` and the plan's K2 count give them, finite
-    losses the ranks agree on, the members' blocks bit-equal, step 0's
-    loss within ``tol`` relative of ``want_loss0`` and, given, its
+    losses the ranks agree on, the members' blocks bit-equal, and, given,
+    step 0's loss within ``tol`` relative of ``want_loss0`` and its
     gradient norm within ``gnorm_tol`` relative of ``want_gnorm0``; then
     the card's memory left beside the four peaks."""
     import torch
@@ -1737,13 +1834,15 @@ def check_tp_steps(tag, recs, card, tokens, want_loss0, tol, want_gnorm0=None,
                 raise AssertionError(f"[{tag}] rank {rank} step {st['step']}: {st}")
         if [a["loss"] for a in rec["steps"]] != [a["loss"] for a in r0["steps"]]:
             raise AssertionError(f"[{tag}] rank {rank} disagrees on the loss")
-    loss0 = r0["steps"][0]["loss"]
-    rel = abs(loss0 - want_loss0) / abs(want_loss0)
-    log(f"[{tag}] step-0 loss {loss0!r} against {want_loss0!r}: rel diff {rel:.2e} "
-        f"(tol {tol}); params {r0['n_params']}, {r0['local_params']} a rank; memory "
+    log(f"[{tag}] params {r0['n_params']}, {r0['local_params']} a rank; memory "
         f"after init {r0['mem_after_init_gb']:.2f} GB a rank")
-    if rel > tol:
-        raise AssertionError(f"[{tag}] step 0's loss is off its reference")
+    if want_loss0 is not None:
+        loss0 = r0["steps"][0]["loss"]
+        rel = abs(loss0 - want_loss0) / abs(want_loss0)
+        log(f"[{tag}] step-0 loss {loss0!r} against {want_loss0!r}: rel diff "
+            f"{rel:.2e} (tol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"[{tag}] step 0's loss is off its reference")
     if want_gnorm0 is not None:
         gnorm0 = r0["steps"][0]["grad_norm"]
         rel = abs(gnorm0 - want_gnorm0) / abs(want_gnorm0)
@@ -1778,41 +1877,349 @@ def tp_phases(torch, card, train_recs, phase_done):
     ckpt_dir = os.path.join(HERE, "build", "ckpt_gspmd")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     os.makedirs(ckpt_dir)
-    need = int(1_720_574_976 * (2 + 8) * 1.25)  # bf16 params, fp32 m and v
+    need = int(1_720_574_976 * (2 + 8) * 1.25)  # bf16 params, fp32 m and v, uncut
 
     free = shutil.disk_usage(ckpt_dir).free
     if free < need:
         raise RuntimeError(f"{free} bytes free under {ckpt_dir}; [train-gspmd] needs {need}")
-    t0 = time.perf_counter()
-    ref, ref_gnorm = gspmd_reference(torch)
-    log(f"[train-gspmd] unsharded qwen3-1.7b bf16 forward and backward on the global "
-        f"batch (2 x {GSPMD_SEQ}) with K1, this process: loss {ref!r}, grad_norm "
-        f"{ref_gnorm!r} in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(tp_rank, TP_RANKS, "train-gspmd", ckpt_dir, timeout=1200)
-    log(f"[train-gspmd] qwen3-1.7b {GSPMD_FIELDS} GSPMD (pod, data, model) = "
-        f"{tuple(GSPMD_SIZES.values())}, FSDP over data x TP over model, B=1 S=2048 a "
-        f"DP member, {GSPMD_STEPS} steps, a checkpoint at step {GSPMD_CKPT}: "
-        f"{time.perf_counter() - t0:.1f} s wall | {card}")
-    check_tp_steps("train-gspmd", recs, card, GSPMD_ROWS * GSPMD_SEQ, ref, 1e-3,
-                   ref_gnorm, 1e-2)
-    step_dir = os.path.join(ckpt_dir, f"step_{GSPMD_CKPT:08d}")
+    recs = gspmd_phase(torch, card, "train-gspmd", ckpt_dir)
+    ckpt = GSPMD_RUNS["train-gspmd"]["ckpt"]
+    step_dir = os.path.join(ckpt_dir, f"step_{ckpt:08d}")
     save = recs[0]["ckpt_log"][0]
     write = recs[0]["writes"][0]
-    log(f"[train-gspmd] checkpoint step {GSPMD_CKPT}: {dir_bytes(step_dir)} bytes; "
+    log(f"[train-gspmd] checkpoint step {ckpt}: {dir_bytes(step_dir)} bytes; "
         f"gather to member 0 {save['gather_s']:.2f} s, blocking {save['blocking_s']:.2f} s, "
         f"writer {write['write_s']:.2f} s | {card}")
     for rank, rec in enumerate(recs):
         r = rec["restore"]
         log(f"[train-gspmd] rank {rank}: restored step {r['step']} into a fresh model "
             f"in {r['restore_s']:.2f} s; {r['equal']} of {r['leaves']} blocks "
-            f"(parameters, m, v, step) bit-equal to this rank's at step {GSPMD_CKPT}")
-        if r["step"] != GSPMD_CKPT or r["equal"] != r["leaves"] \
+            f"(parameters, m, v, step) bit-equal to this rank's at step {ckpt}")
+        if r["step"] != ckpt or r["equal"] != r["leaves"] \
                 or r["leaves"] != len(rec["ckpt_digests"]):
             raise AssertionError(f"[train-gspmd] rank {rank}'s restore differs: {r}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    phase_done("train-gspmd: qwen3-1.7b FSDP x TP, 4 ranks, checkpoint")
+    phase_done("train-gspmd: qwen3-1.7b (14 layers) FSDP x TP, 4 ranks, checkpoint")
+
+    gspmd_phase(torch, card, "train-gspmd-rwkv")
+    phase_done("train-gspmd-rwkv: rwkv6-1.6b FSDP x TP at full depth, 4 ranks")
+    hybrid_phase(torch, card)
+    phase_done("train-tp-hybrid: jamba and rwkv6 under a model axis, "
+               "one Mamba layer and one MoE layer cut, 4 ranks")
     return recs
+
+
+def gspmd_phase(torch, card, tag, ckpt_dir=None):
+    """A ``GSPMD_RUNS`` run on four ranks, checked by :func:`check_tp_steps`
+    against one unsharded step of the same global batch in this process:
+    step 0's loss to 1e-3 and its gradient norm to 1e-2, relative."""
+    from repro_torch.launch import train as train_cli
+    run = GSPMD_RUNS[tag]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref, ref_gnorm, ref_tail = gspmd_reference(torch, tag)
+    log(f"[{tag}] unsharded {run['arch']} forward and backward on the global batch "
+        f"({run['rows']} x {run['seq']}), its kernels in the forward, this process: "
+        f"loss {ref!r}, grad_norm {ref_gnorm!r}, tail_norm {ref_tail!r} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(tp_rank, TP_RANKS, tag, ckpt_dir, timeout=1200)
+    ckpt = f", a checkpoint at step {run['ckpt']}" if run["ckpt"] else ""
+    cut = f" cut to {run['depth']} layers" if run.get("depth") else ""
+    log(f"[{tag}] {run['arch']}{cut} {run['fields']} GSPMD (pod, data, model) = "
+        f"{tuple(run['sizes'].values())}, FSDP over data x TP over model, B=1 "
+        f"S={run['seq']} a DP member, {run['steps']} steps{ckpt}: "
+        f"{time.perf_counter() - t0:.1f} s wall | {card}")
+    whole = run["norm"] == "whole"
+    check_tp_steps(tag, recs, card, run["rows"] * run["seq"], ref, 1e-3,
+                   ref_gnorm if whole else None, 1e-2)
+    if not whole:
+        tail = recs[0]["tail_norms"][0]
+        rel = abs(tail - ref_tail) / ref_tail
+        log(f"[{tag}] step-0 tail_norm (the gradients one layer from the loss) "
+            f"{tail!r} against {ref_tail!r}: rel diff {rel:.2e} (tol 1e-2); the whole "
+            f"model's grad_norm {recs[0]['steps'][0]['grad_norm']!r} against "
+            f"{ref_gnorm!r} (not held: rounding amplified through {run['arch']}'s "
+            f"random layers)")
+        if any(r["tail_norms"][0] != tail for r in recs) or not rel <= 1e-2:
+            raise AssertionError(f"[{tag}] step 0's tail_norm is off its reference")
+    return recs
+
+
+#: ``[train-tp-hybrid]`` (a)-(c): {part: (arch, mesh sizes, mode)}, the smoke
+#: configs with their experts (``get_smoke_arch``) on four ranks, B=2 S=512
+#: a DP member, 3 steps, bf16, ``remat="full"``, K1, K3 and K4 in the forward
+#: and the recompute, the int8 slow tier in the DFabric step
+HYBRID_RUNS = {
+    "a": ("jamba-1.5-large-398b", {"pod": 2, "data": 1, "model": 2}, "dfabric"),
+    "b": ("jamba-1.5-large-398b", GSPMD_SIZES, "gspmd"),
+    "c": ("rwkv6-1.6b", {"pod": 2, "data": 1, "model": 2}, "dfabric"),
+}
+HYBRID_FIELDS = dict(BF16, remat="full", attn_impl="kernel", use_kernel_ssm=True)
+HYBRID_ROWS, HYBRID_SEQ, HYBRID_STEPS = 2, 512, 3
+#: (d) one full-width Mamba layer of the jamba cut over model = 2, one dtype
+#: a DP member of ``GSPMD_SIZES``: (dtype, seed, tolerance of the assembled
+#: gradients against the unsharded layer's, ``jamba_layer_check``'s).  In
+#: bf16 the atol is that share of each leaf's largest value (the form of
+#: ``tests/test_torch_tp.py``'s), and each leaf's relative error
+#: ||g - g_ref|| / ||g_ref|| is held to 3e-2 (``test_torch_train_mixed.py``'s
+#: bf16 bound): ``w_in``'s gradient sums 2048 tokens' bf16 products, whose
+#: rounding puts elements that cancel 0.0625 off at values near 1
+MAMBA_CUT = {0: ("float32", 11, 1e-4), 1: ("bfloat16", 12, 2e-2)}
+BF16_LEAF_REL = 3e-2
+MOE_CUT_SEED = 13
+
+
+def mamba_layer(torch, dt_name, seed):
+    """(the jamba cut's arch, one full-width Mamba layer's leaves in
+    ``dt_name``, an input and an output cotangent, B=1 S=2048), drawn on
+    the card from ``seed``."""
+    from repro_torch.configs import one_card_arch
+    from repro_torch.models import ssm as SSM
+    arch = one_card_arch("jamba-1.5-large-398b")[0]
+    dt, dev = getattr(torch, dt_name), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = SSM.init_mamba(arch, gen, (), dt, dev)
+    x = (torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev) * 0.5).to(dt)
+    gy = torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev).to(dt)
+    return arch, p, x, gy
+
+
+def layer_specs(arch, parent, leaves, sizes, fsdp=None):
+    """{leaf: spec} of one layer's ``leaves`` ({path: tensor} under the
+    layer kind ``parent``, "mamba" or "moe") by the sharding rules, TP over
+    ``model`` (FSDP over ``fsdp``)."""
+    from repro_torch.models import sharding
+    specs = sharding.param_specs(arch, {f"{parent}/{k}": tuple(t.shape)
+                                        for k, t in leaves.items()},
+                                 sharding.MeshInfo(sizes, fsdp_axis=fsdp))
+    return {k: specs[f"{parent}/{k}"] for k in leaves}
+
+
+def mamba_member_grads(torch, mesh, out_dir):
+    """(d) on this rank: its block of the Mamba layer of ``MAMBA_CUT`` (its
+    DP member's dtype) over ``model``, forward with K4 on its 8192
+    channels and backward; the input's and its blocks' gradients saved
+    under ``out_dir`` for the parent.  Returns K4's launches and the
+    seconds."""
+    from repro_torch.core import prims
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.models import sharding
+    from repro_torch.models import ssm as SSM
+    dt_name, seed, _ = MAMBA_CUT[mesh.coords["data"]]
+    arch, p, x, gy = mamba_layer(torch, dt_name, seed)
+    specs = layer_specs(arch, "mamba", p, mesh.sizes)
+    local = {k: sharding.local_block(t, specs[k], mesh.coords, mesh.sizes)
+             .contiguous().requires_grad_(True) for k, t in p.items()}
+    del p
+    x.requires_grad_(True)
+    torch.cuda.synchronize()
+    before, t0 = ms_kernel.LAUNCHES, time.perf_counter()
+    with prims.bind(mesh):
+        y, _ = SSM.apply_mamba(arch, local, x, use_kernel=True, axis="model")
+        grads = torch.autograd.grad(y, [x] + list(local.values()), gy)
+    torch.cuda.synchronize()
+    out = dict(dtype=dt_name, launches=ms_kernel.LAUNCHES - before,
+               s=time.perf_counter() - t0, channels=local["A_log"].shape[0])
+    torch.save({k: g.cpu() for k, g in zip(["x"] + list(local), grads)},
+               os.path.join(out_dir, f"{dt_name}_{mesh.coords['model']}.pt"))
+    return out
+
+
+def moe_member(torch, mesh):
+    """(e) on this rank: one deepseek-moe-16b MoE layer in fp32 and a 2-row
+    global batch (S=2048), whole (output, aux loss, dropped slots), then
+    under FSDP x TP: each leaf this member's block, the FSDP blocks
+    gathered on use, the experts split over ``model``, this DP member's
+    row routed with the whole batch (``token_axes``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prims
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import _gather_fsdp
+    from repro_torch.utils.trees import tree_from_paths, tree_paths
+    arch, dev = get_arch("deepseek-moe-16b"), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(MOE_CUT_SEED)
+    p = tree_paths(L.init_moe(arch, gen, (), torch.float32, dev))
+    # a direction shared by every token (as a model's hidden states have)
+    # skews the routing past the capacity: about a fifth of the slots drop
+    x = (torch.randn((2, S_MAIN, arch.d_model), generator=gen, device=dev)
+         + 0.5 * torch.randn(arch.d_model, generator=gen, device=dev))
+    L.DROP_LOG = []
+    try:
+        with torch.no_grad():
+            whole, whole_aux = L.apply_moe(arch, tree_from_paths(p), x)
+        whole_drops = int(L.DROP_LOG.pop().sum())
+        specs = layer_specs(arch, "moe", p, mesh.sizes, fsdp="data")
+        local = {k: sharding.local_block(t, specs[k], mesh.coords, mesh.sizes).contiguous()
+                 for k, t in p.items()}
+        del p
+        row = mesh.coords["data"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prims.bind(mesh), torch.no_grad():
+            pl = _gather_fsdp(tree_from_paths(local), tree_from_paths(specs), "data")
+            y, aux = L.apply_moe(arch, pl, x[row:row + 1], dispatch_spec=(None, "model"),
+                                 shared_axis="model", token_axes=("data",))
+        torch.cuda.synchronize()
+        drops = int(L.DROP_LOG.pop().sum())
+    finally:
+        L.DROP_LOG = None
+    return dict(drops=drops, whole_drops=whole_drops, s=time.perf_counter() - t0,
+                err=(y[0] - whole[row]).abs().max().item(),
+                scale=whole.abs().max().item(), aux=aux.item(),
+                whole_aux=whole_aux.item(), experts=pl["we_in"].shape[0],
+                local_params=sum(t.numel() for t in local.values()))
+
+
+def hybrid_rank(rank, world, init_method, out_dir):
+    """One rank of ``[train-tp-hybrid]``: the ``HYBRID_RUNS`` (each recorded
+    by :func:`step_recorder`), then (d) and (e) on ``GSPMD_SIZES``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig, dp_axes_of
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world,
+                            rank=rank)
+    out = {}
+    try:
+        for part, (name, sizes, mode) in HYBRID_RUNS.items():
+            rec = out[part] = {"steps": []}
+            start, on_step = step_recorder(rec)
+            n_dp = math.prod(sizes[a] for a in dp_axes_of(sizes))
+            cfg = TrainerConfig(steps=HYBRID_STEPS, lr=3e-4, warmup=1, mode=mode,
+                                codec="int8" if mode == "dfabric" else None)
+            trainer = Trainer(build_model(get_smoke_arch(name),
+                                          ModelSettings(**HYBRID_FIELDS),
+                                          device="cuda", seed=0),
+                              prims.Mesh(sizes),
+                              ShapeConfig("custom", HYBRID_SEQ, HYBRID_ROWS * n_dp,
+                                          "train"), cfg)
+            params, opt, step0 = trainer.init_state()
+            start(trainer)
+            trainer.train(params, opt, step0, on_step=on_step)
+            del trainer, params, opt
+        mesh = prims.Mesh(GSPMD_SIZES)
+        out["d"] = mamba_member_grads(torch, mesh, out_dir)
+        torch.cuda.empty_cache()
+        out["e"] = moe_member(torch, mesh)
+        out["coords"] = mesh.coords
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def check_mamba_cut(torch, recs, out_dir, card):
+    """(d) in this process: the unsharded Mamba layer of each ``MAMBA_CUT``
+    dtype with K4, its input's and parameters' gradients against the two
+    members' put together (``sharding.assemble``: ``w_in`` from the
+    members' channels of both halves)."""
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.models import sharding
+    from repro_torch.models import ssm as SSM
+    sizes = {"model": 2}
+    for data, (dt_name, seed, tol) in MAMBA_CUT.items():
+        members = [r["d"] for r in recs if r["coords"]["data"] == data]
+        arch, p, x, gy = mamba_layer(torch, dt_name, seed)
+        x.requires_grad_(True)
+        for t in p.values():
+            t.requires_grad_(True)
+        torch.cuda.synchronize()
+        before, t0 = ms_kernel.LAUNCHES, time.perf_counter()
+        y, _ = SSM.apply_mamba(arch, p, x, use_kernel=True)
+        ref = dict(zip(["x"] + list(p), torch.autograd.grad(y, [x] + list(p.values()), gy)))
+        torch.cuda.synchronize()
+        ref_s, launched = time.perf_counter() - t0, ms_kernel.LAUNCHES - before
+        specs = layer_specs(arch, "mamba", p, sizes)
+        del y, p
+        blocks = [torch.load(os.path.join(out_dir, f"{dt_name}_{m}.pt")) for m in (0, 1)]
+        if not torch.equal(blocks[0]["x"], blocks[1]["x"]):
+            raise AssertionError(f"[train-tp-hybrid] (d) {dt_name}: the members' input "
+                                 f"gradients differ")
+        worst, worst_rel, past = 0.0, 0.0, 0
+        for k, want in ref.items():
+            got = blocks[0]["x"] if k == "x" else sharding.assemble(
+                {(("model", m),): blocks[m][k] for m in (0, 1)}, specs[k],
+                want.shape, sizes, lambda ps, d: torch.cat(ps, d))
+            got, want = got.to(want.device).float(), want.float()
+            diff = (got - want).abs()
+            atol = tol if dt_name == "float32" else tol * want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=tol, atol=atol,
+                                       msg=lambda m: f"[train-tp-hybrid] (d) {dt_name} d{k}: {m}")
+            rel = ((got - want).double().norm() / want.double().norm()).item()
+            if dt_name != "float32" and not rel <= BF16_LEAF_REL:
+                raise AssertionError(f"[train-tp-hybrid] (d) {dt_name} d{k}: relative "
+                                     f"error {rel:.3e}")
+            worst, worst_rel = max(worst, diff.max().item()), max(worst_rel, rel)
+            past += int((diff > tol + tol * want.abs()).sum())
+            del got, diff
+        scope = "" if dt_name == "float32" else " of each leaf's largest value"
+        log(f"[train-tp-hybrid] (d) one Mamba layer of the jamba cut at full width "
+            f"(d_model {arch.d_model}, d_inner {arch.mamba.expand * arch.d_model}, "
+            f"d_state {arch.mamba.d_state}) {dt_name} B=1 S={S_MAIN} over model = 2: "
+            f"{members[0]['channels']} channels a member, K4 launches a member "
+            f"{[m['launches'] for m in members]}, forward + backward "
+            f"{', '.join(format(m['s'], '.3f') for m in members)} s a member; unsharded "
+            f"with K4 ({launched} launch) {ref_s:.3f} s in this process; the input's and "
+            f"{len(ref) - 1} parameter gradients put together within rtol {tol}, atol "
+            f"{tol}{scope} "
+            f"(max abs diff {worst:.3e}; {past} elements past atol = rtol = {tol}; worst "
+            f"leaf relative error {worst_rel:.2e}) | {card}")
+        if launched != 1 or any(m["launches"] != 1 for m in members):
+            raise AssertionError("[train-tp-hybrid] (d): K4 did not run once a member")
+        del ref, blocks, x, gy
+        torch.cuda.empty_cache()
+
+
+def hybrid_phase(torch, card):
+    """``[train-tp-hybrid]``: (a)-(c) checked by :func:`check_tp_steps`;
+    (d) by :func:`check_mamba_cut`; (e) the members' dropped slots summed
+    equal to the unsharded layer's on the 2-row batch, the output within
+    1e-5 of its largest value (fp32) and the aux loss within 1e-6."""
+    from repro_torch.launch import train as train_cli
+    out_dir = os.path.join(HERE, "build", "mamba_cut")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(hybrid_rank, TP_RANKS, out_dir, timeout=1200)
+    log(f"[train-tp-hybrid] four ranks, (a)-(e): {time.perf_counter() - t0:.1f} s "
+        f"wall | {card}")
+    for part, (name, sizes, mode) in HYBRID_RUNS.items():
+        tag = f"train-tp-hybrid ({part})"
+        log(f"[{tag}] {name} smoke with its experts, {mode} on (pod, data, model) = "
+            f"{tuple(sizes.values())}{', int8 slow tier' if mode == 'dfabric' else ''}, "
+            f"{HYBRID_FIELDS}, B={HYBRID_ROWS} S={HYBRID_SEQ} a DP member, "
+            f"{HYBRID_STEPS} steps | {card}")
+        check_tp_steps(tag, [r[part] for r in recs], card,
+                       HYBRID_ROWS * 2 * HYBRID_SEQ)
+    check_mamba_cut(torch, recs, out_dir, card)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    members = [r["e"] for r in recs if r["coords"]["model"] == 0]
+    drops = sum(m["drops"] for m in members)
+    for rank, r in enumerate(recs):
+        e = r["e"]
+        aux_rel = abs(e["aux"] - e["whole_aux"]) / e["whole_aux"]
+        log(f"[train-tp-hybrid] (e) rank {rank} {r['coords']}: deepseek-moe-16b MoE "
+            f"layer fp32 under FSDP x TP, {e['experts']} of 64 experts, "
+            f"{e['local_params']} parameters held; its row of the 2 x {S_MAIN} batch: "
+            f"{e['drops']} slots dropped (the unsharded layer {e['whole_drops']}), "
+            f"output max abs diff {e['err']:.3e} of {e['scale']:.3e}, aux rel diff "
+            f"{aux_rel:.2e}, {e['s']:.3f} s | {card}")
+        if not (e["err"] <= 1e-5 * e["scale"] and aux_rel <= 1e-6 and e["experts"] == 32):
+            raise AssertionError(f"[train-tp-hybrid] (e) rank {rank}: {e}")
+    whole = members[0]["whole_drops"]
+    log(f"[train-tp-hybrid] (e) the DP members' dropped slots {drops} (sum) against the "
+        f"unsharded layer's {whole} on the 2-row batch")
+    if drops != whole or whole == 0:
+        raise AssertionError("[train-tp-hybrid] (e): the drops differ from the "
+                             "unsharded layer's")
 
 
 def dir_bytes(path) -> int:
@@ -2175,10 +2582,6 @@ def main() -> None:
 
     from repro_torch.configs import get_arch, one_card_arch
     from repro_torch.kernels._build import library_path
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
-    from repro_torch.kernels.quantize import kernel as q_kernel
-    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.models import ModelSettings
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2186,8 +2589,7 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t_start = time.perf_counter()
-    counters = {"flash_attention_fwd": fa_kernel, "wkv6_fwd": wkv_kernel,
-                "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
+    counters = kernel_modules()
     phase_t = [time.perf_counter()]
 
     def phase_done(name: str) -> None:
@@ -2214,8 +2616,8 @@ def main() -> None:
                 k3_spill_check(summary)
             if name == "mamba_scan_fwd":
                 k4_spill_check(summary)
-    log(f"[build]   flash_attention_fwd SASS: "
-        f"{k1_sass_check(library_path('flash_attention_fwd', fa_kernel.SOURCES))}")
+    fa_lib = library_path("flash_attention_fwd", counters["flash_attention_fwd"].SOURCES)
+    log(f"[build]   flash_attention_fwd SASS: {k1_sass_check(fa_lib)}")
     phase_done("build")
 
     # ---- qwen2-0.5b: K1 vs plain, prefill, consistency, serve --------------

@@ -341,6 +341,19 @@ class _GatherScatterGrad(torch.autograd.Function):
         return reduce_scatter_tiled(g, ctx.axis, ctx.dim), None, None
 
 
+class _PsumPsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        TP_CALLS["psum_fwd"] += 1
+        return psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        TP_CALLS["psum_bwd"] += 1
+        return psum(g, ctx.axes), None
+
+
 def psum_replicated(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
     """Sum over ``axis`` whose backward is the identity: the output of a
     row-parallel product, after which every member computes alike, so
@@ -348,6 +361,17 @@ def psum_replicated(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
     if axis is None or axis_size(axis) == 1:
         return x
     return _PsumIdentityGrad.apply(x, axis)
+
+
+def psum_shared(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Sum of the members' parts over ``axes`` whose backward is a sum as
+    well: every member uses the sum in its own share of the loss (the
+    batch's MoE aux loss under the GSPMD step), so each part's gradient is
+    the sum of every member's use."""
+    active = tuple(a for a in _axes(axes) if axis_size(a) > 1)
+    if not active:
+        return x
+    return _PsumPsumGrad.apply(x, active)
 
 
 def to_parallel(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:

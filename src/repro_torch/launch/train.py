@@ -9,9 +9,9 @@ ranks itself.  ``--device cuda`` (the default) raises without a card.
 With ``--ckpt-dir`` and ``--ckpt-every`` member 0 checkpoints every that
 many steps (and on SIGTERM), and a second run with the same ``--ckpt-dir``
 resumes from the newest one, on this mesh or another.  A ``--mesh`` with
-a model axis above 1 splits dense and MoE layers over it (tensor
-parallelism), and ``--mode gspmd`` runs the FSDP x TP step (dense models);
-RWKV6 and Mamba under a model axis raise, naming ROADMAP.md.
+a model axis above 1 splits every decoder family's layers over it (tensor
+parallelism), and ``--mode gspmd`` runs the FSDP x TP step, for every
+decoder family too (a MoE layer routes the global batch as one group).
 
 Examples::
 
@@ -21,6 +21,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --smoke --mode gspmd --mesh 2,2,2 --steps 4 --batch 8 --seq 32 \\
         --device cpu   # FSDP over data x TP over model, 8 ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+        --smoke --mode gspmd --mesh 1,2,2 --steps 4 --batch 4 --seq 32 \\
+        --device cpu   # any decoder family: RWKV6, Jamba, MoE
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --mesh 2,1,1 --codec int8 --steps 3 --batch 4 --seq 2048 \\
         --backend gloo   # two ranks sharing one card

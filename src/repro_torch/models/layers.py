@@ -513,7 +513,8 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
               dispatch_spec=None, dispatch_schedule=None,
-              shared_axis: Optional[str] = None
+              shared_axis: Optional[str] = None,
+              token_axes: Tuple[str, ...] = ()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_load_balance_loss).  x: (B, S, d).
 
@@ -532,6 +533,14 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     experts' slabs only, and the members' outputs are summed.  Without a
     ``tp`` the leaves must hold every expert.  ``shared_axis`` names the
     axis that splits the shared experts' d_ff (as a dense MLP's), if any.
+
+    ``token_axes``: DP axes whose members' rows form one batch, routed as
+    one dispatch group (the GSPMD step's: the JAX package's ``jax.jit``
+    sees the global batch there, ``groups`` 1): the capacity is the whole
+    batch's, a slot's place in its expert's slab counts the slots that
+    earlier members (in row order) send to that expert, and the aux loss
+    is the whole batch's (:func:`_moe_dispatch`).  Each member still
+    gathers and computes its own rows' slots only.
 
     ``dispatch_schedule``: the planner's ``kind="all_to_all"`` schedule for
     this layer's dispatch (:func:`moe_dispatch_schedule`).  It is executed:
@@ -557,6 +566,12 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     T = B * S
     xt = x.reshape(T, d)
     G = groups if (groups > 1 and T % groups == 0) else 1
+    token_axes = tuple(a for a in token_axes if prims.axis_size(a) > 1)
+    if token_axes and (G > 1 or dispatch_schedule is not None):
+        raise NotImplementedError(
+            "dispatch groups or a planned dispatch schedule over the rows of "
+            "several DP members (the GSPMD step) are not ported yet "
+            "(ROADMAP.md queue 1, item 8)")
     sched_capacity = None
     if dispatch_schedule is not None:
         if dispatch_schedule.kind != "all_to_all":
@@ -599,7 +614,8 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     y, aux = _moe_dispatch(arch, p, xt.reshape(G, T // G, d),
                            capacity=sched_capacity,
                            dispatch_schedule=dispatch_schedule,
-                           expert_axis=expert_axis if n_ex > 1 else None)
+                           expert_axis=expert_axis if n_ex > 1 else None,
+                           token_axes=token_axes)
     y = y.reshape(T, d)
     if moe.num_shared_experts:  # d_ff read from the leaves
         y = y + apply_mlp_tp(arch, p["shared"], xt, shared_axis)
@@ -653,7 +669,8 @@ def _slab_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
 
 def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
                   capacity: Optional[int] = None, dispatch_schedule=None,
-                  expert_axis: Optional[str] = None
+                  expert_axis: Optional[str] = None,
+                  token_axes: Tuple[str, ...] = ()
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k dispatch on grouped (G, Tl, d) token slabs;
     returns (y (G, Tl, d), aux (G,)).
@@ -683,7 +700,19 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     outputs are summed over the axis.  The tokens and the gates enter the
     experts' part through ``to_parallel``, so their gradients are the sum
     of every member's experts'; the router and the aux loss, computed
-    alike on every member, are not summed."""
+    alike on every member, are not summed.
+
+    With ``token_axes`` (one group, G = 1) the rows of every member of
+    those axes are one batch, in row order (the axes slowest first): C is
+    that batch's capacity; a slot's place in its expert's slab is its
+    place among this member's slots plus the slots earlier members route
+    to that expert (one sum of the (n, E) counts over the axes), and a
+    slot drops at a place >= C; this member's kept slots fill its slab at
+    their places among its own slots, so the slab is C deep still.  The
+    aux loss is E * sum(me * ce) of the batch's means: the members'
+    router sums (whose backward is a sum too, so that each member's
+    router probabilities get the gradient of every member's use of the
+    batch aux) and top-1 counts summed over the axes."""
     moe = arch.moe
     G, Tl, d = xg.shape
     E, k = moe.num_experts, moe.top_k
@@ -697,24 +726,39 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (Switch-style), one per group
-    me = probs.mean(dim=1)  # (G, E)
-    ce = F.one_hot(topk_idx[..., 0], E).float().mean(dim=1)
+    top1 = F.one_hot(topk_idx[..., 0], E).float()
+    n_tok, rank = 1, 0  # members whose rows are one batch; this one's place
+    for a in token_axes:
+        n_tok, rank = n_tok * prims.axis_size(a), rank * prims.axis_size(a) + prims.axis_rank(a)
+    if token_axes:
+        T_all = Tl * n_tok
+        me = prims.psum_shared(probs.sum(dim=1), token_axes) / T_all  # (G, E)
+        ce = prims.psum(top1.sum(dim=1), token_axes) / T_all
+    else:
+        me = probs.mean(dim=1)  # (G, E)
+        ce = top1.mean(dim=1)
     aux = E * (me * ce).sum(dim=-1)
 
     C = capacity if capacity is not None \
-        else moe_capacity(Tl, k, E, moe.capacity_factor)
+        else moe_capacity(Tl * n_tok, k, E, moe.capacity_factor)
 
     flat_e = topk_idx.reshape(G, Tl * k)
     flat_g = prims.to_parallel(gate_vals.reshape(G, Tl * k), expert_axis)
     tok_id = torch.arange(Tl, device=dev).repeat_interleave(k).expand(G, -1)
-    pos = _slab_positions(flat_e, E)  # (G, Tl*k)
+    pos = _slab_positions(flat_e, E)  # (G, Tl*k), among this member's slots
+    place = pos
+    if token_axes:  # plus the slots of the members before this one
+        counts = torch.zeros((n_tok, G, E), dtype=torch.long, device=dev)
+        counts[rank].scatter_add_(1, flat_e, torch.ones_like(flat_e))
+        before = prims.psum(counts, token_axes)[:rank].sum(dim=0)  # (G, E)
+        place = pos + torch.gather(before, 1, flat_e)
     if DROP_LOG is not None:
-        DROP_LOG.append((pos >= C).sum(dim=1))
+        DROP_LOG.append((place >= C).sum(dim=1))
 
     # per-group token ids and (token, k) pair ids into (G, El, C) of this
-    # member's experts; an overflowing slot (pos >= C), or one of another
+    # member's experts; an overflowing slot (place >= C), or one of another
     # member's expert, goes to a dump column El*C that is cut off
-    kept = (pos < C) & (flat_e >= e0) & (flat_e < e0 + El)  # (G, Tl*k)
+    kept = (place < C) & (flat_e >= e0) & (flat_e < e0 + El)  # (G, Tl*k)
     slot = torch.where(kept, (flat_e - e0) * C + pos, El * C)
     dis = torch.full((G, El * C + 1), Tl, dtype=torch.long, device=dev)
     dis = dis.scatter_(1, slot, tok_id)[:, :El * C].reshape(G, El, C)

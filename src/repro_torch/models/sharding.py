@@ -10,6 +10,17 @@ where its dim does not split.  Under a model axis (tensor parallelism) or
 an FSDP axis each member holds the block of every leaf that its spec gives
 it (:func:`local_block`); :func:`assemble` puts the global array back
 together from the blocks, as ``jax.device_get`` does.
+
+One leaf is cut otherwise than the JAX package cuts it: Mamba's ``w_in``
+(d, 2 d_inner), whose product the layer splits into ``xs`` and ``z``
+halves.  The JAX rule gives the model members contiguous column blocks
+(member 0 all of ``xs``, member 1 all of ``z``) and GSPMD reshards behind
+the split; a member here holds the same channels of both halves instead
+(the leaf read as (d, 2, d_inner), split on d_inner): its entry is a
+:class:`Paired` axis name, equal to the plain name, so the specs still
+compare equal to the JAX package's while :func:`local_block` and
+:func:`assemble` cut and join the halves.  Global arrays (checkpoints,
+the sync state's) keep the JAX layout.
 """
 from __future__ import annotations
 
@@ -19,6 +30,14 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 from repro_torch.configs.base import ArchConfig
 
 Spec = Tuple[Any, ...]
+
+
+class Paired(str):
+    """A spec entry: the axis that splits a dim made of two equal halves
+    half by half, member *i* holding block *i* of each, side by side.  It
+    is equal to (and hashes as) its axis name."""
+
+    __slots__ = ()
 
 
 def _div(n: int, size: Optional[int]) -> bool:
@@ -116,8 +135,9 @@ def _spec_for_leaf(arch: ArchConfig, path: str, shape: Tuple[int, ...],
 
     # ---- mamba ---------------------------------------------------------------
     if parent == "mamba":
-        if name == "w_in":
-            return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp)))
+        if name == "w_in":  # xs then z: each member its channels of both
+            half = guard(core[1] // 2, tp, ntp)
+            return wrap((guard(core[0], fsdp, nf), half and Paired(half)))
         if name == "conv_w":
             return wrap((None, guard(core[1], tp, ntp)))
         if name in ("conv_b", "dt_bias", "D"):
@@ -220,13 +240,21 @@ def block_coords(spec: Spec, coords: Dict[str, int],
 def local_block(x, spec: Spec, coords: Dict[str, int],
                 sizes: Dict[str, int]):
     """The member at ``coords``'s block of a global array ``x`` (numpy or
-    torch; a view) under ``spec``."""
+    torch) under ``spec``: a view, but for a :class:`Paired` dim split
+    over several members (its two pieces joined by a copy)."""
     for d, entry in enumerate(spec):
         parts = math.prod(sizes.get(a, 1) for a in entry_axes(entry))
         if parts > 1:
-            blk = x.shape[d] // parts
             i = _block_index(entry, coords, sizes)
-            x = x[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
+            if isinstance(entry, Paired):  # (..., 2, n/2, ...), split on n/2
+                shape = tuple(x.shape)
+                blk = shape[d] // 2 // parts
+                x = x.reshape(shape[:d] + (2, shape[d] // 2) + shape[d + 1:])
+                x = x[(slice(None),) * (d + 1) + (slice(i * blk, (i + 1) * blk),)]
+                x = x.reshape(shape[:d] + (2 * blk,) + shape[d + 1:])
+            else:
+                blk = x.shape[d] // parts
+                x = x[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
     return x
 
 
@@ -257,6 +285,13 @@ def assemble(blocks: Dict[Tuple, Any], spec: Spec, shape: Sequence[int],
             return by_index[prefix]
         parts = math.prod(sizes.get(a, 1) for a in entry_axes(spec[d]))
         pieces = [build(prefix + (i,)) for i in range(parts)]
-        return pieces[0] if parts == 1 else concat(pieces, d)
+        if parts == 1:
+            return pieces[0]
+        if isinstance(spec[d], Paired):  # every member's first halves, then seconds
+            half = pieces[0].shape[d] // 2
+            cut = [(slice(None),) * d + (slice(j * half, (j + 1) * half),)
+                   for j in range(2)]
+            return concat([p[c] for c in cut for p in pieces], d)
+        return concat(pieces, d)
 
     return build(())

@@ -9,6 +9,19 @@ RWKV6 ("Finch") and Mamba (Jamba's SSM).
 Each recurrence runs through its kernel when ``use_kernel`` (the twin of
 the JAX ``use_pallas``): ``kernels/wkv6`` and ``kernels/mamba_scan``;
 else through the sequential ``wkv6_scan_ref`` and ``mamba_scan_ref``.
+
+Tensor parallelism (training): with ``axis`` a mixer's leaves are this
+member's blocks under the sharding rules (``models/sharding.py``) and it
+computes its heads or channels, with the collectives GSPMD puts in for
+the JAX package.  A replicated tensor used on local channels enters
+through ``prims.to_parallel`` (its gradient summed over the members), and
+a row-parallel product's output leaves through ``prims.psum_replicated``.
+RWKV6's time mix runs the wkv recurrence on its heads, between the
+column-split ``wr``/``wk``/``wv``/``wg`` and the row-parallel ``wo``; its
+channel mix is column- then row-parallel with the replicated ``wr`` gate
+applied after the sum; Mamba runs the conv and the scan on its channels of
+``d_inner`` between the paired ``w_in`` cut and the row-parallel ``w_x``
+and ``w_out``.
 """
 from __future__ import annotations
 
@@ -19,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prims
 from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref as _scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
@@ -26,6 +40,15 @@ from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.models.layers import dense_init, einsum, mm
 
 Params = Dict[str, Any]
+
+
+def _local(t: torch.Tensor, axis: Optional[str], dim: int = -1) -> torch.Tensor:
+    """This member's channels (dim ``dim``) of a replicated ``t``, entered
+    through ``to_parallel``; all of ``t`` without an axis."""
+    if axis is None:
+        return t
+    n = t.shape[dim] // prims.axis_size(axis)
+    return prims.to_parallel(t, axis).narrow(dim, prims.axis_rank(axis) * n, n)
 
 # ===========================================================================
 # RWKV6
@@ -69,15 +92,15 @@ def init_rwkv_time_mix(arch: ArchConfig, gen: torch.Generator,
 
 
 def _rwkv_projections(arch: ArchConfig, p: Params, x: torch.Tensor,
-                      x_prev: torch.Tensor):
+                      x_prev: torch.Tensor, axis: Optional[str] = None):
     """Data-dependent token-shift mixing + projections.
 
     x: (B, S, d); x_prev: x shifted right by one (B, S, d).
     Returns r, k, v, g, w — each (B, S, H, hd) except g (B, S, d); r, k, v,
-    g in x's dtype, w in fp32.
+    g in x's dtype, w in fp32.  With ``axis`` the mixing stays replicated
+    and each output holds this member's heads (channels of g).
     """
-    d = arch.d_model
-    H, hd = d // arch.rwkv.head_size, arch.rwkv.head_size
+    hd = arch.rwkv.head_size
     B_, S_ = x.shape[:2]
     dx = x_prev - x
     xxx = x + dx * p["x_maa"]
@@ -91,25 +114,34 @@ def _rwkv_projections(arch: ArchConfig, p: Params, x: torch.Tensor,
     xr = x + dx * (p["r_maa"] + mr)
     xg = x + dx * (p["g_maa"] + mg)
 
-    r = mm(xr, p["wr"]).reshape(B_, S_, H, hd)
-    k = mm(xk, p["wk"]).reshape(B_, S_, H, hd)
-    v = mm(xv, p["wv"]).reshape(B_, S_, H, hd)
-    g = F.silu(mm(xg, p["wg"]))
-    # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32
-    ww = p["w0"] + mm(torch.tanh(mm(xw, p["td_w1"])), p["td_w2"])
-    w = torch.exp(-torch.exp(ww.float())).reshape(B_, S_, H, hd)
+    def column(xi, name):  # this member's columns of a (d, d) leaf
+        return mm(prims.to_parallel(xi, axis), p[name])
+
+    r = column(xr, "wr").reshape(B_, S_, -1, hd)
+    k = column(xk, "wk").reshape(B_, S_, -1, hd)
+    v = column(xv, "wv").reshape(B_, S_, -1, hd)
+    g = F.silu(column(xg, "wg"))
+    # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32,
+    # on this member's channels
+    lora = prims.to_parallel(torch.tanh(mm(xw, p["td_w1"])), axis)
+    ww = _local(p["w0"], axis) + mm(lora, _local(p["td_w2"], axis))
+    w = torch.exp(-torch.exp(ww.float())).reshape(B_, S_, -1, hd)
     return r, k, v, g, w
 
 
-def _wkv_groupnorm(arch: ArchConfig, p: Params, y: torch.Tensor) -> torch.Tensor:
+def _wkv_groupnorm(arch: ArchConfig, p: Params, y: torch.Tensor,
+                   axis: Optional[str] = None) -> torch.Tensor:
     """Per-head groupnorm of the wkv output. y: (B, S, H, hd) -> (B, S, d)
-    fp32.  The population variance and eps 64e-5, as in the reference."""
+    fp32.  The population variance and eps 64e-5, as in the reference.
+    With ``axis`` y holds this member's heads, and the affine its
+    channels."""
     B_, S_, H, hd = y.shape
     yf = y.float()
     mean = yf.mean(dim=-1, keepdim=True)
     var = yf.var(dim=-1, keepdim=True, correction=0)
     yn = ((yf - mean) * torch.rsqrt(var + 64e-5)).reshape(B_, S_, H * hd)
-    return yn * p["ln_scale"].float() + p["ln_bias"].float()
+    return (yn * _local(p["ln_scale"], axis).float()
+            + _local(p["ln_bias"], axis).float())
 
 
 def wkv6_scan_ref(r, k, v, w, u, state=None):
@@ -130,22 +162,23 @@ def wkv6_scan_ref(r, k, v, w, u, state=None):
 def apply_rwkv_time_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
                         shift_state: Optional[torch.Tensor] = None,
                         wkv_state: Optional[torch.Tensor] = None,
-                        use_kernel: bool = False):
+                        use_kernel: bool = False, axis: Optional[str] = None):
     """Full time-mix block. Returns (out, (new_shift, new_wkv)); new_shift
-    is a view of x."""
+    is a view of x.  With ``axis`` the recurrence runs on this member's
+    heads (``u`` holds them) and ``wo`` is row-parallel."""
     B, S, d = x.shape
     if shift_state is None:
         shift_state = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     x_prev = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
-    r, k, v, g, w = _rwkv_projections(arch, p, x, x_prev)
+    r, k, v, g, w = _rwkv_projections(arch, p, x, x_prev, axis)
     u = p["u"].float()
     if use_kernel:
         y, new_state = wkv_ops.wkv6(r, k, v, w, u, state=wkv_state)
     else:
         y, new_state = wkv6_scan_ref(r.float(), k.float(), v.float(), w, u,
                                      state=wkv_state)
-    y = _wkv_groupnorm(arch, p, y.to(x.dtype))
-    out = mm(y.to(x.dtype) * g, p["wo"])
+    y = _wkv_groupnorm(arch, p, y.to(x.dtype), axis)
+    out = prims.psum_replicated(mm(y.to(x.dtype) * g, p["wo"]), axis)
     return out, (x[:, -1], new_state)
 
 
@@ -162,9 +195,11 @@ def init_rwkv_channel_mix(arch: ArchConfig, gen: torch.Generator,
 
 
 def apply_rwkv_channel_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
-                           shift_state: Optional[torch.Tensor] = None):
+                           shift_state: Optional[torch.Tensor] = None,
+                           axis: Optional[str] = None):
     """Channel mix with squared relu, whatever ``arch.activation`` says.
-    Returns (out, new_shift); new_shift is a view of x."""
+    Returns (out, new_shift); new_shift is a view of x.  With ``axis``
+    ``wk`` is column- and ``wv`` row-parallel, the gate replicated."""
     B, S, d = x.shape
     if shift_state is None:
         shift_state = torch.zeros((B, d), dtype=x.dtype, device=x.device)
@@ -172,8 +207,8 @@ def apply_rwkv_channel_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
     dx = x_prev - x
     xk = x + dx * p["k_maa"]
     xr = x + dx * p["r_maa"]
-    h = F.relu(mm(xk, p["wk"]))
-    v = mm(h * h, p["wv"])
+    h = F.relu(mm(prims.to_parallel(xk, axis), p["wk"]))
+    v = prims.psum_replicated(mm(h * h, p["wv"]), axis)
     return torch.sigmoid(mm(xr, p["wr"])) * v, x[:, -1]
 
 
@@ -238,14 +273,18 @@ def mamba_scan_ref(u, delta, A, Bc, Cc, D, state=None):
 def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
                 conv_state: Optional[torch.Tensor] = None,
                 ssm_state: Optional[torch.Tensor] = None,
-                use_kernel: bool = False):
+                use_kernel: bool = False, axis: Optional[str] = None):
     """Full Mamba block over a sequence; with states it is also the decode
     step (S = 1).  Returns (out, (conv_state, ssm_state)); the new conv
-    state is a view of this call's activations."""
+    state is a view of this call's activations.  With ``axis`` the layer
+    runs on this member's channels of d_inner: ``w_in`` holds them in
+    ``xs`` and in ``z`` (its paired cut), ``w_x`` and ``w_out`` are
+    row-parallel, and dt_r, B and C, summed, are used on them."""
     m = arch.mamba
     dtr = m.resolved_dt_rank(arch.d_model)
 
-    xs, z = mm(x, p["w_in"]).chunk(2, dim=-1)  # (B, S, di) each
+    # (B, S, di) each, this member's channels under an axis
+    xs, z = mm(prims.to_parallel(x, axis), p["w_in"]).chunk(2, dim=-1)
     if conv_state is not None:
         xs_ext = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
         conv = _mamba_conv_train(p, xs_ext)[:, conv_state.shape[1]:]
@@ -255,7 +294,8 @@ def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
     new_conv_state = xs_ext[:, -(m.d_conv - 1):] if m.d_conv > 1 else None
     h = F.silu(conv)
 
-    xdbl = mm(h, p["w_x"])  # (B, S, dtr + 2 ds)
+    # (B, S, dtr + 2 ds), whole on every member
+    xdbl = prims.to_parallel(prims.psum_replicated(mm(h, p["w_x"]), axis), axis)
     dt_r = xdbl[..., :dtr]
     Bc = xdbl[..., dtr:dtr + m.d_state]
     Cc = xdbl[..., dtr + m.d_state:]
@@ -271,4 +311,5 @@ def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
         y, new_ssm = mamba_scan_ref(h, delta, A, Bc, Cc, p["D"],
                                     state=ssm_state)
     y = y.to(x.dtype) * F.silu(z)
-    return mm(y, p["w_out"]), (new_conv_state, new_ssm)
+    return (prims.psum_replicated(mm(y, p["w_out"]), axis),
+            (new_conv_state, new_ssm))

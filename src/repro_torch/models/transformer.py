@@ -13,14 +13,18 @@ layer whose id ``layer_is_moe`` names has ``moe`` (an fp32 router, the
 experts and the shared experts) in place of ``mlp``.  The encoder-decoder
 family and learned or sinusoidal positions are not ported yet and raise.
 
-Training under a model axis (tensor parallelism; dense and MoE layers) and
-an FSDP axis (the GSPMD step) runs on each member's blocks of the leaves
-(``registry.Layout``): the code reads each leaf's spec, never assumes a
-split, and puts in the collectives GSPMD puts in for the JAX package —
-local heads with a row-parallel ``wo`` then a sum, column- then
-row-parallel MLPs, the vocab-sharded embedding and loss, experts split
+Training under a model axis (tensor parallelism; every decoder family)
+and an FSDP axis (the GSPMD step) runs on each member's blocks of the
+leaves (``registry.Layout``): the code reads each leaf's spec, never
+assumes a split, and puts in the collectives GSPMD puts in for the JAX
+package — local heads with a row-parallel ``wo`` then a sum, column- then
+row-parallel MLPs, RWKV6 and Mamba mixers on local heads or channels
+(``models/ssm.py``), the vocab-sharded embedding and loss, experts split
 over the axis, and each layer's FSDP blocks gathered on use (again in the
-recompute) with their gradients reduce-scattered back.
+recompute) with their gradients reduce-scattered back.  Under the GSPMD
+step the MoE layers route the whole batch as one dispatch group, as the
+JAX package's ``jax.jit`` of the global batch does
+(``layers.apply_moe``'s ``token_axes``).
 
 Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
 meet an fp32 compute dtype, promoted as jnp promotes them.  fp32
@@ -41,6 +45,7 @@ Modes:
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -213,23 +218,26 @@ def _axis(specs: Optional[Params], *path) -> Optional[str]:
 def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  st: ModelSettings, layer_id: int,
                  cache: Optional[Params] = None, pos: Optional[int] = None,
-                 specs: Optional[Params] = None
+                 specs: Optional[Params] = None, token_axes: Tuple[str, ...] = ()
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
     or the new recurrent states, are written into ``cache`` in place).
     Returns (x, its MoE aux loss or None, the layer's cache), as the
     reference's ``_apply_layer`` does.  ``specs`` (training only): the
-    layer's leaf specs, by which its leaves are this member's blocks."""
+    layer's leaf specs, by which its leaves are this member's blocks;
+    ``token_axes``: the DP axes whose members' rows a MoE layer routes as
+    one batch (the GSPMD step's)."""
     kind = layer_kind(arch, layer_id)
     if kind == "rwkv":
-        x, cache = _apply_rwkv_layer(arch, p, x, st, cache)
+        x, cache = _apply_rwkv_layer(arch, p, x, st, cache, specs)
         return x, None, cache
     h = L.apply_norm(arch, p["ln1"], x)
     if kind == "mamba":
         state = cache or {}
         out, (conv, ssm) = SSM.apply_mamba(
             arch, p["mamba"], h, conv_state=state.get("conv"),
-            ssm_state=state.get("ssm"), use_kernel=st.use_kernel_ssm)
+            ssm_state=state.get("ssm"), use_kernel=st.use_kernel_ssm,
+            axis=_axis(specs, "mamba", "w_in", 1))
         if cache is None:  # a copy: the view would keep (B, S, 2 di) alive
             cache = {"conv": conv.clone(), "ssm": ssm}
         else:
@@ -274,7 +282,8 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                   if "shared" in p["moe"] else None)
         out, aux = L.apply_moe(arch, p["moe"], h, groups=st.moe_groups,
                                dispatch_spec=(None, experts) if experts
-                               else None, shared_axis=shared)
+                               else None, shared_axis=shared,
+                               token_axes=token_axes)
         x = x + out
     else:
         x = x + L.apply_mlp_tp(arch, p["mlp"], h, _axis(specs, "mlp", "wi", 1))
@@ -282,20 +291,30 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
 
 
 def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
-                      st: ModelSettings, cache: Optional[Params] = None
+                      st: ModelSettings, cache: Optional[Params] = None,
+                      specs: Optional[Params] = None
                       ) -> Tuple[torch.Tensor, Params]:
     """Time mix then channel mix, each from its state in ``cache`` (zeros
     when None).  In decode the new states are copied into ``cache``; the
-    shifts returned by the mixers are views of their inputs."""
+    shifts returned by the mixers are views of their inputs.  ``specs``:
+    as in :func:`_apply_layer` (the time mix on this member's heads, the
+    channel mix on its d_ff columns)."""
     state = cache or {}
+    heads = _axis(specs, "tmix", "wr", 1)
+    if heads != _axis(specs, "tmix", "u", 0):
+        raise NotImplementedError(
+            f"{arch.name}: the time mix's projections split over "
+            f"{heads!r} but its heads over {_axis(specs, 'tmix', 'u', 0)!r}: "
+            f"a split inside a head is not ported (ROADMAP.md queue 1, item 8)")
     h = L.apply_norm(arch, p["ln1"], x)
     out, (tshift, wkv) = SSM.apply_rwkv_time_mix(
         arch, p["tmix"], h, shift_state=state.get("tshift"),
-        wkv_state=state.get("wkv"), use_kernel=st.use_kernel_ssm)
+        wkv_state=state.get("wkv"), use_kernel=st.use_kernel_ssm, axis=heads)
     x = x + out
     h = L.apply_norm(arch, p["ln2"], x)
     out, cshift = SSM.apply_rwkv_channel_mix(
-        arch, p["cmix"], h, shift_state=state.get("cshift"))
+        arch, p["cmix"], h, shift_state=state.get("cshift"),
+        axis=_axis(specs, "cmix", "wk", 1))
     x = x + out
     new = {"tshift": tshift, "wkv": wkv, "cshift": cshift}
     if cache is None:
@@ -343,19 +362,12 @@ def logits_from_hidden(arch: ArchConfig, params: Params,
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(arch: ArchConfig, st: ModelSettings,
-                    model_axis: int = 1) -> None:
+def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port cannot train yet: what it cannot run
     (``check_supported``: the encoder-decoder family, learned or sinusoidal
-    positions, fp32 parameters with a bf16 compute dtype), RWKV6 or Mamba
-    layers under a model axis above 1, or an unknown remat policy."""
+    positions, fp32 parameters with a bf16 compute dtype, the
+    sequence-parallel settings), or an unknown remat policy."""
     check_supported(arch, st)
-    if model_axis > 1 and (arch.attn_free or arch.is_hybrid):
-        raise NotImplementedError(
-            f"training {arch.name} ({arch.family}: RWKV6 or Mamba layers) with "
-            f"a model axis of {model_axis} (tensor parallelism) is not ported "
-            f"yet: the port splits dense and MoE layers only (ROADMAP.md "
-            f"queue 1, item 8)")
     if st.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {st.remat!r} (none | full | dots)")
 
@@ -431,11 +443,10 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     scanned group).  With a ``layout`` the leaves are this member's
     blocks; each layer's FSDP blocks are gathered inside the recomputed
     function, so that a remat gathers them again in the backward."""
-    check_trainable(arch, st, model_axis=(layout.sizes.get(layout.tp, 1)
-                                          if layout is not None and layout.tp
-                                          else 1))
+    check_trainable(arch, st)
     B, Sq = tokens.shape
     fsdp = layout.fsdp if layout is not None else None
+    token_axes = layout.loss_axes if layout is not None else ()
     espec = layout.tree["embed"] if layout is not None else None
     x = L.embed_lookup(_gather_fsdp(params["embed"], espec, fsdp), tokens,
                        espec[0] if espec is not None else None).to(st.cdt())
@@ -453,7 +464,7 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
             def layer(x_, lp=lp, off=off):  # (x, aux): the cache is dropped
                 lp_ = _gather_fsdp(lp, specs[off], fsdp)
                 return _apply_layer(arch, lp_, x_, positions, st, off,
-                                    specs=specs[off])[:2]
+                                    specs=specs[off], token_axes=token_axes)[:2]
 
             x, a = _remat(st, layer, x)
             if a is not None:
@@ -520,11 +531,15 @@ def ce_loss_chunked(arch: ArchConfig, params: Params, hidden: torch.Tensor,
 def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                st: ModelSettings, layout=None) -> torch.Tensor:
     """Mean token cross-entropy, plus 0.01 x the MoE aux loss a MoE layer
-    (the JAX package's weighting)."""
+    (the JAX package's weighting).  With ``layout.loss_axes`` this is the
+    member's share of the batch's loss: its tokens' part of the mean, and
+    the batch's aux loss (the same on every member) over the members."""
     hidden, aux = forward_train(arch, params, batch["tokens"], st, layout)
     loss = ce_loss_chunked(arch, params, hidden, batch["labels"], st, layout)
     if arch.moe is not None:
-        loss = loss + 0.01 * aux / max(len(arch.moe_layer_ids()), 1)
+        n = (math.prod(prims.axis_size(a) for a in layout.loss_axes)
+             if layout is not None else 1)
+        loss = loss + 0.01 * aux / max(len(arch.moe_layer_ids()), 1) / n
     return loss
 
 

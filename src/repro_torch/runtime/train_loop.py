@@ -30,8 +30,9 @@ another mesh (elastic restart).  A DFabric sync state whose sections
 differ from the current plan's (another model axis or fast tier packs
 other buckets) is re-cut leaf by leaf (``grad_sync.resection_state``).
 
-Not ported yet (they raise, naming ROADMAP.md): RWKV6 and Mamba layers
-under a model axis, and the GSPMD step for other than dense models.
+Every decoder family trains under both steps, with or without a model
+axis.  Not ported yet (they raise, naming ROADMAP.md): MoE dispatch groups
+(``moe_groups`` > 1) under the GSPMD step.
 """
 from __future__ import annotations
 
@@ -180,8 +181,7 @@ def make_dfabric_train_step(model: Model, mesh: prims.Mesh, plan: SyncPlan,
     (``Model.shard``: TP over ``model``, vocab-sharded tables).  The loss
     is averaged over the DP members (``pmean``) and the gradients over the
     microbatches, as in the JAX step."""
-    check_trainable(model.arch, model.settings,
-                    model_axis=mesh.sizes.get("model", 1))
+    check_trainable(model.arch, model.settings)
     if not zero1:
         ss = dataclasses.replace(ss, mode="paper")
     dp_axes = dp_axes_of(mesh.sizes)
@@ -263,13 +263,15 @@ def zero_moment_specs(pshapes, pspecs, sizes: Dict[str, int]):
     return {k: spec_of(tuple(pshapes[k].shape), pspecs[k]) for k in pshapes}
 
 
-def check_gspmd(arch) -> None:
-    """The GSPMD step runs the dense family only, yet."""
-    if arch.moe is not None or arch.attn_free or arch.is_hybrid:
+def check_gspmd(arch, st) -> None:
+    """The GSPMD step routes a MoE layer's tokens as one batch over the DP
+    members (``layers.apply_moe``'s ``token_axes``); dispatch groups over
+    that batch are not ported yet."""
+    if arch.moe is not None and st.moe_groups > 1:
         raise NotImplementedError(
-            f"the GSPMD step (mode='gspmd') for {arch.name} ({arch.family}: "
-            f"MoE, RWKV6 or Mamba layers) is not ported yet: it runs the "
-            f"dense family (ROADMAP.md queue 1, item 8)")
+            f"the GSPMD step (mode='gspmd') for {arch.name} with moe_groups "
+            f"{st.moe_groups}: dispatch groups over the rows of several DP "
+            f"members are not ported yet (ROADMAP.md queue 1, item 8)")
 
 
 def make_gspmd_train_step(model: Model, mesh: prims.Mesh,
@@ -291,9 +293,8 @@ def make_gspmd_train_step(model: Model, mesh: prims.Mesh,
     the moments laid out as the parameters or, with ``zero_opt``, split
     further by :func:`zero_moment_specs` (each member updates its part of
     its block and the parts are gathered)."""
-    check_trainable(model.arch, model.settings,
-                    model_axis=mesh.sizes.get("model", 1))
-    check_gspmd(model.arch)
+    check_trainable(model.arch, model.settings)
+    check_gspmd(model.arch, model.settings)
     mi = mesh_info(mesh.sizes, fsdp=fsdp)
     dp_axes = dp_axes_of(mesh.sizes)
     model.shard(mi, mesh.sizes, mesh.coords, loss_axes=dp_axes)
@@ -443,10 +444,9 @@ class Trainer:
         if cfg.mode not in ("dfabric", "gspmd"):
             raise ValueError(f"unknown mode {cfg.mode!r} (dfabric | gspmd)")
         # refused before any collective or checkpoint directory
-        check_trainable(model.arch, model.settings,
-                        model_axis=mesh.sizes.get("model", 1))
+        check_trainable(model.arch, model.settings)
         if cfg.mode == "gspmd":
-            check_gspmd(model.arch)
+            check_gspmd(model.arch, model.settings)
         self.model, self.mesh, self.shape, self.cfg = model, mesh, shape, cfg
         self.topo = topo if topo is not None else topology_from_mesh_sizes(mesh.sizes)
         self.pipeline = data_pipeline or TokenPipeline(

@@ -93,8 +93,11 @@ def test_jamba_with_experts_raises():
     it to JAX) and trained (tests/test_torch_train_families.py): MoE on
     the odd offsets of its 8-layer group, and a finite loss with a
     gradient for every leaf.  Training it raises only where nothing is
-    ported: a model axis above 1."""
+    ported: MoE dispatch groups under the GSPMD step (a model axis and
+    the GSPMD step are ported)."""
+    import dataclasses
     from repro_torch.models.transformer import check_trainable
+    from repro_torch.runtime.train_loop import check_gspmd
     model = build_model(get_smoke_arch(JAMBA), ModelSettings(**FP32, remat="none"),
                         device="cpu")
     kids = [dict(getattr(model.blocks, f"l{off}").named_children())
@@ -107,8 +110,9 @@ def test_jamba_with_experts_raises():
     loss = model.loss(params, {"tokens": toks, "labels": toks})
     grads = torch.autograd.grad(loss, leaves)
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    check_gspmd(model.arch, model.settings)
     with pytest.raises(NotImplementedError, match="not ported"):
-        check_trainable(model.arch, model.settings, model_axis=2)
+        check_gspmd(model.arch, dataclasses.replace(model.settings, moe_groups=2))
 
 
 def test_full_width_param_count():

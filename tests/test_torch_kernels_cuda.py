@@ -757,3 +757,142 @@ def test_moe_layer_at_model_2_on_card(cuda_device, tmp_path):
         assert experts == 32
         assert all(same), f"rank {rank}: {same.count(False)} of {len(same)} differ"
         assert err <= 1e-5 * scale, (rank, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("member", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_on_a_members_heads_on_card(cuda_device, member, dtype):
+    """K3 through ``wkv6_ops.wkv6`` on one model member's heads of
+    rwkv6-1.6b at model = 2 (``[train-gspmd-rwkv]``: B=1, 16 of the 32
+    heads, S=1024, hd 64), the member's heads a slice of the model-layout
+    (B, S, H, hd) tensors (a view, no copy): y and the final state
+    against the plain version on the same slice, at K3's tolerance."""
+    dt = getattr(torch, dtype)
+    r, k, v, w, u, s0 = _wkv_inputs(130, 1, 32, 1024, 64, dt, cuda_device)
+    heads = slice(16 * member, 16 * (member + 1))
+    # the model layout, (B, S, H, hd), and this member's heads of it
+    local = [a.transpose(1, 2).contiguous()[:, :, heads] for a in (r, k, v, w)]
+    before = wkv_kernel.LAUNCHES
+    y, sT = wkv_ops.wkv6(*local, u[heads], state=s0[:, heads])
+    assert wkv_kernel.LAUNCHES == before + 1 and y.shape == (1, 1024, 16, 64)
+    ey, es = wkv6_ref(*(a.transpose(1, 2) for a in local), u[heads], s0[:, heads])
+    _wkv_close(y, ey.transpose(1, 2))
+    _wkv_close(sT, es)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("member", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_on_a_members_channels_on_card(cuda_device, member, dtype):
+    """K4 through ``ms_ops.mamba_scan`` on one model member's channels of
+    one jamba Mamba layer at model = 2 (``[train-tp-hybrid]`` (d): B=1,
+    S=2048, 8192 of d_inner's 16384 channels, d_state 16): u and dt this
+    member's channels of the whole layer's (sliced, then made contiguous,
+    as the kernel takes them), A, D and the state its rows, B and C
+    whole; against the plain version at K4's tolerance."""
+    dt_ = getattr(torch, dtype)
+    u, dt, A, Bc, Cc, D, h0 = _ms_inputs(140, 1, 2048, 16384, 16, dt_, cuda_device)
+    ch = slice(8192 * member, 8192 * (member + 1))
+    args = (u[..., ch].contiguous(), dt[..., ch].contiguous(), A[ch], Bc, Cc,
+            D[ch], h0[:, ch].contiguous())
+    before = ms_kernel.LAUNCHES
+    got = ms_ops.mamba_scan(*args)
+    assert ms_kernel.LAUNCHES == before + 1 and got[0].shape == (1, 2048, 8192)
+    _ms_check(args, got)
+
+
+def _moe_fsdp_tp_rank(rank, store, queue):
+    """One of four ranks sharing the card over gloo, mesh (data, model) =
+    (2, 2): one deepseek-moe-16b MoE layer in fp32 (seed 9) and a 2-row
+    global batch (S=2048), whole on this rank (its output, aux loss and
+    dropped slots), then under FSDP x TP: each leaf this member's block
+    (``sharding.param_specs`` with FSDP over data), the FSDP blocks
+    gathered on use, the experts split over model, this member's row
+    routed with the whole batch (``token_axes``)."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.configs import get_arch
+        from repro_torch.core import prims
+        from repro_torch.models import layers as L
+        from repro_torch.models import sharding
+        from repro_torch.models.transformer import _gather_fsdp
+        from repro_torch.utils.trees import tree_from_paths, tree_paths
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=4, rank=rank)
+        arch = get_arch("deepseek-moe-16b")
+        gen = torch.Generator(device=dev).manual_seed(9)
+        p = L.init_moe(arch, gen, (), torch.float32, dev)
+        # a direction shared by every token skews the routing past C
+        x = (torch.randn((2, 2048, arch.d_model), generator=gen, device=dev)
+             + 0.5 * torch.randn(arch.d_model, generator=gen, device=dev))
+        L.DROP_LOG = []
+        with torch.no_grad():
+            whole, whole_aux = L.apply_moe(arch, p, x)
+        whole_drops = int(L.DROP_LOG.pop().sum())
+        sizes = {"data": 2, "model": 2}
+        mesh = prims.Mesh(sizes)
+        flat = {f"moe/{k}": t for k, t in tree_paths(p).items()}
+        specs = sharding.param_specs(arch, {k: t.shape for k, t in flat.items()},
+                                     sharding.MeshInfo(sizes, fsdp_axis="data"))
+        local = {k: sharding.local_block(t, specs[k], mesh.coords, sizes).contiguous()
+                 for k, t in flat.items()}
+        row = mesh.coords["data"]
+        with prims.bind(mesh), torch.no_grad():
+            pl = _gather_fsdp(tree_from_paths(local)["moe"],
+                              tree_from_paths(specs)["moe"], "data")
+            y, aux = L.apply_moe(arch, pl, x[row:row + 1],
+                                 dispatch_spec=(None, "model"), shared_axis="model",
+                                 token_axes=("data",))
+        drops = int(L.DROP_LOG.pop().sum())
+        torch.cuda.synchronize()
+        err = (y[0] - whole[row]).abs().max().item()
+        res = (mesh.coords, drops, whole_drops, err, whole.abs().max().item(),
+               abs(aux.item() - whole_aux.item()) / whole_aux.item(),
+               pl["we_in"].shape[0])
+        dist.destroy_process_group()
+        queue.put((rank, res, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+@pytest.mark.cuda
+def test_moe_layer_under_fsdp_tp_drops_as_the_whole_batch_on_card(cuda_device,
+                                                                   tmp_path):
+    """The deepseek MoE layer under FSDP x TP, (data, model) = (2, 2),
+    four ranks on the card, each DP member one row of a 2-row batch
+    (S=2048) routed as one batch with the capacity of its 4096 tokens
+    (C = 480 against a mean load of 384 a routed expert; the rows share a
+    direction that skews the routing, so slots drop):
+    the members' dropped slots add up to the unsharded layer's, its
+    output is the unsharded layer's row within 1e-5 of the largest value
+    (fp32), and its aux loss is the batch's within 1e-6."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_moe_fsdp_tp_rank,
+                         args=(r, str(tmp_path / "store"), queue)) for r in range(4)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(4):
+            rank, res, err = queue.get(timeout=600)
+            assert err is None, err
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    members = [r for r in out.values() if r[0]["model"] == 0]
+    whole_drops = members[0][2]
+    assert whole_drops > 0 and sum(r[1] for r in members) == whole_drops
+    for coords, drops, _, err, scale, aux_rel, experts in out.values():
+        assert experts == 32
+        assert err <= 1e-5 * scale, (coords, err, scale)
+        assert aux_rel <= 1e-6, (coords, aux_rel)

@@ -2,6 +2,7 @@
 3-tier run on 8 gloo CPU ranks that it spawns itself, runs with a model
 axis and in the GSPMD step, its mesh rules (the JAX CLI's), and what it
 refuses."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -90,10 +91,12 @@ def test_cli_refusals():
 
 
 @pytest.mark.parametrize("mode,arch,mesh", [
-    ("dfabric", "qwen2-0.5b", "1,1,2"), ("gspmd", "qwen3-1.7b", "1,2,2")])
+    ("dfabric", "qwen2-0.5b", "1,1,2"), ("gspmd", "qwen3-1.7b", "1,2,2"),
+    ("dfabric", "rwkv6-1.6b", "1,1,2"), ("gspmd", "jamba-1.5-large-398b", "1,2,2")])
 def test_cli_trains_tp_and_gspmd_on_cpu(tmp_path, mode, arch, mesh):
     """A model axis of 2 (tensor parallelism) in the DFabric step, and the
-    GSPMD step (FSDP over data x TP over model): the loss falls."""
+    GSPMD step (FSDP over data x TP over model), for a dense, an RWKV6 and
+    a hybrid model (jamba's smoke with its experts): the loss falls."""
     out = tmp_path / "metrics.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
@@ -108,18 +111,21 @@ def test_cli_trains_tp_and_gspmd_on_cpu(tmp_path, mode, arch, mesh):
     assert len(losses) == 4 and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("cfg,sizes,arch", [
-    # the GSPMD step runs dense models only, yet
-    (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}, "rwkv6-1.6b"),
-    # RWKV6 and Mamba layers under a model axis
-    (dict(), {"pod": 1, "data": 2, "model": 2}, "rwkv6-1.6b"),
+@pytest.mark.parametrize("cfg,sizes,arch,settings", [
+    # MoE dispatch groups over the GSPMD step's whole batch
+    (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}, "deepseek-moe-16b",
+     dict(moe_groups=2)),
+    # the sequence-parallel settings
+    (dict(), {"pod": 1, "data": 2, "model": 2}, "rwkv6-1.6b", dict(seq_axis="model")),
     # refused before the checkpoint manager makes or sweeps its directory
-    (dict(ckpt_every=2, ckpt_dir="/nonexistent"), {"pod": 1, "data": 2, "model": 2},
-     "jamba-1.5-large-398b"),
+    (dict(mode="gspmd", ckpt_every=2, ckpt_dir="/nonexistent"),
+     {"pod": 1, "data": 2, "model": 2}, "jamba-1.5-large-398b", dict(moe_groups=2)),
 ])
-def test_trainer_refuses_what_is_not_ported(cfg, sizes, arch):
+def test_trainer_refuses_what_is_not_ported(cfg, sizes, arch, settings):
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
     model = build_model(get_smoke_arch(arch), st, device="meta")
+    # settings the build itself would refuse, set after it
+    model.settings = dataclasses.replace(st, **settings)
     mesh = types.SimpleNamespace(sizes=sizes)  # refused before any collective
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
         Trainer(model, mesh, ShapeConfig("t", 32, 8, "train"), TrainerConfig(**cfg))

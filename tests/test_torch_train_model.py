@@ -85,12 +85,13 @@ def test_loss_chunk_does_not_change_the_loss(weights, batch):
 
 def test_untrainable_raise():
     """What the port trains: every decoder family, remat none/full/dots,
-    tri attention, fp32/fp32, bf16/bf16 and bf16/fp32, dense and MoE
-    models under a model axis.  What still raises, naming ROADMAP.md: the
-    encoder-decoder (item 9), RWKV6 and Mamba layers under a model axis
-    above 1 (item 8), the sequence-parallel settings (item 8), and fp32
-    parameters with a bf16 compute dtype (no reference)."""
+    tri attention, fp32/fp32, bf16/bf16 and bf16/fp32, under a model axis
+    or not, in the GSPMD step too.  What still raises, naming ROADMAP.md:
+    the encoder-decoder (item 9), the sequence-parallel settings and MoE
+    dispatch groups under the GSPMD step (item 8), and fp32 parameters
+    with a bf16 compute dtype (no reference)."""
     from repro_torch.configs.base import EncoderConfig
+    from repro_torch.runtime.train_loop import check_gspmd
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
     for name in ("rwkv6-1.6b", "jamba-1.5-large-398b", "deepseek-moe-16b"):
         check_trainable(get_smoke_arch(name), st)
@@ -102,12 +103,12 @@ def test_untrainable_raise():
                                           encoder=EncoderConfig(n_layers=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_trainable(encdec, st)
-    for name in (ARCH, "qwen3-1.7b", "deepseek-moe-16b"):
-        check_trainable(get_arch(name), st, model_axis=2)
-    for name in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
+    for name in (ARCH, "rwkv6-1.6b", "jamba-1.5-large-398b", "deepseek-moe-16b"):
+        check_gspmd(get_smoke_arch(name), st)
+    for name in ("jamba-1.5-large-398b", "deepseek-moe-16b"):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue 1, item 8"):
-            check_trainable(get_smoke_arch(name), st, model_axis=2)
+            check_gspmd(get_smoke_arch(name), dataclasses.replace(st, moe_groups=2))
     for sp in (dict(seq_axis="model"), dict(batch_axes=("data",)),
                dict(gqa_repeat=True)):
         with pytest.raises(NotImplementedError,

@@ -969,9 +969,11 @@ def tp_grads(rank, payload):
     smoke config, on this member's rows of ``payload["batch"]``.  Returns
     (the loss, summed over the DP axes under FSDP; {path: this member's
     gradient block, summed over the DP axes its spec does not name}; the
-    coords; the layout's specs)."""
+    coords; the layout's specs; the (token, k) slots each MoE layer of the
+    forward dropped on this member, a list)."""
     from repro_torch.configs import get_smoke_arch
     from repro_torch.core import prims
+    from repro_torch.models import layers as L
     from repro_torch.runtime.train_loop import dp_axes_of, local_rows, mesh_info
     from repro_torch.models.sharding import spec_axes
     from repro_torch.utils.trees import tree_paths
@@ -993,7 +995,10 @@ def tp_grads(rank, payload):
         flat = tree_paths(params)
         for t in flat.values():
             t.requires_grad_(True)
+        L.DROP_LOG = []
         loss = model.loss(params, batch)
+        dropped = [int(d.sum()) for d in L.DROP_LOG]
+        L.DROP_LOG = None
         grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
         specs = model.layout.specs
         if fsdp:
@@ -1004,7 +1009,7 @@ def tp_grads(rank, payload):
         else:
             loss = prims.pmean(loss.detach(), dp)
     return (loss.item(), {k: g.numpy().copy() for k, g in grads.items()},
-            tuple(sorted(mesh.coords.items())), dict(specs))
+            tuple(sorted(mesh.coords.items())), dict(specs), dropped)
 
 
 def assemble_blocks(per_rank, shapes, sizes, what: str = ""):
@@ -1031,11 +1036,62 @@ def assemble_blocks(per_rank, shapes, sizes, what: str = ""):
     return out
 
 
+def port_drops(model, batch):
+    """The (token, k) slots each MoE layer of ``model``'s forward drops on
+    the numpy ``batch``, unsharded: a list."""
+    from repro_torch.models import layers as L
+    L.DROP_LOG = []
+    try:
+        with torch.no_grad():
+            model.loss(model.params(), {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+        return [int(d.sum()) for d in L.DROP_LOG]
+    finally:
+        L.DROP_LOG = None
+
+
+def grad_tolerance(arch: str, want: np.ndarray) -> dict:
+    """The tolerance a model-axis gradient is held to against JAX's
+    single-device one: rtol 1e-5 with an atol of 1e-5 of the leaf's
+    largest value; RWKV6's at ``test_torch_train_families.py``'s atol 1e-5
+    + rtol 1e-4, the tolerance its unsharded gradients meet (the fp32
+    recurrence's rounding: unsharded, the port's are up to 1.9 x the
+    tighter one off JAX's)."""
+    if arch == RWKV:
+        return dict(rtol=1e-4, atol=1e-5)
+    return dict(rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def check_round_trip(arch: str, sizes: dict, fsdp: bool):
+    """Every leaf of ``arch``'s smoke config (experts included) cut into
+    each member's block on the mesh ``sizes`` and put back together:
+    the global array, bit for bit.  Returns the specs."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models import sharding
+    from repro_torch.runtime.train_loop import mesh_info
+    from repro_torch.utils.trees import tree_paths
+    model = build_model(get_smoke_arch(arch), ModelSettings(**FP32), device="cpu")
+    specs = tree_paths(model.param_specs(mesh_info(sizes, fsdp=fsdp)))
+    axes = list(sizes)
+    members = [dict(zip(axes, idx)) for idx in np.ndindex(*sizes.values())]
+    for path, p in tree_paths(model.params()).items():
+        x = p.detach().numpy()
+        blocks = {tuple(sorted(c.items())): sharding.local_block(x, specs[path], c, sizes)
+                  for c in members}
+        for c, b in blocks.items():
+            assert b.shape == sharding.local_shape(x.shape, specs[path], sizes), path
+        got = sharding.assemble(blocks, specs[path], x.shape, sizes,
+                                lambda ps, d: np.concatenate(ps, d))
+        np.testing.assert_array_equal(got, x, err_msg=path)
+    return specs
+
+
 def rank_tp_trainer(rank, payload):
     """A sequence of the port's ``Trainer`` runs on this rank
     (``payload["runs"]``: each {arch, sizes, cfg: TrainerConfig fields
     beside ``TRAIN``, optionally train: fields of ``TRAIN`` to override,
-    copy_to: a dir member 0 copies the checkpoint dir to after the run}),
+    copy_to: a dir, or a list of them, member 0 copies the checkpoint dir
+    to after the run}),
     each on a new model of its arch's smoke config (experts included)
     loaded from ``payload["weights"][arch]`` (a run with ``ckpt_dir``
     restores the newest checkpoint there first).  Every mesh has the
@@ -1063,7 +1119,8 @@ def rank_tp_trainer(rank, payload):
             **{**TRAIN, **run.get("train", {})}, **run["cfg"]))
         out = trainer.train()
         if run.get("copy_to") and rank == 0:  # the writes were drained
-            shutil.copytree(run["cfg"]["ckpt_dir"], run["copy_to"])
+            for dst in np.atleast_1d(run["copy_to"]):
+                shutil.copytree(run["cfg"]["ckpt_dir"], str(dst))
         opt = out["opt"]
         state = ({f"{n}/{k}": t.numpy().copy()
                   for n, e in opt["sections"].items() for k, t in e.items()}
@@ -1170,17 +1227,30 @@ def jax_tp_runs(runs, weights):
         "loss_chunk": np.array(TRAIN_LOSS_CHUNK)})
 
 
-def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True):
+#: the recurrent smokes' share of parameter elements a run may leave past
+#: 2e-5 of the JAX run's: the port's DP-only runs of them (no model axis)
+#: leave 1-2 elements of ~800k there too, at most 5.5e-5 (an element whose
+#: gradient is near zero, whose AdamW step m/sqrt(v) then follows its
+#: rounding, as the key biases' does); their moments to 1e-2 of each leaf's
+#: range (the DP-only runs leave elements up to 8.7e-4 of it off)
+RECURRENT_FAR = 1e-4
+
+
+def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True,
+                 far_share=0.0):
     """A port run (each rank's ``rank_tp_trainer`` record) against the JAX
     one: the loss curve (rtol 1e-4, 1e-3 with a lossy codec), the final
     parameters put together from the blocks (atol 2e-5; the key biases to
     2 x lr x steps; with a lossy codec 99% of the elements to 2e-5, every
-    one to 2 x lr x steps), with ``state`` the optimizer state put
-    together (m and v to 1e-4 of their range, the EF to 1e-2 in 99%), and
+    one to 2 x lr x steps; with ``far_share`` that share of them past
+    2e-5, every one to 2 x lr x steps), with ``state`` the optimizer state
+    put together (m and v to 1e-4 of their range, 1e-2 with ``far_share``,
+    in 99% of the elements with a lossy codec; the EF to 1e-2 in 99%), and
     every block held alike by two members bit-equal (``assemble_blocks``).
     Returns the global parameters."""
     steps = steps or TRAIN["steps"]
     int8 = lossy(cfg)
+    far_ok = 1e-2 if int8 else far_share
     losses = recs[0]["losses"]
     assert len(losses) == len(jax_out[f"{name}/loss"]) and np.isfinite(losses).all()
     np.testing.assert_allclose(losses, jax_out[f"{name}/loss"],
@@ -1196,14 +1266,14 @@ def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True):
     for k, v in params.items():
         want = jax_out[f"{name}/p/{k}"]
         d = np.abs(v - want)
-        if k.endswith("attn/bk") or int8:
+        if k.endswith("attn/bk") or far_ok:
             assert d.max() <= bound, (k, d.max())
-            if int8:
+            if far_ok:
                 far += int((d > 2e-5).sum())
                 total += d.size
         else:
             np.testing.assert_allclose(v, want, atol=2e-5, rtol=0, err_msg=k)
-    assert far <= 1e-2 * total, (far, total)
+    assert far <= far_ok * total, (far, total)
     if not state:
         return params
     sshapes = {k[len(f"{name}/s/"):]: v.shape for k, v in jax_out.items()
@@ -1217,6 +1287,8 @@ def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True):
     for k, got in state.items():
         want = jax_out[f"{name}/s/{k}"]
         rel = 1e-2 if k.endswith("/ef") else 1e-4
+        if far_share:
+            rel = 1e-2
         close = np.abs(got - want) <= rel * np.abs(want).max() + 1e-12
         if int8:
             assert close.mean() >= 0.99, (k, close.mean())
