@@ -86,15 +86,16 @@ step) and K2 as the local plan counts it, step 0's loss held to
 ``[train]``'s at 1e-4; ``[train-gspmd]`` qwen3-1.7b at every width, cut
 to 14 of its 28 layers, in bf16, ``remat="full"``, FSDP over data x TP
 over model on (1, 2, 2), B=1 S=2048 a DP member, 3 steps, K1 on 8 local
-heads (28 a rank a step), step 0's loss and gradient norm held to one
-unsharded forward and backward on the global batch at 1e-3 and 1e-2
-relative, and its step-2 checkpoint (≈ 10.2 GB under ``build/ckpt_gspmd``,
-deleted after) restored into a fresh model bit for bit;
-``[train-gspmd-rwkv]`` full-width rwkv6-1.6b at all 24 layers, bf16
-parameters with fp32 compute, FSDP x TP on (1, 2, 2), B=1 S=1024 a DP
-member, 2 steps, K3 on 16 local heads (24 a rank a step), step 0's loss
-held to an unsharded step's at 1e-3 and its gradient norm one layer from
-the loss (``tail_norm``) at 1e-2; and
+heads (28 a rank a step), step 0's loss held to one unsharded forward and
+backward on the global batch at 1e-3 and its gradient norms (the whole
+model's and the leaves nearest the loss) at 1e-2 relative, and its
+step-2 checkpoint (≈ 10.2 GB under ``build/ckpt_gspmd``, deleted after)
+restored into a fresh model bit for bit; ``[train-gspmd-rwkv]`` full-width rwkv6-1.6b at
+all 24 layers, bf16 parameters with fp32 compute, FSDP x TP on (1, 2,
+2), B=1 S=1024 a DP member, 2 steps, K3 on 16 local heads (24 a rank a
+step), step 0's loss held to an unsharded step's at 1e-3, its gradient
+norm one layer from the loss at 1e-2 and the whole model's at 3e-2, each
+layer's printed (``grad_norms``); and
 ``[train-tp-hybrid]``: (a) the jamba smoke with its experts in the
 DFabric step on (2, 1, 2) with the int8 slow tier, (b) in the GSPMD step
 on (1, 2, 2), (c) the rwkv6 smoke in the DFabric step on (2, 1, 2), 3
@@ -830,7 +831,7 @@ def train_rank(rank, world, init_method, ckpt_dir, mode):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quantize import kernel as q_kernel
     from repro_torch.launch import train as train_cli
-    from repro_torch.runtime.train_loop import SimulatedFailure, local_rows
+    from repro_torch.runtime.train_loop import SimulatedFailure
     from repro_torch.utils.trees import tree_paths
     args = train_args(ckpt_dir, mode)
     rec = {"steps": [], "error": None}
@@ -843,7 +844,7 @@ def train_rank(rank, world, init_method, ckpt_dir, mode):
         if mode == "ref":
             model = trainer.model
             batch = {k: torch.from_numpy(v).to(model.device) for k, v in
-                     local_rows(trainer.pipeline.batch_at(0), trainer.mesh).items()}
+                     trainer.local_batch(0).items()}
             kernel_st = model.settings
             model.settings = dataclasses.replace(kernel_st, attn_impl="masked")
             fa_before = fa_kernel.LAUNCHES
@@ -1553,23 +1554,31 @@ TP_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,1,2", "--codec", "int8",
 TP_RANKS, TP_TOKENS = 4, 4 * 2048
 GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
 #: the GSPMD step's runs, FSDP over data x TP over model on (1, 2, 2), B=1 a
-#: DP member (rows: the global batch's): ``[train-gspmd]`` qwen3-1.7b at
-#: every width, cut to 14 of its 28 layers since ``[train-gspmd-rwkv]``
-#: joined the run (time), in bf16, ``remat="full"``, S=2048, 3 steps, a
-#: checkpoint at step 2; ``[train-gspmd-rwkv]`` full-width rwkv6-1.6b at every layer,
-#: bf16 parameters with fp32 compute (in bf16 compute its step-0 gradient
-#: is rounding noise: ``tail_norm``), K3 on each member's 16 heads, S=1024
-#: (cut from 2048: the plain recurrence's backward is a Python loop over
-#: the sequence), 2 steps, ``remat="none"`` (four peaks leave more than 10
-#: GB of the card free).  ``norm``: which step-0 gradient norm is held to
-#: the unsharded step's, the whole model's or ``tail_norm``'s
+#: DP member (rows: the global batch's), at every published width:
+#: ``[train-gspmd]`` qwen3-1.7b cut to 14 of its 28 layers (at 28 the script
+#: took 1170 s of its 1200 s limit on an H100 host), in bf16,
+#: ``remat="full"``, S=2048, 3 steps, a checkpoint at step 2;
+#: ``[train-gspmd-rwkv]`` rwkv6-1.6b at every layer, bf16 parameters with
+#: fp32 compute (in bf16 compute the unsharded step's own gradient norm is
+#: 1.9x its fp32 one), K3 on each member's 16 heads, S=1024 (cut from 2048:
+#: the plain recurrence's backward is a Python loop over the sequence), 2
+#: steps, ``remat="none"`` (four peaks leave more than 10 GB of the card
+#: free).  ``gnorm_tol``: step 0's gradient norms (``grad_norms``) held to
+#: the unsharded step's, relative: the whole model's, and ``tail``, the
+#: leaves nearest the loss.  A deep random RWKV6's backward amplifies
+#: rounding layer by layer: its whole-model norm moved 1.03% and its layers'
+#: up to 2.9%, growing with the distance from the loss (the printed
+#: profile); 3e-2 on the whole norm still fails a backward sum missed
+#: between layers, which leaves every layer below it far off
 GSPMD_RUNS = {
     "train-gspmd": dict(arch="qwen3-1.7b", depth=14, sizes=GSPMD_SIZES, rows=2,
-                        seq=2048, steps=3, ckpt=2, norm="whole",
+                        seq=2048, steps=3, ckpt=2,
+                        gnorm_tol=dict(whole=1e-2, tail=1e-2),
                         fields=dict(BF16, remat="full", attn_impl="kernel",
                                     loss_chunk=2048)),
     "train-gspmd-rwkv": dict(arch="rwkv6-1.6b", sizes=GSPMD_SIZES, rows=2,
-                             seq=1024, steps=2, ckpt=None, norm="tail",
+                             seq=1024, steps=2, ckpt=None,
+                             gnorm_tol=dict(whole=3e-2, tail=1e-2),
                              fields=dict(param_dtype="bfloat16",
                                          compute_dtype="float32", remat="none",
                                          use_kernel_ssm=True, loss_chunk=1024)),
@@ -1583,21 +1592,27 @@ def gspmd_arch(run):
     return arch.replace(n_layers=run["depth"]) if run.get("depth") else arch
 
 
-def tail_norm(grads, specs=None) -> float:
-    """The norm of a step's gradients over the leaves nearest the loss:
-    every leaf but the embedding, a stacked leaf at its last layer (group)
-    only; with ``specs`` ({path: spec}) the gradients are this member's
-    blocks, as ``adamw.global_norm`` takes them.  A deep random RWKV6's
-    backward amplifies rounding layer by layer (the whole model's norm is
-    printed, not held); these leaves' gradients are one layer from the
-    loss."""
+def grad_norms(grads, specs=None) -> dict:
+    """Norms of a step's gradients ({path: tensor}): ``whole`` over every
+    leaf, ``tail`` over the leaves nearest the loss (every leaf but the
+    embedding, a stacked leaf at its last layer only) and ``layers``, each
+    layer's stacked leaves, first to last.  With ``specs`` ({path: spec})
+    the tensors are this member's blocks, as ``adamw.global_norm`` takes
+    them (the mesh bound)."""
     from repro_torch.optim.adamw import global_norm
-    keep = {k: (g[-1] if k.startswith("blocks/") else g)
+    stacked = [k for k in grads if k.startswith("blocks/")]
+
+    def norm(tree):
+        cut = None if specs is None else {
+            k: tuple(specs[k][1:]) if k.startswith("blocks/") else specs[k]
+            for k in tree}
+        return global_norm(tree, cut).item()
+
+    tail = {k: (g[-1] if k.startswith("blocks/") else g)
             for k, g in grads.items() if k != "embed"}
-    cut = None if specs is None else {
-        k: tuple(specs[k][1:]) if k.startswith("blocks/") else specs[k]
-        for k in keep}
-    return global_norm(keep, cut).item()
+    return dict(whole=global_norm(grads, specs).item(), tail=norm(tail),
+                layers=[norm({k: grads[k][i] for k in stacked})
+                        for i in range(grads[stacked[0]].shape[0])])
 
 
 def tp_k2_sizes():
@@ -1716,17 +1731,21 @@ def tp_rank(rank, world, init_method, tag, ckpt_dir):
         train_cli.run_rank(args, rank, world, init_method, on_step=on_step,
                            before_train=lambda trainer, params, opt: start(trainer))
         return rec
+    from repro_torch.utils.trees import tree_paths
     run = GSPMD_RUNS[tag]
     start, on_step = step_recorder(rec, tag, run["ckpt"])
-    if run["norm"] == "tail":  # the step's gradients pass through its norm
-        from repro_torch.runtime import train_loop
-        whole_norm = train_loop.global_norm
 
-        def recording(grads, specs=None):
-            rec.setdefault("tail_norms", []).append(tail_norm(grads, specs))
-            return whole_norm(grads, specs)
+    def on_step_norms(step, params, opt, metrics):
+        if step == 0:
+            # AdamW's first moment after step 0 is (1 - b1) x clip x the
+            # gradient: its norms, scaled to the step's own grad_norm
+            with prims.bind(trainer.mesh):
+                n = grad_norms(tree_paths(opt["m"]), trainer.moment_specs)
+            s = metrics["grad_norm"] / n["whole"]
+            rec["norms0"] = dict(whole=metrics["grad_norm"], tail=n["tail"] * s,
+                                 layers=[x * s for x in n["layers"]])
+        on_step(step, params, opt, metrics)
 
-        train_loop.global_norm = recording
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=init_method, world_size=world,
                             rank=rank)
@@ -1742,7 +1761,7 @@ def tp_rank(rank, world, init_method, tag, ckpt_dir):
                           shape, cfg)
         params, opt, step0 = trainer.init_state()
         start(trainer)
-        trainer.train(params, opt, step0, on_step=on_step)
+        trainer.train(params, opt, step0, on_step=on_step_norms)
         if run["ckpt"]:
             rec["ckpt_log"], rec["writes"] = trainer.ckpt_log, trainer.ckpt.stats
         del trainer, params, opt
@@ -1774,14 +1793,13 @@ def state_digests(params, opt) -> dict:
 
 
 def gspmd_reference(torch, tag):
-    """Step 0's loss, gradient norm and :func:`tail_norm` of the
-    ``GSPMD_RUNS`` run ``tag`` from one unsharded model on this process
-    (seed 0, its settings, its kernels in the forward and any recompute),
-    on the same global batch: the reference its four ranks are held to."""
+    """Step 0's loss and :func:`grad_norms` of the ``GSPMD_RUNS`` run
+    ``tag`` from one unsharded model on this process (seed 0, its
+    settings, its kernels in the forward and any recompute), on the same
+    global batch: the reference its four ranks are held to."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models import ModelSettings, build_model
-    from repro_torch.optim.adamw import global_norm
     from repro_torch.utils.trees import tree_paths
     run = GSPMD_RUNS[tag]
     arch = gspmd_arch(run)
@@ -1798,13 +1816,13 @@ def gspmd_reference(torch, tag):
     loss = model.loss(model.params(), batch)
     grads = torch.autograd.grad(loss, list(params.values()))
     grads = dict(zip(params, grads))
-    gnorm, tail = global_norm(grads).item(), tail_norm(grads)
+    norms = grad_norms(grads)
     launched = {name: mod.LAUNCHES - before[name] for name, mod in kernels.items()}
     if launched != dict(expected_launches(arch, st), quantize_ef_fwd=0):
         raise AssertionError(f"the reference step launched {launched}")
     del model, batch, params, grads
     torch.cuda.empty_cache()
-    return loss.item(), gnorm, tail
+    return loss.item(), norms
 
 
 def check_tp_steps(tag, recs, card, tokens, want_loss0=None, tol=None,
@@ -1912,16 +1930,18 @@ def tp_phases(torch, card, train_recs, phase_done):
 def gspmd_phase(torch, card, tag, ckpt_dir=None):
     """A ``GSPMD_RUNS`` run on four ranks, checked by :func:`check_tp_steps`
     against one unsharded step of the same global batch in this process:
-    step 0's loss to 1e-3 and its gradient norm to 1e-2, relative."""
+    step 0's loss to 1e-3 and its gradient norms to the run's
+    ``gnorm_tol``, relative; each layer's is printed beside the
+    reference's."""
     from repro_torch.launch import train as train_cli
     run = GSPMD_RUNS[tag]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ref, ref_gnorm, ref_tail = gspmd_reference(torch, tag)
+    ref, want = gspmd_reference(torch, tag)
     log(f"[{tag}] unsharded {run['arch']} forward and backward on the global batch "
         f"({run['rows']} x {run['seq']}), its kernels in the forward, this process: "
-        f"loss {ref!r}, grad_norm {ref_gnorm!r}, tail_norm {ref_tail!r} in "
+        f"loss {ref!r}, grad_norm {want['whole']!r}, tail norm {want['tail']!r} in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     recs = train_cli.run_ranks(tp_rank, TP_RANKS, tag, ckpt_dir, timeout=1200)
@@ -1931,19 +1951,19 @@ def gspmd_phase(torch, card, tag, ckpt_dir=None):
         f"{tuple(run['sizes'].values())}, FSDP over data x TP over model, B=1 "
         f"S={run['seq']} a DP member, {run['steps']} steps{ckpt}: "
         f"{time.perf_counter() - t0:.1f} s wall | {card}")
-    whole = run["norm"] == "whole"
+    tol = run["gnorm_tol"]
     check_tp_steps(tag, recs, card, run["rows"] * run["seq"], ref, 1e-3,
-                   ref_gnorm if whole else None, 1e-2)
-    if not whole:
-        tail = recs[0]["tail_norms"][0]
-        rel = abs(tail - ref_tail) / ref_tail
-        log(f"[{tag}] step-0 tail_norm (the gradients one layer from the loss) "
-            f"{tail!r} against {ref_tail!r}: rel diff {rel:.2e} (tol 1e-2); the whole "
-            f"model's grad_norm {recs[0]['steps'][0]['grad_norm']!r} against "
-            f"{ref_gnorm!r} (not held: rounding amplified through {run['arch']}'s "
-            f"random layers)")
-        if any(r["tail_norms"][0] != tail for r in recs) or not rel <= 1e-2:
-            raise AssertionError(f"[{tag}] step 0's tail_norm is off its reference")
+                   want["whole"], tol["whole"])
+    got = recs[0]["norms0"]
+    rel = abs(got["tail"] - want["tail"]) / want["tail"]
+    layers = " ".join(f"{abs(a - b) / b:.2e}"
+                      for a, b in zip(got["layers"], want["layers"]))
+    log(f"[{tag}] step-0 tail norm (the leaves nearest the loss) {got['tail']!r} "
+        f"against {want['tail']!r}: rel diff {rel:.2e} (tol {tol['tail']}); each "
+        f"layer's gradient norm against the unsharded step's, rel diff, first layer "
+        f"to last: {layers}")
+    if any(r["norms0"] != got for r in recs) or not rel <= tol["tail"]:
+        raise AssertionError(f"[{tag}] step 0's tail norm is off its reference")
     return recs
 
 

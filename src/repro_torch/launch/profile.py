@@ -74,7 +74,6 @@ def _train_rank(rank: int, world: int, init_method: str) -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.grad_sync import sync_and_update
-    from repro_torch.runtime.train_loop import local_rows
     from repro_torch.utils.trees import tree_from_paths, tree_paths
     args = train_cli.resolve_args(
         train_cli.build_parser().parse_args(train_cli.ONE_CARD_RUN))
@@ -99,7 +98,7 @@ def _train_rank(rank: int, world: int, init_method: str) -> dict:
     try:
         model, mesh = trainer.model, trainer.mesh
         batch = {k: torch.from_numpy(v).to(model.device) for k, v in
-                 local_rows(trainer.pipeline.batch_at(out["step"]), mesh).items()}
+                 trainer.local_batch(out["step"]).items()}
         params = out["params"]
 
         def mark():

@@ -50,8 +50,8 @@ from repro_torch.core.collectives import (dfabric_all_gather,
                                           dfabric_all_reduce,
                                           dfabric_reduce_scatter)
 from repro_torch.core.planner import Section, SyncPlan
-from repro_torch.models.sharding import (assemble, local_block,  # noqa: F401
-                                         local_shape)
+from repro_torch.models.sharding import (Paired, assemble,  # noqa: F401
+                                         local_block, local_shape)
 from repro_torch.optim.adamw import AdamWConfig, adamw_leaf, clip_coefficient
 from repro_torch.utils.trees import tree_paths
 
@@ -254,12 +254,17 @@ def inner_state_specs(plan: SyncPlan, param_specs_flat: Dict[str, Spec],
 
 def merge_specs(a: Spec, b: Spec, ndim: int) -> Spec:
     """Entry-wise union of two specs (on disjoint dims; where both name
-    axes, ``a``'s are major)."""
+    axes, ``a``'s are major).  A :class:`Paired` entry (a dim cut half
+    by half) keeps its cut only alone: merged with another axis it raises
+    ``ValueError``."""
     ea = tuple(a) + (None,) * (ndim - len(a))
     eb = tuple(b) + (None,) * (ndim - len(b))
     out = []
     for x, y in zip(ea, eb):
         if x is not None and y is not None:
+            if isinstance(x, Paired) or isinstance(y, Paired):
+                raise ValueError(f"dim {len(out)} of {a} and {b}: a paired "
+                                 f"cut merged with another axis")
             xs = x if isinstance(x, tuple) else (x,)
             ys = y if isinstance(y, tuple) else (y,)
             out.append(xs + ys)

@@ -104,18 +104,25 @@ def dp_rank(mesh: prims.Mesh) -> int:
     return r
 
 
-def local_rows(batch: Dict[str, np.ndarray], mesh: prims.Mesh
-               ) -> Dict[str, np.ndarray]:
-    """This member's rows of a global batch."""
+def local_rows(batch: Dict[str, np.ndarray], mesh: prims.Mesh,
+               microbatches: int = 1) -> Dict[str, np.ndarray]:
+    """This member's rows of a global batch: a contiguous block of them,
+    or with ``microbatches`` > 1 its block of each of the global batch's
+    ``microbatches`` contiguous slices, one after the other.  The GSPMD
+    step takes the latter: the JAX step's microbatch *i* is the global
+    rows ``[i B/mb, (i+1) B/mb)``, so the members' *i*-th local slices,
+    member-major, are those rows in their order (a MoE layer routes them
+    as one group)."""
     n_dp = int(np.prod([mesh.size(a) for a in dp_axes_of(mesh.sizes)]))
     r = dp_rank(mesh)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n_dp:
+        if v.shape[0] % (n_dp * microbatches):
             raise ValueError(f"batch {v.shape[0]} does not split over the "
-                             f"{n_dp} DP members")
-        lb = v.shape[0] // n_dp
-        out[k] = v[r * lb:(r + 1) * lb]
+                             f"{n_dp} DP members x {microbatches} microbatches")
+        lb = v.shape[0] // (n_dp * microbatches)
+        mb = v.reshape((microbatches, n_dp, lb) + v.shape[1:])[:, r]
+        out[k] = mb.reshape((microbatches * lb,) + v.shape[1:])
     return out
 
 
@@ -548,6 +555,13 @@ class Trainer:
         # a copy: the block may be a view of a read-only memory map
         return torch.from_numpy(np.array(blk)).to(self.model.device)
 
+    def local_batch(self, step: int) -> Dict[str, np.ndarray]:
+        """This member's rows of the global batch of ``step`` (host
+        arrays), laid out for the step function: the GSPMD step's by
+        global microbatch (:func:`local_rows`)."""
+        return local_rows(self.pipeline.batch_at(step), self.mesh,
+                          self.cfg.microbatches if self.cfg.mode == "gspmd" else 1)
+
     def state_specs(self) -> Dict[str, Any]:
         """The specs of the DFabric sync state's global arrays on this
         mesh (the DP scatter merged with the parameters' TP specs)."""
@@ -698,7 +712,7 @@ class Trainer:
         try:
             while step < self.cfg.steps:
                 t0 = time.perf_counter()
-                host_batch = local_rows(self.pipeline.batch_at(step), self.mesh)
+                host_batch = self.local_batch(step)
                 batch = {k: torch.from_numpy(v).to(dev, non_blocking=True)
                          for k, v in host_batch.items()}
                 params, opt, metrics = self.step_fn(params, opt, batch, step)

@@ -21,9 +21,10 @@ blocks) to 1e-4 of their range.  A GSPMD checkpoint (the JAX package's
 ``{"m", "v", "step"}`` global arrays) is restored by the JAX ``Trainer``
 and by the port on another mesh, (pod, data, model) = (1, 4, 2), and both
 train on alike.  The deepseek, rwkv6 and jamba smokes in ``mode="gspmd"``
-on (2, 2, 2) against the JAX ``Trainer`` in ``mode="gspmd"``; deepseek's
-step-4 checkpoint restored by the port on (1, 4, 2): parameters and
-moments bit for bit.
+on (2, 2, 2) against the JAX ``Trainer`` in ``mode="gspmd"``, deepseek's
+also in two microbatches (each the JAX step's contiguous global rows);
+deepseek's step-4 checkpoint restored by the port on (1, 4, 2):
+parameters and moments bit for bit.
 """
 import pytest
 
@@ -52,6 +53,9 @@ CK = dict(mode="gspmd", ckpt_every=2)
 ON = dict(steps=6)
 GRAD_ARCHS = ("qwen2-0.5b", QWEN3, DEEPSEEK, RWKV, JAMBA)
 FAMILIES = (DEEPSEEK, RWKV, JAMBA)  # the smokes with their experts
+#: the MoE smoke's GSPMD run in two microbatches: one row a member each
+MOE_MB2 = dict(name=f"{DEEPSEEK}-gspmd-mb2", arch=DEEPSEEK, sizes=MESH,
+               cfg=dict(GSPMD, microbatches=2))
 
 
 def _case(arch):
@@ -118,6 +122,7 @@ def runs(tmp_path_factory):
                  copy_to=str(tmp / "g-jax")),
             dict(name="restore", arch=QWEN3, sizes=ELASTIC, cfg=ck, train=ON)] + [
         dict(f, cfg=ck_moe) if f["arch"] == DEEPSEEK else f for f in families] + [
+        MOE_MB2,
         # the MoE run's step-4 checkpoint on another mesh, no step taken
         dict(name="moe-restore", arch=DEEPSEEK, sizes=ELASTIC, cfg=ck_moe)]
     recs = spawn_ranks(8, rank_tp_trainer, dict(weights=weights, runs=port),
@@ -127,7 +132,7 @@ def runs(tmp_path_factory):
         dict(name="restore", arch=QWEN3, sizes=MESH, restore=True, train=ON,
              cfg=dict(CK, ckpt_dir=str(tmp / "g-jax")))] + [
         dict(f, sizes=JAMBA_JAX_MESH) if f["arch"] == JAMBA else f
-        for f in families], weights)
+        for f in families] + [MOE_MB2], weights)
     return jax, {run["name"]: [r[i] for r in recs] for i, run in enumerate(port)}
 
 
@@ -149,6 +154,18 @@ def test_gspmd_trainer_families_match_jax(runs, arch):
     jax, port = runs
     check_tp_run(f"{arch}-gspmd", port[f"{arch}-gspmd"], jax, MESH, GSPMD,
                  far_share=RECURRENT_FAR if arch in (JAMBA, RWKV) else 0.0)
+
+
+def test_gspmd_moe_microbatches_match_jax(runs):
+    """The deepseek smoke in the GSPMD step with two microbatches against
+    the JAX ``Trainer``'s: the JAX step's microbatch *i* is the global
+    batch's contiguous rows ``[i B/2, (i+1) B/2)``, routed as one group
+    (its capacity, slot order and aux loss), so each member takes its
+    share of each of them (``Trainer.local_batch``), not two slices of a
+    contiguous block of its own."""
+    jax, port = runs
+    name = MOE_MB2["name"]
+    check_tp_run(name, port[name], jax, MESH, MOE_MB2["cfg"])
 
 
 def test_gspmd_moe_checkpoint_restores_bit_for_bit(runs):

@@ -33,7 +33,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from torch_harness import (DEEPSEEK, JAMBA, RECURRENT_FAR, RWKV,  # noqa: E402
-                           assemble_blocks, check_round_trip, check_tp_run,
+                           assemble_blocks, check_round_trip,
+                           check_state_round_trip, check_tp_run,
                            grad_tolerance, jax_loss_and_grads, jax_model,
                            jax_tp_runs, rank_second_cut, rank_tp_grads,
                            rank_tp_trainer, smoke_archs, smoke_weights, spawn_ranks,
@@ -240,3 +241,18 @@ def test_blocks_round_trip(arch, fsdp):
     if arch == JAMBA:
         from repro_torch.models.sharding import Paired
         assert isinstance(specs["blocks/l0/mamba/w_in"][-1], Paired)
+
+
+def test_sync_state_round_trips_at_a_fast_tier_of_4():
+    """The jamba smoke's DFabric sync state on (pod, data, model) =
+    (2, 4, 2): every entry's blocks put back together are the global
+    array, and ``w_in``'s section keeps its paired cut over ``model``
+    beside the scatter over ``data``, whose dim it does not share."""
+    from repro_torch.models.sharding import Paired
+    from repro_torch.optim.grad_sync import merge_specs
+    leaves, specs = check_state_round_trip(JAMBA, {"pod": 2, "data": 4, "model": 2})
+    (sec,) = [n for n, paths in leaves.items() if paths == ("blocks/l0/mamba/w_in",)]
+    for spec in specs[sec].values():
+        assert isinstance(spec[-1], Paired) and "data" in spec[:-1], spec
+    with pytest.raises(ValueError, match="paired"):
+        merge_specs((None, "data"), (None, Paired("model")), 2)

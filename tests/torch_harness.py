@@ -1086,6 +1086,39 @@ def check_round_trip(arch: str, sizes: dict, fsdp: bool):
     return specs
 
 
+def check_state_round_trip(arch: str, sizes: dict):
+    """Every entry of the DFabric sync state of ``arch``'s smoke config
+    (experts included) on the mesh ``sizes`` (the plan's sections, their
+    DP scatter merged with the parameters' TP specs) cut into each
+    member's block of a random global array and put back together: the
+    array, bit for bit.  Returns ({section: leaf paths}, {section: entry
+    specs})."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core.topology import topology_from_mesh_sizes
+    from repro_torch.models import sharding
+    from repro_torch.optim import grad_sync
+    from repro_torch.runtime.train_loop import make_sync_plan, mesh_info
+    model = build_model(get_smoke_arch(arch), ModelSettings(**FP32), device="cpu")
+    plan, ss = make_sync_plan(model, sizes, topology_from_mesh_sizes(sizes))
+    pshapes = model.param_shapes()
+    specs = grad_sync.merged_state_specs(
+        plan, pshapes, model.param_specs(mesh_info(sizes)), ss)["sections"]
+    shapes = grad_sync.state_shapes(plan, pshapes, ss)
+    members = [dict(zip(sizes, idx)) for idx in np.ndindex(*sizes.values())]
+    rng = np.random.default_rng(0)
+    for name, entry in specs.items():
+        for k, spec in entry.items():
+            x = rng.standard_normal(shapes[name]).astype(np.float32)
+            blocks = {tuple(sorted(c.items())): sharding.local_block(x, spec, c, sizes)
+                      for c in members}
+            want = sharding.local_shape(x.shape, spec, sizes)
+            assert all(b.shape == want for b in blocks.values()), (name, k)
+            got = sharding.assemble(blocks, spec, x.shape, sizes,
+                                    lambda ps, d: np.concatenate(ps, d))
+            np.testing.assert_array_equal(got, x, err_msg=f"{name}/{k}")
+    return {sec.name: sec.leaf_paths for sec in plan.sections}, specs
+
+
 def rank_tp_trainer(rank, payload):
     """A sequence of the port's ``Trainer`` runs on this rank
     (``payload["runs"]``: each {arch, sizes, cfg: TrainerConfig fields
