@@ -239,4 +239,5 @@ def _ensure_loaded() -> None:
         qwen3_1_7b,
         rwkv6_1_6b,
         stablelm_12b,
+        whisper_medium,
     )

@@ -44,6 +44,10 @@ NEMOTRON = "nemotron-4-340b"
 NEMOTRON_LAYERS = 4
 DEEPSEEK = "deepseek-moe-16b"
 DEEPSEEK_TRAIN_LAYERS = 2
+#: whisper-medium's published text context (arXiv:2212.04356): the decoder
+#: length its card runs prefill and train at, which also sizes its learned
+#: positions (``ModelSettings.max_seq``)
+WHISPER_TEXT_CONTEXT = 448
 
 
 def one_card_arch(name: str, smoke: bool = False

@@ -341,6 +341,19 @@ class _GatherScatterGrad(torch.autograd.Function):
         return reduce_scatter_tiled(g, ctx.axis, ctx.dim), None, None
 
 
+class _GatherSliceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        TP_CALLS["gather"] += 1
+        return all_gather_tiled(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = axis_rank(ctx.axis) * ctx.n
+        return g.narrow(ctx.dim, start, ctx.n), None, None
+
+
 class _PsumPsumGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes):
@@ -392,3 +405,15 @@ def gather_on_use(x: torch.Tensor, axis: Optional[str],
     if axis is None or axis_size(axis) == 1:
         return x
     return _GatherScatterGrad.apply(x, axis, dim)
+
+
+def gather_replicated(x: torch.Tensor, axis: Optional[str],
+                      dim: int) -> torch.Tensor:
+    """The gather of a leaf's blocks along ``dim`` over ``axis`` into a
+    tensor that every member then uses alike (the learned positions' d
+    columns under a model axis, added to the replicated residual stream):
+    each member holds the whole gradient already, so the backward keeps
+    this member's block of it."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    return _GatherSliceGrad.apply(x, axis, dim)

@@ -8,13 +8,17 @@ Example (full width, on the card)::
     PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch jamba-1.5-large-398b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch whisper-medium
     PYTHONPATH=src python -m repro_torch.launch.profile --train
 
 For each phase it prints the host wall time, the device-busy time (the sum
 of kernel times; one stream, so they do not overlap), the busy share, and
 the kernels that took the most device time.  The phases are measured
 after one warm-up call each.  An arch that does not fit one card runs its
-one-card cut (``configs.one_card_arch``).  ``--train`` runs
+one-card cut (``configs.one_card_arch``).  The encoder-decoder
+(whisper-medium) prefills its 448-token text context over frame
+embeddings drawn from the seed, and decodes, as its server does, against
+a zeroed cross-attention cache.  ``--train`` runs
 ``launch.train.ONE_CARD_RUN`` (full-width qwen2-0.5b, fp32, two ranks
 sharing the card over gloo, int8 slow tier; ``chip_smoke.py``'s training
 phase) and profiles each rank's second step.  The ranks' processes share
@@ -34,6 +38,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import one_card_arch
+from repro_torch.configs.one_card import WHISPER_TEXT_CONTEXT
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import ModelSettings
 
@@ -134,8 +139,9 @@ def profile_train() -> list:
     return reports
 
 
-# The shapes chip_smoke.py drives: prefill at B=4, S=2048 and the serve
-# phase's 8 slots over a 256-token cache, all in bf16.
+# The shapes chip_smoke.py drives: prefill at B=4, S=2048 (whisper's at its
+# text context, which also sizes its learned positions) and the serve phase's 8 slots over a 256-token cache,
+# all in bf16.
 DTYPE = "bfloat16"
 BATCH, SEQ = 4, 2048
 SLOTS, MAX_SEQ, DECODE_STEPS = 8, 256, 8
@@ -159,11 +165,14 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     arch, cuts = one_card_arch(args.arch)
     print(json.dumps({"arch": arch.name, "n_layers": arch.n_layers,
                       "cuts": list(cuts)}))
+    seq = WHISPER_TEXT_CONTEXT if arch.is_encdec else SEQ
     st = ModelSettings(param_dtype=DTYPE, compute_dtype=DTYPE,
-                       attn_impl="kernel", use_kernel_ssm=True)
+                       attn_impl="kernel", use_kernel_ssm=True, max_seq=seq)
     model = build_model(arch, st, device="cuda", seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    tokens = torch.randint(0, arch.vocab, (BATCH, SEQ), generator=gen, device="cuda")
+    tokens = torch.randint(0, arch.vocab, (BATCH, seq), generator=gen, device="cuda")
+    frames = (torch.randn(BATCH, arch.encoder.n_frames, arch.d_model,
+                          generator=gen, device="cuda") if arch.is_encdec else None)
     step_tokens = torch.randint(0, arch.vocab, (SLOTS, 1), generator=gen,
                                 device="cuda")
     cache = model.init_cache(SLOTS, MAX_SEQ)
@@ -173,8 +182,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             logits, _ = model.decode_step(cache, step_tokens, pos)
             torch.argmax(logits, dim=-1).cpu()  # the server's per-step sync
 
-    reports = [profile_phase(f"prefill B={BATCH} S={SEQ}",
-                             lambda: model.prefill(tokens), TOP),
+    reports = [profile_phase(f"prefill B={BATCH} S={seq}",
+                             lambda: model.prefill(tokens, frames), TOP),
                profile_phase(f"decode {DECODE_STEPS} steps x {SLOTS} slots",
                              decode, TOP)]
     for r in reports:

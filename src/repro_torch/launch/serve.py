@@ -10,10 +10,15 @@ Example::
         --arch jamba-1.5-large-398b --dtype bfloat16
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --smoke --device cpu
 
 Every arch the port registers is served: qwen2-0.5b, qwen3-1.7b,
 stablelm-12b, nemotron-4-340b, chameleon-34b, deepseek-moe-16b,
-moonshot-v1-16b-a3b, rwkv6-1.6b and jamba-1.5-large-398b.  The model runs
+moonshot-v1-16b-a3b, rwkv6-1.6b, jamba-1.5-large-398b and whisper-medium
+(``--arch whisper-medium [--smoke]``: as in the reference's server, no
+encoder runs and decode reads a zeroed cross-attention cache).  The model
+runs
 every ported kernel (flash attention in prefill, WKV6 in every RWKV6 step,
 the selective scan in every Mamba step).  An arch that does not fit one
 card (jamba, nemotron) runs its one-card cut (``configs.one_card_arch``),
@@ -53,7 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> DecodeServer:
         print(f"{arch.name} cut to one card: {cut}")
     # the kernels on the card; on CPU tensors they run their plain versions
     st = ModelSettings(param_dtype=args.dtype, compute_dtype=args.dtype,
-                       attn_impl="kernel", use_kernel_ssm=True)
+                       attn_impl="kernel", use_kernel_ssm=True,
+                       max_seq=args.max_seq)
     model = build_model(arch, st, device=args.device, seed=0)
     metrics = MetricsLogger(path=args.metrics_path, echo=False, run="serve",
                             arch=args.arch)

@@ -12,6 +12,8 @@ resumes from the newest one, on this mesh or another.  A ``--mesh`` with
 a model axis above 1 splits every decoder family's layers over it (tensor
 parallelism), and ``--mode gspmd`` runs the FSDP x TP step, for every
 decoder family too (a MoE layer routes the global batch as one group).
+The encoder-decoder (whisper-medium) trains in the DFabric step, with or
+without a model axis; its frame embeddings come from the data pipeline.
 
 Examples::
 
@@ -27,6 +29,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --mesh 2,1,1 --codec int8 --steps 3 --batch 4 --seq 2048 \\
         --backend gloo   # two ranks sharing one card
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper-medium --smoke --mesh 2,1,2 --steps 4 --batch 4 \\
+        --seq 32 --device cpu   # the encoder-decoder; frames from the data
 """
 from __future__ import annotations
 
@@ -128,7 +133,7 @@ def run_rank(args: argparse.Namespace, rank: int, world: int,
                  else ShapeConfig("custom", args.seq, args.batch, "train"))
         st = ModelSettings(param_dtype="float32", compute_dtype="float32",
                            remat="none", loss_chunk=min(128, shape.seq_len),
-                           attn_impl="kernel")
+                           max_seq=shape.seq_len, attn_impl="kernel")
         model = build_model(arch, st, device=dev, seed=0)
         cfg = TrainerConfig(steps=args.steps, lr=args.lr,
                             warmup=max(args.steps // 10, 1), mode=args.mode,

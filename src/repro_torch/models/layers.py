@@ -1,6 +1,5 @@
-"""Model primitives: norms, RoPE, attention, MLP and the mixture-of-experts
-layer — ``repro.models.layers`` in PyTorch, but for the encoder-decoder's
-sinusoidal positions.
+"""Model primitives: norms, RoPE and sinusoidal positions, attention, MLP
+and the mixture-of-experts layer — ``repro.models.layers`` in PyTorch.
 
 Parameters are nested dicts of tensors, as in the JAX package: every layer
 has an ``init_*`` that returns them and an ``apply`` function over them.
@@ -133,7 +132,7 @@ def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary / positional embeddings
 # ---------------------------------------------------------------------------
 
 
@@ -152,6 +151,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """The (n, d) fp32 table of the encoder's fixed positions: sin on the
+    even columns, cos on the odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

@@ -166,8 +166,9 @@ class Model(nn.Module):
     # --- steps ---------------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token loss of ``batch`` ({'tokens', 'labels'}: (B, S)
-        integer) under ``params`` (a tree like ``params()``); differentiable
-        in ``params``."""
+        integer; an encoder-decoder's also 'frames': (B, F, d_model)) under
+        ``params`` (a tree like ``params()``); differentiable in
+        ``params``."""
         return T.train_loss(self.arch, params, batch, self.settings,
                             self.layout)
 
@@ -178,9 +179,11 @@ class Model(nn.Module):
                 f"DecodeServer over a model axis (ROADMAP.md queue 1, item 8)")
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
+    def prefill(self, tokens: torch.Tensor,
+                frames: Optional[torch.Tensor] = None):
         self._whole("prefill")
-        return T.prefill(self.arch, self.params(), tokens, self.settings)
+        return T.prefill(self.arch, self.params(), tokens, self.settings,
+                         frames=frames)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, pos: int):

@@ -1,6 +1,6 @@
-"""Parameter sharding rules of the decoder families (dense, MoE, Mamba,
-RWKV6) — ``MeshInfo`` and ``param_specs`` of ``repro.models.sharding``,
-copied (the encoder-decoder's cross attention is not ported).
+"""Parameter sharding rules of every family (dense, MoE, Mamba, RWKV6, the
+encoder-decoder) — ``MeshInfo``, ``param_specs`` and ``batch_specs`` of
+``repro.models.sharding``, copied.
 
 A spec is a tuple with one entry per dim: an axis name, or None where the
 dim is not sharded (the JAX package's ``PartitionSpec``); the sync state's
@@ -102,7 +102,7 @@ def _spec_for_leaf(arch: ArchConfig, path: str, shape: Tuple[int, ...],
     parent = path.split("/")[-2] if "/" in path else ""
 
     # ---- attention -----------------------------------------------------------
-    if parent == "attn":
+    if parent in ("attn", "xattn"):
         if name in ("wq", "wk", "wv"):
             return wrap((guard(core[0], fsdp, nf), guard(core[1], tp, ntp), None))
         if name == "wo":
@@ -184,10 +184,10 @@ def batch_specs(arch: ArchConfig, mi: MeshInfo) -> Dict[str, Spec]:
     when there are several), the rest replicated."""
     dp = (mi.dp_axes if len(mi.dp_axes) > 1
           else (mi.dp_axes[0] if mi.dp_axes else None))
+    specs = {"tokens": (dp, None), "labels": (dp, None)}
     if arch.is_encdec:
-        raise NotImplementedError("the encoder-decoder's batch (frames) is not "
-                                  "ported yet (ROADMAP.md queue 1, item 9)")
-    return {"tokens": (dp, None), "labels": (dp, None)}
+        specs["frames"] = (dp, None, None)
+    return specs
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
-"""Config-driven model assembly — the decoder-only subset of
-``repro.models.transformer`` in PyTorch: dense attention, mixture of
-experts, RWKV6 and hybrid (Jamba: Mamba + attention, with or without
-experts).
+"""Config-driven model assembly — ``repro.models.transformer`` in PyTorch:
+dense attention, mixture of experts, RWKV6, hybrid (Jamba: Mamba +
+attention, with or without experts) and the encoder-decoder (whisper).
 
 The parameter tree is the JAX package's, leaf for leaf and shape for shape:
 layers are stacked over groups (a leading group dim on every ``blocks/``
@@ -10,8 +9,17 @@ Every dense, MoE or RWKV group holds one layer, ``blocks/l0``; a hybrid
 group holds ``attn_every`` layers, ``blocks/l0`` ..
 ``blocks/l{attn_every-1}``, whose kinds follow the within-group offset.  A
 layer whose id ``layer_is_moe`` names has ``moe`` (an fp32 router, the
-experts and the shared experts) in place of ``mlp``.  The encoder-decoder
-family and learned or sinusoidal positions are not ported yet and raise.
+experts and the shared experts) in place of ``mlp``.
+
+The encoder-decoder adds ``pos_embed`` (the decoder's learned positions,
+``max_seq`` rows), ``enc_blocks`` (the encoder's layers stacked over the
+encoder depth) and ``enc_final_norm``, and cross attention in every
+decoder layer (``blocks/l0/xattn`` after ``blocks/l0/lnx``).  Its frontend
+is the reference's stub: the encoder takes frame embeddings (B, F,
+d_model), adds the sinusoidal table and runs non-causal ``masked``
+attention whatever ``attn_impl`` says, as the cross attention does; the
+prefill caches the cross attention's k/v (``xk``/``xv``), which decode
+reads.
 
 Training under a model axis (tensor parallelism; every decoder family)
 and an FSDP axis (the GSPMD step) runs on each member's blocks of the
@@ -20,10 +28,13 @@ assumes a split, and puts in the collectives GSPMD puts in for the JAX
 package — local heads with a row-parallel ``wo`` then a sum, column- then
 row-parallel MLPs, RWKV6 and Mamba mixers on local heads or channels
 (``models/ssm.py``), the vocab-sharded embedding and loss, experts split
-over the axis, and each layer's FSDP blocks gathered on use (again in the
-recompute) with their gradients reduce-scattered back.  Under the GSPMD
-step the MoE layers route the whole batch as one dispatch group, as the
-JAX package's ``jax.jit`` of the global batch does
+over the axis, the learned positions' d columns gathered
+(``prims.gather_replicated``), the encoder and the cross attention on
+local heads, and each layer's FSDP blocks gathered on use (again in the
+recompute) with their gradients reduce-scattered back (not for the
+encoder-decoder, which the GSPMD step refuses: ``check_fsdp``).  Under
+the GSPMD step the MoE layers route the whole batch as one dispatch
+group, as the JAX package's ``jax.jit`` of the global batch does
 (``layers.apply_moe``'s ``token_axes``).
 
 Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
@@ -56,6 +67,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prims
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.utils.trees import tree_from_paths, tree_paths
 
 Params = Dict[str, Any]
 
@@ -71,6 +83,7 @@ class ModelSettings:
     attn_chunk: int = 1024
     # the wkv6 and mamba_scan kernels (twin of use_pallas_ssm)
     use_kernel_ssm: bool = False
+    max_seq: int = 4096  # sizes learned positional tables
     # training: recompute each layer in the backward (torch.utils.checkpoint
     # per layer) — none | full | dots (keep the outputs of products without
     # batch dims, recompute the rest); and the CE loss's sequence chunk
@@ -105,11 +118,6 @@ def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
         raise NotImplementedError(
             "the sequence-parallel settings (seq_axis, batch_axes, "
             "gqa_repeat) are not ported yet (ROADMAP.md queue 1, item 8)")
-    if arch.is_encdec or arch.positional not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{arch.name} ({arch.family}) is not ported yet: the port runs "
-            f"decoder-only models with rope or no positions: dense, MoE, "
-            f"RWKV6 and hybrid Mamba (ROADMAP.md queue 1, item 9)")
     if st.pdt() != st.cdt() and (st.pdt(), st.cdt()) != (torch.bfloat16,
                                                           torch.float32):
         raise NotImplementedError(
@@ -120,6 +128,15 @@ def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
             f"embedding promoted by the first fp32 weight), so the port "
             f"runs fp32/fp32, bf16/bf16 and bf16/fp32 (ROADMAP.md queue 1, "
             f"'What has no reference')")
+
+
+def check_fsdp(arch: ArchConfig) -> None:
+    """Raise for a model whose layers the FSDP step cannot gather yet."""
+    if arch.is_encdec:
+        raise NotImplementedError(
+            f"the GSPMD step (FSDP) for {arch.name}: the encoder's and the "
+            f"cross attention's FSDP gathers are not ported yet (ROADMAP.md "
+            f"queue 1, item 8)")
 
 
 def group_size(arch: ArchConfig) -> int:
@@ -196,6 +213,14 @@ def init_params(arch: ArchConfig, gen: torch.Generator, st: ModelSettings,
     p["final_norm"] = L.init_norm(arch, (d,), dt, device)
     if not arch.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (d, arch.vocab), d, dt, device)
+    if arch.positional == "learned":
+        p["pos_embed"] = L.embed_init(gen, (st.max_seq, d), dt, device)
+    if arch.is_encdec:  # the encoder's layers have the decoder's dims
+        p["enc_blocks"] = _init_layer(arch, gen, 0, (arch.encoder.n_layers,),
+                                      st, device)
+        p["enc_final_norm"] = L.init_norm(arch, (d,), dt, device)
+        p["blocks"]["l0"]["xattn"] = L.init_attention(arch, gen, lead, dt, device)
+        p["blocks"]["l0"]["lnx"] = L.init_norm(arch, lead + (d,), dt, device)
     return p
 
 
@@ -215,10 +240,81 @@ def _axis(specs: Optional[Params], *path) -> Optional[str]:
     return node[path[-1]]
 
 
+def _member_heads(p: Params, specs: Optional[Params], parent: str
+                  ) -> Tuple[Params, Optional[str], bool]:
+    """(the attention leaves ``p[parent]`` as this member's heads use them,
+    the axis that splits the query heads or None, whether the kv heads
+    stay whole under it).  The replicated q_norm/k_norm, and wk/wv/bk/bv
+    where the kv heads stay whole, enter through ``to_parallel``, so their
+    gradients sum the members' heads; ``wo`` is row-parallel, its outputs
+    summed over the axis."""
+    heads = _axis(specs, parent, "wq", 1)
+    kv = _axis(specs, parent, "wk", 1)
+    names = ("q_norm", "k_norm") + (() if kv else ("wk", "wv", "bk", "bv"))
+    pa = {n: prims.to_parallel(t, heads) if n in names else t
+          for n, t in p[parent].items()}
+    return pa, heads, heads is not None and kv is None
+
+
+def _own_kv(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, heads: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole kv heads under a split of the query heads: the kv head of
+    each of this member's query heads."""
+    Hl, G = q.shape[2], arch.n_heads // arch.n_kv_heads
+    idx = (prims.axis_rank(heads) * Hl + torch.arange(Hl, device=q.device)) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
+                     enc_out: Optional[torch.Tensor], st: ModelSettings,
+                     cache: Optional[Params], specs: Optional[Params]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decoder layer's cross attention (whisper), non-causal
+    ``masked`` attention of the normed stream over the encoder's output:
+    its k/v projected from ``enc_out``, or in decode (``cache`` given)
+    read from the cache's ``xk``/``xv``.  Returns (x, k, v)."""
+    h = L.apply_norm(arch, p["lnx"], x)
+    pa, heads, whole_kv = _member_heads(p, specs, "xattn")
+    q = L.einsum("bsd,dhk->bshk", prims.to_parallel(h, heads), pa["wq"])
+    if "bq" in pa:
+        q = q + pa["bq"]
+    if cache is not None:
+        kx, vx = cache["xk"], cache["xv"]
+    else:
+        eo = prims.to_parallel(enc_out, heads)
+        kx = L.einsum("bfd,dhk->bfhk", eo, pa["wk"])
+        vx = L.einsum("bfd,dhk->bfhk", eo, pa["wv"])
+        if "bk" in pa:
+            kx, vx = kx + pa["bk"], vx + pa["bv"]
+    k, v = _own_kv(arch, q, kx, vx, heads) if whole_kv else (kx, vx)
+    o = L.attend(q, k, v, causal=False, impl="masked", q_chunk=st.attn_chunk,
+                 kv_chunk=st.attn_chunk)
+    return x + prims.psum_replicated(L.attention_out(pa, o), heads), kx, vx
+
+
+def _apply_encoder_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
+                         st: ModelSettings, specs: Optional[Params] = None
+                         ) -> torch.Tensor:
+    """One encoder layer: non-causal ``masked`` self-attention on this
+    member's heads (no rotary positions: ``arch`` has ``positional``
+    "none"), then the MLP on its d_ff columns."""
+    h = L.apply_norm(arch, p["ln1"], x)
+    pa, heads, whole_kv = _member_heads(p, specs, "attn")
+    q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads), None)
+    if whole_kv:
+        k, v = _own_kv(arch, q, k, v, heads)
+    o = L.attend(q, k, v, causal=False, impl="masked", q_chunk=st.attn_chunk,
+                 kv_chunk=st.attn_chunk)
+    x = x + prims.psum_replicated(L.attention_out(pa, o), heads)
+    h = L.apply_norm(arch, p["ln2"], x)
+    return x + L.apply_mlp_tp(arch, p["mlp"], h, _axis(specs, "mlp", "wi", 1))
+
+
 def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  st: ModelSettings, layer_id: int,
                  cache: Optional[Params] = None, pos: Optional[int] = None,
-                 specs: Optional[Params] = None, token_axes: Tuple[str, ...] = ()
+                 specs: Optional[Params] = None, token_axes: Tuple[str, ...] = (),
+                 enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
     or the new recurrent states, are written into ``cache`` in place).
@@ -226,8 +322,10 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
     reference's ``_apply_layer`` does.  ``specs`` (training only): the
     layer's leaf specs, by which its leaves are this member's blocks;
     ``token_axes``: the DP axes whose members' rows a MoE layer routes as
-    one batch (the GSPMD step's)."""
+    one batch (the GSPMD step's); ``enc_out``: the encoder's output, which
+    a layer with cross attention reads in prefill and training."""
     kind = layer_kind(arch, layer_id)
+    decode = cache is not None
     if kind == "rwkv":
         x, cache = _apply_rwkv_layer(arch, p, x, st, cache, specs)
         return x, None, cache
@@ -244,24 +342,13 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
             cache["conv"].copy_(conv)
             cache["ssm"].copy_(ssm)
     else:
-        # this member's heads (all of them when ``heads`` is None): the
-        # replicated q_norm/k_norm, and wk/wv/bk/bv where the kv heads stay
-        # whole, enter through ``to_parallel``, so their gradients sum the
-        # members' heads; ``wo`` is row-parallel, its outputs summed
-        heads = _axis(specs, "attn", "wq", 1)
-        kv = _axis(specs, "attn", "wk", 1)
-        names = ("q_norm", "k_norm") + (() if kv else ("wk", "wv", "bk", "bv"))
-        pa = {n: prims.to_parallel(t, heads) if n in names else t
-              for n, t in p["attn"].items()}
+        # this member's heads (all of them when ``heads`` is None)
+        pa, heads, whole_kv = _member_heads(p, specs, "attn")
         q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads),
                                   positions)
         if cache is None:
-            if heads is not None and kv is None:
-                # whole kv heads: each local query head takes its own
-                Hl, G = q.shape[2], arch.n_heads // arch.n_kv_heads
-                idx = (prims.axis_rank(heads) * Hl
-                       + torch.arange(Hl, device=q.device)) // G
-                k, v = k.index_select(2, idx), v.index_select(2, idx)
+            if whole_kv:
+                k, v = _own_kv(arch, q, k, v, heads)
             o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
                          block=st.attn_block, q_chunk=st.attn_chunk,
                          kv_chunk=st.attn_chunk)
@@ -274,6 +361,11 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
             o = L.attend_decode(q, kc, vc, lens)
         out = prims.psum_replicated(L.attention_out(pa, o), heads)
     x = x + out
+    if "xattn" in p:
+        x, xk, xv = _cross_attention(arch, p, x, enc_out, st,
+                                     cache if decode else None, specs)
+        if not decode:
+            cache = dict(cache, xk=xk, xv=xv)
     h = L.apply_norm(arch, p["ln2"], x)
     aux = None
     if "moe" in p:
@@ -329,26 +421,92 @@ def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _stacked_specs(layout, *path) -> Optional[Params]:
+    """The specs of the stacked leaves under ``path`` (a group offset's
+    layer, ``blocks/l{off}``, or the encoder's, ``enc_blocks``) with the
+    stacked dim dropped (those of one layer), or None without a layout."""
+    if layout is None:
+        return None
+    node = layout.tree
+    for key in path:
+        node = node[key]
+    return _tree_map(lambda sp: tuple(sp[1:]), node)
+
+
+def _unstack(tree: Params) -> list:
+    """The per-layer trees of a stacked tree (one ``unbind`` a leaf, whose
+    backward stacks the layers' gradients once)."""
+    leaves = tree_paths(tree)
+    cols = [t.unbind(0) for t in leaves.values()]
+    return [tree_from_paths(dict(zip(leaves, row))) for row in zip(*cols)]
+
+
+def encode(arch: ArchConfig, params: Params, frames: torch.Tensor,
+           st: ModelSettings, layout=None, train: bool = False) -> torch.Tensor:
+    """The encoder (the reference's frontend is a stub: ``frames`` are
+    frame embeddings (B, F, d_model)): the frames in the compute dtype
+    plus the fp32 sinusoidal table, the encoder layers (in training each
+    recomputed in the backward as ``st.remat`` says), the final norm.
+    With a ``layout`` the leaves are this member's blocks."""
+    x = frames.to(st.cdt())
+    x = x + L.sinusoidal_positions(x.shape[1], arch.d_model, x.device).to(x.dtype)
+    enc_arch = arch.replace(positional="none")
+    specs = _stacked_specs(layout, "enc_blocks")
+    for lp in _unstack(params["enc_blocks"]):
+        def layer(x_, lp=lp):
+            return _apply_encoder_layer(enc_arch, lp, x_, st, specs)
+        x = _remat(st, layer, x) if train else layer(x)
+    return L.apply_norm(arch, params["enc_final_norm"], x)
+
+
+def _positions_table(params: Params, layout=None) -> torch.Tensor:
+    """The learned positions (max_seq, d), their d columns gathered where a
+    layout splits them (the reference's rule: over the model axis)."""
+    pe = params["pos_embed"]
+    if layout is not None:
+        pe = prims.gather_replicated(pe, layout.tree["pos_embed"][1], 1)
+    return pe
+
+
 def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-            st: ModelSettings) -> Tuple[torch.Tensor, Params]:
+            st: ModelSettings, frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Params]:
     """Prefill forward.  Returns (hidden (B,S,d), the cache: for each
     within-group offset ``l{off}``, that layer's cache stacked over groups:
-    {'k','v': (G,B,S,KV,hd)} for attention layers, {'tshift','cshift':
-    (G,B,d), 'wkv': (G,B,H,hd,hd)} for RWKV, {'conv': (G,B,d_conv-1,di),
-    'ssm': (G,B,di,ds)} for Mamba)."""
+    {'k','v': (G,B,S,KV,hd)} for attention layers, with {'xk','xv':
+    (G,B,F,KV,hd)} for cross attention, {'tshift','cshift': (G,B,d), 'wkv':
+    (G,B,H,hd,hd)} for RWKV, {'conv': (G,B,d_conv-1,di), 'ssm':
+    (G,B,di,ds)} for Mamba).  An encoder-decoder needs ``frames``."""
     B, Sq = tokens.shape
     x = params["embed"][tokens].to(st.cdt())
+    if arch.positional == "learned":
+        x = x + _positions_table(params)[:Sq].to(x.dtype)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
+    enc_out = _encoder_output(arch, params, frames, st)
     caches = [[] for _ in range(group_size(arch))]  # [offset][group]
     for gi in range(n_groups(arch)):
         for off, per_group in enumerate(caches):
             lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
-            x, _, c = _apply_layer(arch, lp, x, positions, st, off)
+            x, _, c = _apply_layer(arch, lp, x, positions, st, off,
+                                   enc_out=enc_out)
             per_group.append(c)
     x = L.apply_norm(arch, params["final_norm"], x)
     return x, {f"l{off}": {name: torch.stack([c[name] for c in cs])
                            for name in cs[0]}
                for off, cs in enumerate(caches)}
+
+
+def _encoder_output(arch: ArchConfig, params: Params,
+                    frames: Optional[torch.Tensor], st: ModelSettings,
+                    layout=None, train: bool = False) -> Optional[torch.Tensor]:
+    """:func:`encode` of ``frames`` for an encoder-decoder, else None."""
+    if not arch.is_encdec:
+        return None
+    if frames is None:
+        raise ValueError(f"{arch.name} is an encoder-decoder: it needs frame "
+                         f"embeddings (B, {arch.encoder.n_frames}, "
+                         f"{arch.d_model})")
+    return encode(arch, params, frames, st, layout, train)
 
 
 def logits_from_hidden(arch: ArchConfig, params: Params,
@@ -364,8 +522,7 @@ def logits_from_hidden(arch: ArchConfig, params: Params,
 
 def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port cannot train yet: what it cannot run
-    (``check_supported``: the encoder-decoder family, learned or sinusoidal
-    positions, fp32 parameters with a bf16 compute dtype, the
+    (``check_supported``: fp32 parameters with a bf16 compute dtype, the
     sequence-parallel settings), or an unknown remat policy."""
     check_supported(arch, st)
     if st.remat not in ("none", "full", "dots"):
@@ -413,14 +570,6 @@ def _gather_fsdp(p: Params, specs: Optional[Params],
     return p
 
 
-def _layer_specs(layout, off: int) -> Optional[Params]:
-    """The specs of within-group offset ``off``'s leaves with the stacked
-    group dim dropped (those of one layer), or None without a layout."""
-    if layout is None:
-        return None
-    return _tree_map(lambda sp: tuple(sp[1:]), layout.tree["blocks"][f"l{off}"])
-
-
 def _head(arch: ArchConfig, params: Params, layout) -> Tuple[torch.Tensor, Optional[str]]:
     """The (d, vocab) output head (this member's vocab columns under a
     vocab-sharded layout, its FSDP blocks gathered) and the axis that
@@ -435,38 +584,44 @@ def _head(arch: ArchConfig, params: Params, layout) -> Tuple[torch.Tensor, Optio
 
 
 def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-                  st: ModelSettings, layout=None
+                  st: ModelSettings, layout=None,
+                  frames: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-mode forward: (the final-normed hidden states (B, S, d), the
     sum of the MoE layers' aux losses, fp32), each layer recomputed in the
     backward as ``st.remat`` says (the JAX package checkpoints each
-    scanned group).  With a ``layout`` the leaves are this member's
-    blocks; each layer's FSDP blocks are gathered inside the recomputed
-    function, so that a remat gathers them again in the backward."""
+    scanned group, and each encoder layer).  With a ``layout`` the leaves
+    are this member's blocks; each layer's FSDP blocks are gathered inside
+    the recomputed function, so that a remat gathers them again in the
+    backward.  An encoder-decoder needs ``frames``."""
     check_trainable(arch, st)
     B, Sq = tokens.shape
     fsdp = layout.fsdp if layout is not None else None
+    if fsdp is not None:
+        check_fsdp(arch)
     token_axes = layout.loss_axes if layout is not None else ()
     espec = layout.tree["embed"] if layout is not None else None
     x = L.embed_lookup(_gather_fsdp(params["embed"], espec, fsdp), tokens,
                        espec[0] if espec is not None else None).to(st.cdt())
+    if arch.positional == "learned":
+        x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
+    enc_out = _encoder_output(arch, params, frames, st, layout, train=True)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     g = group_size(arch)
-    # one unbind per stacked leaf: its backward stacks the layers' grads once
-    layers = [_tree_map(lambda a: a.unbind(0), params["blocks"][f"l{off}"])
-              for off in range(g)]
-    specs = [_layer_specs(layout, off) for off in range(g)]
+    layers = [_unstack(params["blocks"][f"l{off}"]) for off in range(g)]
+    specs = [_stacked_specs(layout, "blocks", f"l{off}") for off in range(g)]
     for gi in range(n_groups(arch)):
         for off in range(g):
-            lp = _tree_map(lambda a: a[gi], layers[off])
+            lp = layers[off][gi]
 
-            def layer(x_, lp=lp, off=off):  # (x, aux): the cache is dropped
+            def layer(x_, enc_, lp=lp, off=off):  # (x, aux): the cache is dropped
                 lp_ = _gather_fsdp(lp, specs[off], fsdp)
                 return _apply_layer(arch, lp_, x_, positions, st, off,
-                                    specs=specs[off], token_axes=token_axes)[:2]
+                                    specs=specs[off], token_axes=token_axes,
+                                    enc_out=enc_)[:2]
 
-            x, a = _remat(st, layer, x)
+            x, a = _remat(st, layer, x, enc_out)
             if a is not None:
                 aux = aux + a
     return L.apply_norm(arch, params["final_norm"], x), aux  # never split
@@ -534,7 +689,8 @@ def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     (the JAX package's weighting).  With ``layout.loss_axes`` this is the
     member's share of the batch's loss: its tokens' part of the mean, and
     the batch's aux loss (the same on every member) over the members."""
-    hidden, aux = forward_train(arch, params, batch["tokens"], st, layout)
+    hidden, aux = forward_train(arch, params, batch["tokens"], st, layout,
+                                frames=batch.get("frames"))
     loss = ce_loss_chunked(arch, params, hidden, batch["labels"], st, layout)
     if arch.moe is not None:
         n = (math.prod(prims.axis_size(a) for a in layout.loss_axes)
@@ -551,10 +707,12 @@ def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
 def init_cache(arch: ArchConfig, batch: int, max_seq: int, st: ModelSettings,
                device) -> Params:
     """Zeroed cache, stacked over groups, for each within-group offset
-    ``l{off}``: {'k','v': (G,B,S,KV,hd)} for attention layers;
-    {'tshift','cshift': (G,B,d) in the compute dtype, 'wkv': (G,B,H,hd,hd)
-    fp32} for RWKV; {'conv': (G,B,d_conv-1,di) in the compute dtype, 'ssm':
-    (G,B,di,ds) fp32} for Mamba (``max_seq`` is used by attention only)."""
+    ``l{off}``: {'k','v': (G,B,S,KV,hd)} for attention layers, with
+    {'xk','xv': (G,B,F,KV,hd)} for cross attention (F the config's frame
+    count); {'tshift','cshift': (G,B,d) in the compute
+    dtype, 'wkv': (G,B,H,hd,hd) fp32} for RWKV; {'conv': (G,B,d_conv-1,di)
+    in the compute dtype, 'ssm': (G,B,di,ds) fp32} for Mamba (``max_seq``
+    is used by attention only)."""
     G, dt = n_groups(arch), st.cdt()
 
     def zeros(shape, dtype=dt):
@@ -572,8 +730,12 @@ def init_cache(arch: ArchConfig, batch: int, max_seq: int, st: ModelSettings,
             di = m.expand * arch.d_model
             return {"conv": zeros((m.d_conv - 1, di)),
                     "ssm": zeros((di, m.d_state), torch.float32)}
-        shape = (max_seq, arch.n_kv_heads, arch.resolved_head_dim)
-        return {"k": zeros(shape), "v": zeros(shape)}
+        kv = (arch.n_kv_heads, arch.resolved_head_dim)
+        c = {"k": zeros((max_seq,) + kv), "v": zeros((max_seq,) + kv)}
+        if arch.is_encdec:
+            frames = (arch.encoder.n_frames,) + kv
+            c.update(xk=zeros(frames), xv=zeros(frames))
+        return c
 
     return {f"l{off}": layer_cache(off) for off in range(group_size(arch))}
 
@@ -583,10 +745,15 @@ def decode_step(arch: ArchConfig, params: Params, cache: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) integer; pos: tokens already in the
     cache.  Writes the new kv at ``pos`` (or the new recurrent states) in
-    place and returns (logits (B, V) fp32, cache)."""
+    place and returns (logits (B, V) fp32, cache).  Cross attention reads
+    the cache's ``xk``/``xv`` and leaves them as they are."""
     pos = int(pos)
     B = tokens.shape[0]
     x = params["embed"][tokens].to(st.cdt())
+    if arch.positional == "learned":
+        # row ``pos``, clamped into the table as lax.dynamic_slice clamps it
+        pe = params["pos_embed"]
+        x = x + pe[min(pos, pe.shape[0] - 1)].to(x.dtype)
     positions = torch.full((B, 1), pos, device=tokens.device)
     for gi in range(n_groups(arch)):
         for off in range(group_size(arch)):
@@ -598,7 +765,8 @@ def decode_step(arch: ArchConfig, params: Params, cache: Params,
 
 
 def prefill(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-            st: ModelSettings) -> Tuple[torch.Tensor, Params]:
+            st: ModelSettings, frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Params]:
     """Prefill forward: returns (last-position logits (B, V), cache)."""
-    hidden, cache = forward(arch, params, tokens, st)
+    hidden, cache = forward(arch, params, tokens, st, frames)
     return logits_from_hidden(arch, params, hidden[:, -1:])[:, 0], cache

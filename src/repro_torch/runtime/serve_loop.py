@@ -8,7 +8,9 @@ preallocated at ``max_seq`` and written in place.
 
 As in the JAX server, admission writes only a request's last prompt token
 into its slot: there is no prompt prefill here.  That is the reference's
-behaviour, which the port keeps.
+behaviour, which the port keeps; so an encoder-decoder (whisper) runs no
+encoder here and decodes against a zeroed cross-attention cache of the
+config's frame count, as the reference's server does.
 """
 from __future__ import annotations
 

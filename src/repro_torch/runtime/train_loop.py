@@ -31,8 +31,10 @@ differ from the current plan's (another model axis or fast tier packs
 other buckets) is re-cut leaf by leaf (``grad_sync.resection_state``).
 
 Every decoder family trains under both steps, with or without a model
-axis.  Not ported yet (they raise, naming ROADMAP.md): MoE dispatch groups
-(``moe_groups`` > 1) under the GSPMD step.
+axis, and the encoder-decoder (whisper) under the DFabric step, its
+frames cut by DP member as the tokens are.  Not ported yet (they raise,
+naming ROADMAP.md): MoE dispatch groups (``moe_groups`` > 1) and the
+encoder-decoder under the GSPMD step.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from repro_torch.convert import load_jax_params
 from repro_torch.models.registry import Model
 from repro_torch.models.sharding import (MeshInfo, assemble, local_block,
                                          local_shape, spec_axes)
-from repro_torch.models.transformer import check_trainable
+from repro_torch.models.transformer import check_fsdp, check_trainable
 from repro_torch.obs.metrics import MetricsLogger
 from repro_torch.optim import grad_sync
 from repro_torch.optim.adamw import (AdamWConfig, adamw_leaf,
@@ -106,7 +108,8 @@ def dp_rank(mesh: prims.Mesh) -> int:
 
 def local_rows(batch: Dict[str, np.ndarray], mesh: prims.Mesh,
                microbatches: int = 1) -> Dict[str, np.ndarray]:
-    """This member's rows of a global batch: a contiguous block of them,
+    """This member's rows of a global batch (every entry: the tokens, the
+    labels and an encoder-decoder's frames): a contiguous block of them,
     or with ``microbatches`` > 1 its block of each of the global batch's
     ``microbatches`` contiguous slices, one after the other.  The GSPMD
     step takes the latter: the JAX step's microbatch *i* is the global
@@ -273,7 +276,9 @@ def zero_moment_specs(pshapes, pspecs, sizes: Dict[str, int]):
 def check_gspmd(arch, st) -> None:
     """The GSPMD step routes a MoE layer's tokens as one batch over the DP
     members (``layers.apply_moe``'s ``token_axes``); dispatch groups over
-    that batch are not ported yet."""
+    that batch are not ported yet, nor the encoder-decoder's FSDP
+    gathers (``transformer.check_fsdp``)."""
+    check_fsdp(arch)
     if arch.moe is not None and st.moe_groups > 1:
         raise NotImplementedError(
             f"the GSPMD step (mode='gspmd') for {arch.name} with moe_groups "

@@ -133,15 +133,18 @@ def test_param_tree_matches_jax(name, experts):
 
 
 def test_supported_families():
-    """Experts and hybrids with experts are let through; encoder-decoder
-    and learned positions still raise."""
+    """Experts, hybrids with experts and the encoder-decoder are let
+    through, learned positions on any family too; what still raises is
+    fp32 parameters with a bf16 compute dtype (no reference)."""
     st = ModelSettings(**FP32)
     for name in MOE + (JAMBA,):
         check_supported(configs.get_arch(name), st)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        check_supported(jax_configs.get_arch("whisper-medium"), st)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        check_supported(configs.get_arch(DEEPSEEK).replace(positional="learned"), st)
+    check_supported(configs.get_arch("whisper-medium"), st)
+    check_trainable(configs.get_arch("whisper-medium"), st)
+    check_supported(configs.get_arch(DEEPSEEK).replace(positional="learned"), st)
+    with pytest.raises(NotImplementedError, match="no reference"):
+        check_supported(configs.get_arch("whisper-medium"),
+                        ModelSettings(param_dtype="float32", compute_dtype="bfloat16"))
 
 
 # ---------------------------------------------------------------------------

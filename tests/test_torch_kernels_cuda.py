@@ -27,8 +27,12 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 
 # the sweep of tests/test_kernels.py::test_flash_attention (same
-# tolerances), a ragged S and the widest head_dim in the configs
+# tolerances), a ragged S, the widest head_dim in the configs, and
+# whisper-medium's decoder at its 448-token text context (its bf16 prefill
+# at B=4, its fp32 training rows at B=2)
 CASES = [
+    (4, 16, 16, 448, 64, True, "bfloat16", 2e-2),
+    (2, 16, 16, 448, 64, True, "float32", 1e-5),
     (2, 4, 2, 256, 64, True, "float32", 1e-5),
     (1, 4, 4, 128, 32, False, "float32", 1e-5),
     (2, 8, 2, 256, 64, True, "bfloat16", 2e-2),
@@ -762,20 +766,21 @@ def test_moe_layer_at_model_2_on_card(cuda_device, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("member", [0, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_wkv6_on_a_members_heads_on_card(cuda_device, member, dtype):
+@pytest.mark.parametrize("seq", [512, 1024])
+def test_wkv6_on_a_members_heads_on_card(cuda_device, member, dtype, seq):
     """K3 through ``wkv6_ops.wkv6`` on one model member's heads of
     rwkv6-1.6b at model = 2 (``[train-gspmd-rwkv]``: B=1, 16 of the 32
-    heads, S=1024, hd 64), the member's heads a slice of the model-layout
-    (B, S, H, hd) tensors (a view, no copy): y and the final state
-    against the plain version on the same slice, at K3's tolerance."""
+    heads, S=512, and 1024, hd 64), the member's heads a slice of the
+    model-layout (B, S, H, hd) tensors (a view, no copy): y and the final
+    state against the plain version on the same slice, at K3's tolerance."""
     dt = getattr(torch, dtype)
-    r, k, v, w, u, s0 = _wkv_inputs(130, 1, 32, 1024, 64, dt, cuda_device)
+    r, k, v, w, u, s0 = _wkv_inputs(130, 1, 32, seq, 64, dt, cuda_device)
     heads = slice(16 * member, 16 * (member + 1))
     # the model layout, (B, S, H, hd), and this member's heads of it
     local = [a.transpose(1, 2).contiguous()[:, :, heads] for a in (r, k, v, w)]
     before = wkv_kernel.LAUNCHES
     y, sT = wkv_ops.wkv6(*local, u[heads], state=s0[:, heads])
-    assert wkv_kernel.LAUNCHES == before + 1 and y.shape == (1, 1024, 16, 64)
+    assert wkv_kernel.LAUNCHES == before + 1 and y.shape == (1, seq, 16, 64)
     ey, es = wkv6_ref(*(a.transpose(1, 2) for a in local), u[heads], s0[:, heads])
     _wkv_close(y, ey.transpose(1, 2))
     _wkv_close(sT, es)
@@ -896,3 +901,39 @@ def test_moe_layer_under_fsdp_tp_drops_as_the_whole_batch_on_card(cuda_device,
         assert experts == 32
         assert err <= 1e-5 * scale, (coords, err, scale)
         assert aux_rel <= 1e-6, (coords, aux_rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_smoke_prefill_through_the_kernel(cuda_device, dtype):
+    """The whisper smoke model's prefill on the card (S = 40, ragged, and
+    16 frames), with K1 in each decoder layer's causal self-attention (one
+    launch a layer; the encoder and the cross attention stay masked), held
+    to the same model's masked prefill: the logits and every cache leaf,
+    ``xk``/``xv`` included, at 1e-4 in fp32 and 2e-2 (atol scaled by the
+    largest value) in bf16."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.utils.trees import tree_paths
+    arch = get_smoke_arch("whisper-medium")
+    st = ModelSettings(param_dtype=dtype, compute_dtype=dtype,
+                       attn_impl="kernel", max_seq=64)
+    model = build_model(arch, st, device=cuda_device, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(61).integers(
+        0, arch.vocab, (2, 40))).to(cuda_device)
+    frames = _randn(62, 2, arch.encoder.n_frames, arch.d_model, device=cuda_device)
+    before = kernel.LAUNCHES
+    logits, cache = model.prefill(toks, frames)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + arch.n_layers
+    model.settings = dataclasses.replace(st, attn_impl="masked")
+    want, want_cache = model.prefill(toks, frames)
+    assert kernel.LAUNCHES == before + arch.n_layers
+    pairs = [(logits, want)] + [(t, tree_paths(want_cache)[k])
+                                for k, t in tree_paths(cache).items()]
+    assert sorted(tree_paths(cache)) == ["l0/k", "l0/v", "l0/xk", "l0/xv"]
+    for got, ref in pairs:
+        tol = (dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else
+               dict(atol=2e-2 * ref.float().abs().max().item(), rtol=2e-2))
+        torch.testing.assert_close(got.float(), ref.float(), **tol)

@@ -187,19 +187,38 @@ def test_load_jax_params_rejects(weights, fault):
 
 
 def test_unported_family_raises():
-    """Experts are ported now; the encoder-decoder's learned and sinusoidal
-    positions are not and raise."""
+    """Experts are ported, and so are the encoder-decoder's learned and
+    sinusoidal positions and the encoder: each such variant of the smoke
+    config builds the JAX package's tree, leaf for leaf (``pos_embed`` for
+    learned positions, nothing for sinusoidal ones on a decoder, the
+    encoder and cross-attention leaves for an encoder).  What no family
+    builds is fp32 parameters with a bf16 compute dtype, which has no
+    reference and raises."""
+    from repro.models import build_model as jax_build_model
+    from repro.models import ModelSettings as JaxSettings
     moe = get_smoke_arch(ARCH).replace(family="moe")
     from repro_torch.configs.base import EncoderConfig, MoEConfig
+    from repro.configs.base import EncoderConfig as JaxEncoderConfig
     moe = moe.replace(moe=MoEConfig(num_experts=4, top_k=2, expert_d_ff=32))
     assert "moe" in dict(build_model(moe, ModelSettings(**FP32),
                                      device="cpu").blocks.l0.named_children())
-    for bad in (get_smoke_arch(ARCH).replace(positional="learned"),
-                get_smoke_arch(ARCH).replace(positional="sinusoidal"),
-                get_smoke_arch(ARCH).replace(family="audio",
-                                             encoder=EncoderConfig(n_layers=2))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(bad, ModelSettings(**FP32), device="cpu")
+    variants = [dict(positional="learned"), dict(positional="sinusoidal")]
+    for fields in variants + [dict(family="audio")]:
+        port = get_smoke_arch(ARCH).replace(**fields)
+        jarch = jax_smoke_arch(ARCH).replace(**fields)
+        if fields.get("family") == "audio":
+            port = port.replace(encoder=EncoderConfig(n_layers=2))
+            jarch = jarch.replace(encoder=JaxEncoderConfig(n_layers=2))
+        model = build_model(port, ModelSettings(**FP32, max_seq=32), device="cpu")
+        want = tree_paths(jax_build_model(jarch, JaxSettings(**FP32, max_seq=32))
+                          .param_shapes())
+        assert {n.replace(".", "/"): tuple(p.shape)
+                for n, p in model.named_parameters()} == \
+            {k: tuple(v.shape) for k, v in want.items()}, fields
+    with pytest.raises(NotImplementedError, match="no reference"):
+        build_model(get_smoke_arch(ARCH), ModelSettings(param_dtype="float32",
+                                                        compute_dtype="bfloat16"),
+                    device="cpu")
 
 
 # ---------------------------------------------------------------------------

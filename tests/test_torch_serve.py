@@ -9,7 +9,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from torch_harness import (ARCH, ARCHS, FP32, JAMBA, NEW_ARCHS,  # noqa: E402
-                           RWKV, jax_model, jax_params, port_model, smoke_weights)
+                           RWKV, WHISPER, jax_model, jax_params, port_model,
+                           smoke_weights)
 
 from repro import configs as jax_configs  # noqa: E402
 from repro.runtime.serve_loop import DecodeServer as JaxDecodeServer  # noqa: E402
@@ -88,6 +89,27 @@ def test_jamba_greedy_tokens_match_jax_server(use_kernel_ssm):
                               batch_slots=2, max_seq=64)
     server = _server(port_model(weights, arch=JAMBA,
                                 use_kernel_ssm=use_kernel_ssm), max_seq=64)
+    for s, req in ((jserver, JaxRequest), (server, Request)):
+        for i in range(5):
+            s.submit(req(uid=i, prompt=np.array([1, 2, 3], np.int32), max_new=4))
+    jouts = jserver.run(jax_params(weights), max_steps=40)
+    outs = server.run(max_steps=40)
+    assert outs == jouts
+    assert len(set(map(tuple, outs.values()))) > 1
+    assert server.stats == {**jserver.stats, "wall": server.stats["wall"]}
+
+
+def test_whisper_greedy_tokens_match_jax_server():
+    """The same five requests on the whisper smoke model.  Neither server
+    runs the encoder: each decodes against its zeroed cross-attention
+    cache of the config's 16 frames (the reference's behaviour, ROADMAP.md
+    queue 3, item 5), and the learned positions are read at each step."""
+    weights = smoke_weights(seed=0, arch=WHISPER)
+    jserver = JaxDecodeServer(jax_model(max_seq=64, arch=WHISPER),
+                              make_mesh((1, 1), ("data", "model")),
+                              batch_slots=2, max_seq=64)
+    server = _server(port_model(weights, arch=WHISPER, attn_impl="kernel"),
+                     max_seq=64)
     for s, req in ((jserver, JaxRequest), (server, Request)):
         for i in range(5):
             s.submit(req(uid=i, prompt=np.array([1, 2, 3], np.int32), max_new=4))
@@ -201,6 +223,19 @@ def test_cli_smoke_jamba_on_cpu(capsys):
     assert server.model.settings.use_kernel_ssm
     out = capsys.readouterr().out
     assert "cut to one card: moe" in out and "throughput:" in out
+
+
+def test_cli_smoke_whisper_on_cpu(capsys):
+    """The encoder-decoder through the CLI: ``pos_embed`` sized by
+    --max-seq (as the JAX CLI sizes it), the cross cache of 16 frames."""
+    server = serve_cli.main(["--arch", WHISPER, "--smoke", "--device", "cpu",
+                             "--requests", "3", "--max-new", "2",
+                             "--batch-slots", "2", "--max-seq", "16"])
+    assert server.stats["tokens"] == 6
+    assert server.model.arch == configs.get_smoke_arch(WHISPER)
+    assert tuple(server.model.pos_embed.shape) == (16, server.model.arch.d_model)
+    out = capsys.readouterr().out
+    assert "throughput:" in out and "cut to one card" not in out
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

@@ -9,12 +9,18 @@ tensors the plain forward, and the backward recomputed through it);
 MoE, RWKV and Mamba leaf; and the deepseek-moe and jamba smokes trained
 for 8 steps by the ``Trainer`` on 8 gloo ranks against the JAX ``Trainer``
 on 8 fake devices (``tests/batteries/train_battery.py``'s runs, on a
-data-parallel mesh).
+data-parallel mesh), and the whisper smoke (the encoder-decoder, its
+frames from the data pipeline) for 4 steps on (pod, data, model) = (2, 1,
+1), two ranks, with and without the int8 slow tier, against the JAX
+``Trainer`` there.
 
 Tolerances are ``test_torch_train_model.py``'s: the loss to rtol 1e-5,
 gradients to atol 1e-5 + rtol 1e-4; ``tri`` to ``tests/test_system.py``'s
 2e-4; the trainer losses to ``test_torch_trainer.py``'s rtol 1e-4, and
-the ranks' parameters bit-equal."""
+the ranks' parameters bit-equal; whisper's final parameters to
+``check_params_close`` (atol 2e-5; with the int8 codec 99% of them, every
+one to 2 x lr x steps), its losses to rtol 1e-4 (1e-3 with the int8
+codec, ``test_torch_tp.py``'s for a lossy codec)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,7 +29,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from torch_harness import (DEEPSEEK, JAMBA, RWKV, jax_loss_and_grads,  # noqa: E402
+from torch_harness import (DEEPSEEK, JAMBA, RWKV, TRAIN, WHISPER,  # noqa: E402
+                           check_params_close, jax_loss_and_grads,
                            jax_model, jax_trainer_runs, port_loss_and_grads,
                            port_model, randn, rank_trainer, smoke_weights,
                            spawn_ranks, to_numpy, train_batch)
@@ -195,3 +202,41 @@ def test_trainer_matches_jax(trainer_runs, arch):
     for rank, (_, p, _, _) in enumerate(port[1:], 1):  # the DP invariant
         for k in params:
             np.testing.assert_array_equal(p[k], params[k], err_msg=f"rank {rank} {k}")
+
+
+WHISPER_SIZES = {"pod": 2, "data": 1, "model": 1}
+WHISPER_RUNS = {"plain": dict(mode="dfabric", zero1=True, codec=None),
+                "int8": dict(mode="dfabric", zero1=True, codec="int8")}
+
+
+@pytest.fixture(scope="module")
+def whisper_runs():
+    weights = smoke_weights(seed=55, arch=WHISPER)
+    jax_out = jax_trainer_runs({n: (WHISPER_SIZES, c) for n, c in WHISPER_RUNS.items()},
+                               weights, arch=WHISPER)
+    port = {n: spawn_ranks(2, rank_trainer, {
+        "weights": weights, "sizes": WHISPER_SIZES, "cfg": c, "arch": WHISPER})
+        for n, c in WHISPER_RUNS.items()}
+    return jax_out, port
+
+
+@pytest.mark.parametrize("name", list(WHISPER_RUNS))
+def test_whisper_dp_trainer_matches_jax(whisper_runs, name):
+    """The DFabric step on (2, 1, 1), as ``chip_smoke.py``
+    ``[train-whisper]`` runs it with the int8 slow tier (error feedback,
+    ZeRO-1) and without a codec: each member's rows of the batch's frames
+    feed the encoder, whose gradients, the cross attention's and
+    ``pos_embed``'s, are synced with the rest.  The losses to rtol 1e-4
+    (1e-3 with int8), the final parameters to ``check_params_close``, the
+    two ranks' parameters bit-equal."""
+    jax_out, port = whisper_runs
+    int8 = WHISPER_RUNS[name]["codec"] == "int8"
+    losses, params = port[name][0][0], port[name][0][1]
+    assert len(losses) == TRAIN["steps"] and np.isfinite(losses).all()
+    np.testing.assert_allclose(losses, jax_out[f"{name}/loss"],
+                               rtol=1e-3 if int8 else 1e-4)
+    check_params_close(params, {k: jax_out[f"{name}/p/{k}"] for k in params},
+                       int8=int8, steps=TRAIN["steps"])
+    assert {"pos_embed", "enc_blocks/attn/wq", "blocks/l0/xattn/wv"} <= set(params)
+    for k in params:  # the DP invariant
+        np.testing.assert_array_equal(port[name][1][1][k], params[k], err_msg=k)

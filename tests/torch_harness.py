@@ -27,11 +27,15 @@ ARCH = "qwen2-0.5b"  # the dense arch, and the default below
 RWKV = "rwkv6-1.6b"
 JAMBA = "jamba-1.5-large-398b"  # runs without experts (one_card_arch)
 DEEPSEEK = "deepseek-moe-16b"
+WHISPER = "whisper-medium"  # the encoder-decoder
 # the decoder configs of the MoE slice: four dense, two with experts
 NEW_ARCHS = ("qwen3-1.7b", "stablelm-12b", "nemotron-4-340b", "chameleon-34b",
              DEEPSEEK, "moonshot-v1-16b-a3b")
-ARCHS = tuple(sorted((JAMBA, ARCH, RWKV) + NEW_ARCHS))  # every arch the port registers
+ARCHS = tuple(sorted((JAMBA, ARCH, RWKV, WHISPER) + NEW_ARCHS))  # every arch the port registers
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
+#: the learned positions' rows (``ModelSettings.max_seq``) of every smoke
+#: model the tests build in both packages
+MAX_SEQ = 64
 
 
 def randn(seed: int, *shape, scale: float = 1.0) -> np.ndarray:
@@ -68,7 +72,7 @@ def smoke_archs(arch: str = ARCH, n_layers=None, experts: bool = False):
     return jarch, port
 
 
-def jax_model(attn_impl: str = "masked", max_seq: int = 64, dtype="float32",
+def jax_model(attn_impl: str = "masked", max_seq: int = MAX_SEQ, dtype="float32",
               arch: str = ARCH, use_pallas_ssm: bool = False, n_layers=None,
               experts: bool = False, compute_dtype=None, **settings):
     """The JAX smoke model; ``settings`` override its ``ModelSettings``
@@ -102,10 +106,11 @@ def jax_params(flat):
 
 def port_model(flat, attn_impl: str = "masked", dtype="float32",
                arch: str = ARCH, use_kernel_ssm: bool = False, n_layers=None,
-               experts: bool = False, compute_dtype=None, **settings):
+               experts: bool = False, compute_dtype=None, max_seq: int = MAX_SEQ,
+               **settings):
     st = ModelSettings(param_dtype=dtype, compute_dtype=compute_dtype or dtype,
                        attn_impl=attn_impl, use_kernel_ssm=use_kernel_ssm,
-                       **settings)
+                       max_seq=max_seq, **settings)
     model = build_model(smoke_archs(arch, n_layers, experts)[1], st,
                         device="cpu")
     load_jax_params(model, flat)
@@ -468,7 +473,7 @@ def rank_trainer(rank, payload):
     from repro_torch.utils.trees import tree_paths
     mesh = prims.Mesh(payload["sizes"])
     st = ModelSettings(param_dtype="float32", compute_dtype="float32",
-                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
+                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK, max_seq=MAX_SEQ)
     model = build_model(get_smoke_arch(payload.get("arch", ARCH)), st,
                         device="cpu")
     load_jax_params(model, payload["weights"])
@@ -982,7 +987,7 @@ def tp_grads(rank, payload):
     torch.manual_seed(0)
     st = ModelSettings(param_dtype="float32", compute_dtype="float32",
                        remat=payload.get("remat", "none"),
-                       loss_chunk=payload.get("loss_chunk", 2048))
+                       loss_chunk=payload.get("loss_chunk", 2048), max_seq=MAX_SEQ)
     model = build_model(get_smoke_arch(payload["arch"]), st, device="cpu")
     dp = dp_axes_of(sizes)
     model.shard(mesh_info(sizes, fsdp=fsdp), sizes, mesh.coords,
@@ -1060,6 +1065,22 @@ def grad_tolerance(arch: str, want: np.ndarray) -> dict:
     if arch == RWKV:
         return dict(rtol=1e-4, atol=1e-5)
     return dict(rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+#: the largest value a zero gradient's rounding noise (or its AdamW
+#: moments) may take: the smoke models' real gradients are 1e-3 to 1
+NOISE = 1e-6
+
+
+def zero_gradient(arch: str, path: str) -> bool:
+    """Whether the leaf (or the sync-state section named after it) at
+    ``path`` has a zero true gradient, so that both packages compute
+    rounding noise for it: the key biases of attention without rotary
+    positions — whisper's self-, cross- and encoder attention — since the
+    softmax over the keys is shift invariant (ROADMAP.md queue 3, item
+    7).  Such a leaf is held to ``NOISE`` in both packages rather than to
+    the other's noise."""
+    return arch == WHISPER and path.replace(".", "/").endswith("attn/bk")
 
 
 def check_round_trip(arch: str, sizes: dict, fsdp: bool):
@@ -1142,7 +1163,7 @@ def rank_tp_trainer(rank, payload):
         sizes = run["sizes"]
         st = ModelSettings(param_dtype="float32", compute_dtype="float32",
                            remat=run.get("remat", "none"),
-                           loss_chunk=TRAIN_LOSS_CHUNK)
+                           loss_chunk=TRAIN_LOSS_CHUNK, max_seq=MAX_SEQ)
         model = build_model(get_smoke_arch(run["arch"]), st, device="cpu")
         load_jax_params(model, payload["weights"][run["arch"]])
         shape = ShapeConfig("t", TRAIN_SHAPE["seq_len"],
@@ -1270,7 +1291,7 @@ RECURRENT_FAR = 1e-4
 
 
 def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True,
-                 far_share=0.0):
+                 far_share=0.0, arch=None):
     """A port run (each rank's ``rank_tp_trainer`` record) against the JAX
     one: the loss curve (rtol 1e-4, 1e-3 with a lossy codec), the final
     parameters put together from the blocks (atol 2e-5; the key biases to
@@ -1279,8 +1300,10 @@ def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True,
     2e-5, every one to 2 x lr x steps), with ``state`` the optimizer state
     put together (m and v to 1e-4 of their range, 1e-2 with ``far_share``,
     in 99% of the elements with a lossy codec; the EF to 1e-2 in 99%), and
-    every block held alike by two members bit-equal (``assemble_blocks``).
-    Returns the global parameters."""
+    every block held alike by two members bit-equal (``assemble_blocks``);
+    the state of a leaf with a zero true gradient (``zero_gradient`` for
+    ``arch``) within ``NOISE`` in both packages.  Returns the global
+    parameters."""
     steps = steps or TRAIN["steps"]
     int8 = lossy(cfg)
     far_ok = 1e-2 if int8 else far_share
@@ -1319,6 +1342,9 @@ def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True,
         _assemble_first(recs, sshapes, sizes)
     for k, got in state.items():
         want = jax_out[f"{name}/s/{k}"]
+        if zero_gradient(arch, k.rsplit("/", 1)[0]):
+            assert max(np.abs(got).max(), np.abs(want).max()) <= NOISE, k
+            continue
         rel = 1e-2 if k.endswith("/ef") else 1e-4
         if far_share:
             rel = 1e-2
