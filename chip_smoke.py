@@ -53,7 +53,7 @@ deleted after the phase; too little free disk there raises.
 
 Then ``[train3]``: 8 ranks share the card over gloo, mesh (pod, host,
 data, model) = (2, 2, 2, 1), full-width qwen2-0.5b in fp32, B=1 S=512 a
-rank: (a) the CLI with ``--codec topk`` for 2 steps (24 K1 launches a rank
+rank: (a) the CLI with ``--codec topk`` for 1 step (24 K1 launches a rank
 a step, no K2); (b) ``make_sync_plan(..., mid_codec="int8")`` on
 ``three_tier_fabric(2, 2, 2)`` and ``make_dfabric_train_step`` for 2 steps
 (K2 on every mid-coded leg and int8 slow chunk, as many launches as the
@@ -76,17 +76,17 @@ compute, both ``remat="full"`` (K1's bf16 body in (a), its fp32 body in
 (b), 48 a rank a step), a bf16 checkpoint at step 2 restored on a fresh
 model bit for bit; ``[train-moe]`` deepseek-moe-16b at every published
 width, cut to 2 layers (``configs.one_card_train_arch``: a third adds
-about 18.8 GB over the two ranks), bf16, B=1 S=2048 a rank, 2 steps, its
+about 18.8 GB over the two ranks), bf16, B=1 S=2048 a rank, 1 step, its
 CE and aux parts and dropped slots; ``[train-rwkv]`` rwkv6-1.6b at every
 width, cut to 2 of its 24 layers,
-bf16, B=1 S=2048 a rank, 2 steps, K3 in every layer's forward and
+bf16, B=1 S=2048 a rank, 1 step, K3 in every layer's forward and
 recompute (4 a rank a step; the backward recomputes the plain
 recurrence); ``[train-jamba]`` one full-width Mamba
 layer of the jamba cut, forward and backward through K4's autograd wrapper
 against the plain path's gradients in fp32 and bf16, then the jamba smoke
-model with its experts, 2 steps, K4 and K1 in the forward and recompute;
+model with its experts, 1 step, K4 and K1 in the forward and recompute;
 ``[train-whisper]`` whisper-medium whole in fp32, ``remat="full"``, B=2
-S=448 a rank with its frames from the data pipeline, 3 steps, K1's fp32
+S=448 a rank with its frames from the data pipeline, 2 steps, K1's fp32
 body in every decoder layer's forward and recompute (48 a rank a step),
 step 0's loss held to the masked step's at 1e-4 relative, an fp32
 checkpoint at step 2 (13.0 GB) restored bit for bit.
@@ -99,7 +99,7 @@ steps of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
 step) and K2 as the local plan counts it, step 0's loss held to
 ``[train]``'s at 1e-4; ``[train-gspmd]`` qwen3-1.7b at every width, cut
 to 4 of its 28 layers, in bf16, ``remat="full"``, FSDP over data x TP
-over model on (1, 2, 2), B=1 S=2048 a DP member, 3 steps, K1 on 8 local
+over model on (1, 2, 2), B=1 S=2048 a DP member, 2 steps, K1 on 8 local
 heads (8 a rank a step), step 0's loss held to one unsharded forward and
 backward on the global batch at 1e-3 and its gradient norms (the whole
 model's and the leaves nearest the loss) at 1e-2 relative, and its
@@ -123,6 +123,24 @@ slots summed equal to the unsharded layer's, the output within 1e-5.
 Every block that two members hold alike (the replicated leaves over the
 model members, every leaf over the pod members) is compared bit for bit
 after every step.
+
+Last, ``[cells]``: (a) the dry-run (``repro_torch.launch.dryrun``) of
+every (arch x applicable shape) cell on both two-tier production meshes
+with the default flags, 64 cells built on the meta device, one line each
+(argument GB a member, model flops, collective bytes a member by tier; no
+seconds); (b) one DP member's share of four cells of (pod, data, model) =
+(2, 16, 16) at full width, the model axis folded onto the card, each with
+the cell's settings and step kind (``Cell.bind``): qwen2-0.5b's
+prefill_32k (B=1 S=32768 bf16, K1 in each of its 24 layers, then in fp32
+at 4 layers held to the masked path at 1e-3), decode_32k (B=4 over a
+32768-long cache, 16 steps, no kernel, finite logits, TPOT), rwkv6-1.6b's
+long_500k (B=1, 16 steps at pos 524272 with K3, 24 a step, each launch
+held to the plain recurrence on its own inputs at ``[K3]``'s tolerance;
+then in fp32 each layer's drift between the K3 and the plain path at 24
+layers, and the logits of the two paths held at 1e-3 at 4 layers) and
+qwen2-0.5b's train_4k (two DP members over gloo on (2, 1, 1), 8 rows x
+4096 a rank in 2 microbatches, bf16, ``remat="full"``, no codec, 2 steps,
+K1 96 a rank a step, parameters bit-equal over the ranks).
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -173,8 +191,10 @@ CKPT_EVERY, FAIL_AT = 2, 2
 # model) = (2, 2, 2, 1), full-width qwen2-0.5b in fp32, B=1 S=512 a rank;
 # (a) the CLI with the top-k slow codec, (b) the mid-tier int8 codec
 # through make_sync_plan + make_dfabric_train_step, then the collectives
-# (a)'s steps cut from 3 to 2 to make room for whisper's phases
-TRAIN3_STEPS = 2
+# (a)'s steps cut from 3 to 2 to make room for whisper's phases, to 1 for
+# the cells' phase; (b) keeps 2, so error feedback and the moments cross a
+# step
+TRAIN3_STEPS = 1
 TRAIN3_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,2,2,1", "--codec", "topk",
                "--steps", str(TRAIN3_STEPS), "--batch", "8", "--seq", "512",
                "--backend", "gloo", "--device", "cuda"]
@@ -486,16 +506,29 @@ def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=(),
             return torch.randn(B, heads, S, d, generator=gen, device=dev).to(dt)
 
         q, k, v = draw(Hc), draw(KVc), draw(KVc)
+        # attention_ref holds B x H x S x S fp32 scores; past 16 GB (the
+        # prefill_32k cell's 60 GB) the plain version is the chunked masked
+        # attention that the model's plain prefill runs, on the same views
+        chunked = B * Hc * S * S * 4 > 16e9
+
+        def plain():
+            if chunked:
+                from repro_torch.models import layers as L
+                return L.attend(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                impl="masked").transpose(1, 2)
+            return attention_ref(q, k, v, causal=causal)
+
         out = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=causal)
+        ref = plain()
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), atol=tol[dt_name],
                                    rtol=tol[dt_name], msg=lambda m: f"{name}: {m}")
         kernel_ms = time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=causal),
                             iters=20 if main else 10)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal),
-                           iters=5 if main else 10)
+        plain_ms = time_ms(plain, iters=1 if chunked else (5 if main else 10),
+                           warmup=1 if chunked else 2)
         # yardstick only: one PyTorch call for the same function (SDPA on
         # k/v repeated per q head beforehand); the port never calls it
         kr = k.repeat_interleave(Hc // KVc, dim=1)
@@ -507,7 +540,7 @@ def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=(),
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
         log(f"[K1] {name:14s} q=({B},{Hc},{S},{d}){' strided' if main else ''} "
-            f"kv={KVc} causal={causal} "
+            f"kv={KVc} causal={causal}{' plain=chunked masked' if chunked else ''} "
             f"{dt_name}: max_err={err:.3e} (tol {tol[dt_name]}) "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} ratio_to_library={kernel_ms / library_ms:.3f} "
@@ -528,6 +561,7 @@ def check_wkv6(torch, gen, dev, arch):
         ("main-bf16", B_MAIN, H, S_MAIN, hd, "bfloat16"),
         ("main-fp32", B_MAIN, H, S_MAIN, hd, "float32"),
         ("decode-S1", 8, H, 1, hd, "bfloat16"),
+        ("main-cells-long", 1, H, 1, hd, "bfloat16"),  # [cells] long_500k's row
         ("prefill-B1", 1, H, S_MAIN, hd, "bfloat16"),  # splits each head's columns
         # [train-gspmd-rwkv]: a model member's 16 heads at that run's S,
         # fp32 compute (its main path), and bf16
@@ -1271,6 +1305,10 @@ class FamilyRun(NamedTuple):
 
 
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+# the runs' steps went from 3 to 2 when whisper's phases came, and to 1
+# when the cells' phase came, but for the int8 bf16 runs and whisper's,
+# which keep 2 so that error feedback and the moments cross a step; each
+# checkpoint is written after its run's last step
 FAMILY_RUNS = {
     "train-bf16-a": FamilyRun("qwen2-0.5b", dict(BF16, remat="full", attn_impl="kernel"),
                               2, 2048, 2, 2),
@@ -1278,14 +1316,14 @@ FAMILY_RUNS = {
                               dict(param_dtype="bfloat16", compute_dtype="float32",
                                    remat="full", attn_impl="kernel"), 2, 2048, 2, 2),
     "train-moe": FamilyRun("deepseek-moe-16b",
-                           dict(BF16, remat="full", attn_impl="kernel"), 1, 2048, 2, None),
+                           dict(BF16, remat="full", attn_impl="kernel"), 1, 2048, 1, None),
     # rwkv6-1.6b at 2 of its 24 layers (cut to 4 when the GSPMD phases
-    # came, to 2 when whisper's did; the other runs' steps went from 3 to 2)
+    # came, to 2 when whisper's did)
     "train-rwkv": FamilyRun("rwkv6-1.6b", dict(BF16, remat="full", use_kernel_ssm=True),
-                            1, 2048, 2, None, depth=2),
+                            1, 2048, 1, None, depth=2),
     "train-jamba": FamilyRun("jamba-1.5-large-398b-smoke",
                              dict(BF16, remat="full", attn_impl="kernel",
-                                  use_kernel_ssm=True), 2, 512, 2, None),
+                                  use_kernel_ssm=True), 2, 512, 1, None),
     # whisper-medium whole (24 + 24 layers), fp32, K1's fp32 body in each
     # decoder layer's forward and recompute, the encoder and the cross
     # attention masked; remat: without it each rank would keep every
@@ -1293,7 +1331,7 @@ FAMILY_RUNS = {
     "train-whisper": FamilyRun("whisper-medium",
                                dict(param_dtype="float32", compute_dtype="float32",
                                     remat="full", attn_impl="kernel"),
-                               2, None, 3, 2, masked_step0=True),
+                               2, None, 2, 2, masked_step0=True),
 }
 FAMILY_SIZES = {"pod": 2, "data": 1, "model": 1}
 
@@ -1635,8 +1673,8 @@ GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
 #: DP member (rows: the global batch's), at every published width:
 #: ``[train-gspmd]`` qwen3-1.7b cut to 4 of its 28 layers (at 28 the script
 #: took 1170 s of its 1200 s limit on an H100 host; 14 until whisper's
-#: phases came), in bf16, ``remat="full"``, S=2048, 3 steps, a checkpoint
-#: at step 2; ``[train-gspmd-rwkv]`` rwkv6-1.6b cut to 4 of its 24 layers
+#: phases came), in bf16, ``remat="full"``, S=2048, 2 steps (3 until the
+#: cells' phase came), a checkpoint at step 2; ``[train-gspmd-rwkv]`` rwkv6-1.6b cut to 4 of its 24 layers
 #: (whole until whisper's phases came: 106-136 s), bf16 parameters with
 #: fp32 compute (in bf16 compute the unsharded step's own gradient norm is
 #: 1.9x its fp32 one), K3 on each member's 16 heads, S=512 (cut from 2048,
@@ -1652,7 +1690,7 @@ GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
 #: to 1e-2
 GSPMD_RUNS = {
     "train-gspmd": dict(arch="qwen3-1.7b", depth=4, sizes=GSPMD_SIZES, rows=2,
-                        seq=2048, steps=3, ckpt=2,
+                        seq=2048, steps=2, ckpt=2,
                         gnorm_tol=dict(whole=1e-2, tail=1e-2),
                         fields=dict(BF16, remat="full", attn_impl="kernel",
                                     loss_chunk=2048)),
@@ -2051,7 +2089,8 @@ def gspmd_phase(torch, card, tag, ckpt_dir=None):
 
 #: ``[train-tp-hybrid]`` (a)-(c): {part: (arch, mesh sizes, mode)}, the smoke
 #: configs with their experts (``get_smoke_arch``) on four ranks, B=2 S=512
-#: a DP member, 2 steps (3 until whisper's phases came), bf16,
+#: a DP member, 1 step (3 until whisper's phases came, 2 until the cells'),
+#: bf16,
 #: ``remat="full"``, K1, K3 and K4 in the forward
 #: and the recompute, the int8 slow tier in the DFabric step
 HYBRID_RUNS = {
@@ -2060,7 +2099,7 @@ HYBRID_RUNS = {
     "c": ("rwkv6-1.6b", {"pod": 2, "data": 1, "model": 2}, "dfabric"),
 }
 HYBRID_FIELDS = dict(BF16, remat="full", attn_impl="kernel", use_kernel_ssm=True)
-HYBRID_ROWS, HYBRID_SEQ, HYBRID_STEPS = 2, 512, 2
+HYBRID_ROWS, HYBRID_SEQ, HYBRID_STEPS = 2, 512, 1
 #: (d) one full-width Mamba layer of the jamba cut over model = 2, one dtype
 #: a DP member of ``GSPMD_SIZES``: (dtype, seed, tolerance of the assembled
 #: gradients against the unsharded layer's, ``jamba_layer_check``'s).  In
@@ -2706,6 +2745,418 @@ def decoder_path(torch, gen, dev, arch, counters, fp32_layers=None,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the cells: the dry-run of every cell, and one DP member's share of four
+# ---------------------------------------------------------------------------
+
+#: the multi-pod production mesh, (pod, data, model) = (2, 16, 16), whose
+#: DP members' shares run here with the model axis folded onto the card
+CELL_MESH = {"pod": 2, "data": 16, "model": 16}
+#: the train_4k cell's run: two DP members over gloo on the card, each
+#: member's 8 rows in 2 microbatches of 4 (the cell's 1 does not fit: with
+#: the model axis folded a member's loss chunk holds all 151,936 vocab
+#: columns, 16 members' worth, and the two ranks ran out of the card's
+#: 80 GB in the backward, 34.10 GiB allocated by the failing one; at 2 the
+#: peak is 32.06 GB a rank)
+CELL_TRAIN_SIZES = {"pod": 2, "data": 1, "model": 1}
+CELL_TRAIN_MICROBATCHES = 2
+CELL_DECODE_STEPS = 16
+CELL_TRAIN_STEPS = 2
+#: the depth of the fp32 holds of prefill_32k and long_500k (the bf16 runs
+#: are at full depth): at 24 random layers rwkv6's fp32 rounding is
+#: amplified past 1e-3, as in rwkv6's ``[prefill]`` checks, and qwen2's fp32
+#: masked prefill at S=32768 takes ~18 s of the time limit
+CELL_FP32_LAYERS = 4
+
+
+def member_rows(cell) -> int:
+    """The rows one DP member holds of the cell's tokens, from the
+    stand-in's spec."""
+    arg = cell.args[1] if cell.mode == "prefill" else cell.args[2]
+    tokens = arg["tokens"] if isinstance(arg, dict) else arg
+    return tokens.local_shape(cell.sizes)[0]
+
+
+def dryrun_cells(card) -> int:
+    """(a) Every (arch x applicable shape) cell on both two-tier production
+    meshes with the default flags, on the meta device: one line a cell;
+    returns the count.  No seconds: the records are spec-free."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.configs.base import SHAPES, shape_applicable
+    from repro_torch.launch import dryrun
+    t0, n = time.perf_counter(), 0
+    for multi in (False, True):
+        for arch in list_archs():
+            for shape in SHAPES:
+                if not shape_applicable(get_arch(arch), SHAPES[shape])[0]:
+                    continue
+                rec = dryrun.run_cell(arch, shape, multi_pod=multi)
+                n += 1
+                name = f"{arch}__{shape}__{'multi' if multi else 'single'}"
+                log(f"[cells] dry-run {dryrun.summary_line(name, rec)}")
+                if not rec["ok"]:
+                    raise AssertionError(f"[cells] {name}: {rec['error']}\n"
+                                         f"{rec['traceback']}")
+    log(f"[cells] dry-run: {n} default cells built on the meta device on "
+        f"(data, model) = (16, 16) and (pod, data, model) = (2, 16, 16) in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    if n != 64:
+        raise AssertionError(f"[cells] {n} default cells, expected 64")
+    return n
+
+
+def cells_prefill(torch, gen, dev, counters, card):
+    """qwen2-0.5b's prefill_32k cell, one DP member's share (B=1, S=32768)
+    at full width, the model axis folded: bf16 with K1 in every layer
+    (launches asserted), its time, tokens/s and peak; then the same
+    prefill in fp32 on the first CELL_FP32_LAYERS layers, K1 against the
+    masked path at ``[prefill]``'s 1e-3 (in bf16 the two paths' roundings
+    part through 24 layers, to about 6e-02 in the logits), and the masked
+    path's time."""
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = build_cell("qwen2-0.5b", "prefill_32k", CELL_MESH, attn_impl="kernel")
+    rows, S, arch, st = member_rows(cell), cell.shape.seq_len, cell.arch, cell.model.settings
+    torch.cuda.reset_peak_memory_stats()
+    bound = cell.bind(device="cuda", seed=SEED)
+    tokens = torch.randint(0, arch.vocab, (rows, S), generator=gen, device=dev)
+    (logits, cache), launches = drive_path(counters, lambda: bound.run(tokens))
+    want = {k: 0 for k in counters}
+    want["flash_attention_fwd"] = arch.n_layers
+    if launches != want:
+        raise AssertionError(f"[cells] prefill_32k launched {launches}, expected {want}")
+    if logits.shape != (rows, arch.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"[cells] prefill_32k logits {tuple(logits.shape)}")
+    del cache
+    runs = host_ms(lambda: bound.run(tokens), 3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(runs)
+    log(f"[cells] qwen2-0.5b prefill_32k, one DP member of {CELL_MESH} (model "
+        f"axis folded): B={rows} S={S} bf16 attn_chunk={st.attn_chunk}: "
+        f"launches/prefill={{'flash_attention_fwd': {launches['flash_attention_fwd']}}} "
+        f"prefill_ms median={ms:.2f} runs={[round(t, 2) for t in runs]} "
+        f"tok/s={rows * S / ms * 1e3:.0f} peak_gb={peak:.2f} | {card}")
+    del bound, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    st32 = dataclasses.replace(st, param_dtype="float32", compute_dtype="float32")
+    arch32 = arch.replace(n_layers=CELL_FP32_LAYERS)
+    model32 = build_model(arch32, st32, device="cuda", seed=SEED)
+    out = {}
+
+    def prefill32(impl):  # one run, its logits kept
+        model32.settings = dataclasses.replace(st32, attn_impl=impl)
+        out[impl] = model32.prefill(tokens)[0]
+
+    k_ms = host_ms(lambda: prefill32("kernel"), 1)[0]
+    p_ms = host_ms(lambda: prefill32("masked"), 1)[0]
+    lk, lm = out["kernel"], out["masked"]
+    err = (lk - lm).abs().max().item()
+    log(f"[cells] qwen2-0.5b prefill_32k fp32, B={rows} S={S}, {arch32.n_layers} "
+        f"of {arch.n_layers} layers: K1 vs masked logits max_abs_diff={err:.3e} (atol=rtol=1e-3); "
+        f"K1 path {k_ms:.2f} ms, masked path {p_ms:.2f} ms | {card}")
+    torch.testing.assert_close(lk, lm, atol=1e-3, rtol=1e-3)
+    del model32, lk, lm
+    return {"ms": ms, "launches": launches["flash_attention_fwd"]}
+
+
+def cells_decode(torch, gen, dev, counters, card):
+    """qwen2-0.5b's decode_32k cell, one DP member's share: B=4 rows over a
+    32768-long cache, CELL_DECODE_STEPS steps from a zeroed cache at the
+    cache's last positions; no kernel (decode takes none), finite logits,
+    the step times (TPOT)."""
+    from repro_torch.launch.cells import build_cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = build_cell("qwen2-0.5b", "decode_32k", CELL_MESH)
+    rows, S, arch = member_rows(cell), cell.shape.seq_len, cell.arch
+    torch.cuda.reset_peak_memory_stats()
+    bound = cell.bind(device="cuda", seed=SEED)
+    cache = bound.init(rows, S)
+    toks = torch.randint(0, arch.vocab, (rows, CELL_DECODE_STEPS), generator=gen, device=dev)
+    start = S - CELL_DECODE_STEPS
+    times, out = [], []
+
+    def steps():
+        for t in range(CELL_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = bound.run(cache, toks[:, t:t + 1], start + t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+
+    _, launches = drive_path(counters, steps)
+    if any(launches.values()):
+        raise AssertionError(f"[cells] decode_32k launched {launches}: expected none")
+    if not all(lg.shape == (rows, arch.vocab) and bool(torch.isfinite(lg).all())
+               for lg in out):
+        raise AssertionError("[cells] decode_32k logits not finite")
+    p50 = statistics.median(times)
+    log(f"[cells] qwen2-0.5b decode_32k, one DP member of {CELL_MESH}: B={rows}, "
+        f"cache {S} long (bf16), {CELL_DECODE_STEPS} steps at pos {start}..{S - 1}: "
+        f"launches={launches} tpot_p50_ms={p50:.2f} "
+        f"tpot_max_ms={max(times):.2f} step_ms={[round(t, 2) for t in times]} "
+        f"tok/s={rows * CELL_DECODE_STEPS / sum(times) * 1e3:.1f} "
+        f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} | {card}")
+    del bound, cache, out
+    return {"tpot_p50_ms": p50}
+
+
+def cells_long(torch, gen, dev, counters, card):
+    """rwkv6-1.6b's long_500k cell, one DP member's share: B=1 (the batch
+    of 1 stays whole), CELL_DECODE_STEPS decode steps from a zeroed state
+    at pos 524272 (the recurrent state is the cache; no position enters),
+    with K3 in every layer (the cell's settings with ``use_kernel_ssm``,
+    the twin of the reference's ``use_pallas_ssm``): launches, step times;
+    then every K3 launch of the same steps against the plain recurrence on
+    its own inputs at ``[K3]``'s tolerance, and the plain path's logits."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.launch.cells import build_cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = build_cell("rwkv6-1.6b", "long_500k", CELL_MESH)
+    rows, S, arch, st = member_rows(cell), cell.shape.seq_len, cell.arch, cell.model.settings
+    torch.cuda.reset_peak_memory_stats()
+    bound = cell.bind(device="cuda", seed=SEED)
+    kernel_st = dataclasses.replace(st, use_kernel_ssm=True)
+    toks = torch.randint(0, arch.vocab, (rows, CELL_DECODE_STEPS), generator=gen, device=dev)
+    start = S - CELL_DECODE_STEPS
+
+    def run(settings, record=None):
+        bound.model.settings = settings
+        cache = bound.init(rows, S)
+        out = []
+        for t in range(CELL_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = bound.run(cache, toks[:, t:t + 1], start + t)
+            torch.cuda.synchronize()
+            if record is not None:
+                record.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+        return out
+
+    times = []
+    lk, launches = drive_path(counters, lambda: run(kernel_st, times))
+    want = {k: 0 for k in counters}
+    want["wkv6_fwd"] = arch.n_layers * CELL_DECODE_STEPS
+    if launches != want:
+        raise AssertionError(f"[cells] long_500k launched {launches}, expected {want}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in lk):
+        raise AssertionError("[cells] long_500k logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # each K3 launch of the same steps against the plain recurrence on the
+    # launch's own inputs (the plain runs here are no launches)
+    real, errs = wkv_ops.wkv6_fwd, []
+
+    def checked(r, k, v, w, u, s0):
+        y, sT = real(r, k, v, w, u, s0)
+        ey, es = wkv6_ref(r, k, v, w, u, s0)
+        atol = 2e-5 * (ey.abs().max().item() + 1.0)
+        for got, exp in ((y, ey), (sT, es)):
+            torch.testing.assert_close(got, exp, rtol=1e-4, atol=atol)
+        errs.append(max((y - ey).abs().max().item(), (sT - es).abs().max().item()))
+        return y, sT
+
+    wkv_ops.wkv6_fwd = checked
+    try:
+        run(kernel_st)
+    finally:
+        wkv_ops.wkv6_fwd = real
+    if len(errs) != arch.n_layers * CELL_DECODE_STEPS:
+        raise AssertionError(f"[cells] {len(errs)} K3 launches checked")
+    plain_times = []
+    lp = run(st, plain_times)
+    diff = max((a - b).abs().max().item() for a, b in zip(lk, lp))
+    p50 = statistics.median(times)
+    log(f"[cells] rwkv6-1.6b long_500k, one DP member of {CELL_MESH}: B={rows}, "
+        f"{CELL_DECODE_STEPS} steps at pos {start}..{S - 1} from a zeroed state, "
+        f"bf16: launches={{'wkv6_fwd': {launches['wkv6_fwd']}}} "
+        f"({arch.n_layers} a step) tpot_p50_ms={p50:.2f} step_ms="
+        f"{[round(t, 2) for t in times]} tok/s={rows * CELL_DECODE_STEPS / sum(times) * 1e3:.1f} "
+        f"peak_gb={peak:.2f}; every K3 launch vs plain on its inputs: max_err="
+        f"{max(errs):.3e} (rtol 1e-4, atol 2e-5 x (max|y|+1)); plain path "
+        f"tpot_p50_ms={statistics.median(plain_times):.2f}, logits vs K3's "
+        f"max_abs_diff={diff:.3e} (bf16 through {arch.n_layers} layers) | {card}")
+    bound.model.settings = st
+    del bound, lk, lp
+    cells_long_fp32(torch, arch, st, toks, rows, S, start, card)
+    return {"tpot_p50_ms": p50, "launches": launches["wkv6_fwd"]}
+
+
+def cells_long_fp32(torch, arch, st, toks, rows, S, start, card):
+    """long_500k's steps in fp32, K3's path against the plain one: at full
+    depth each layer's drift (the largest difference of the layer's
+    recurrence input ``r`` and of its output ``y`` over the steps, over the
+    plain path's largest value), which shows where the two paths part; then
+    at CELL_FP32_LAYERS layers every step's logits held at 1e-3, as rwkv6's
+    fp32 ``[prefill]`` checks are."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.models import build_model, ssm
+    gc.collect()
+    torch.cuda.empty_cache()
+    st32 = dataclasses.replace(st, param_dtype="float32", compute_dtype="float32")
+    real = {"kernel": wkv_ops.wkv6, "plain": ssm.wkv6_scan_ref}
+    seen = {"kernel": [], "plain": []}
+
+    def recording(path):
+        def call(r, k, v, w, u, state=None):
+            y, sT = real[path](r, k, v, w, u, state=state)
+            seen[path].append((r.detach().float().clone(), y.detach().clone()))
+            return y, sT
+        return call
+
+    def run(model, path):
+        model.settings = dataclasses.replace(st32, use_kernel_ssm=path == "kernel")
+        cache, out = model.init_cache(rows, S), []
+        for t in range(CELL_DECODE_STEPS):
+            logits, cache = model.decode_step(cache, toks[:, t:t + 1], start + t)
+            out.append(logits)
+        return torch.stack(out)
+
+    def both(depth):
+        model = build_model(arch.replace(n_layers=depth), st32, device="cuda", seed=SEED)
+        for v in seen.values():
+            v.clear()
+        wkv_ops.wkv6, ssm.wkv6_scan_ref = recording("kernel"), recording("plain")
+        try:
+            return run(model, "kernel"), run(model, "plain")
+        finally:
+            wkv_ops.wkv6, ssm.wkv6_scan_ref = real["kernel"], real["plain"]
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    lk, lp = both(arch.n_layers)
+    n = arch.n_layers
+    if len(seen["kernel"]) != n * CELL_DECODE_STEPS or len(seen["plain"]) != len(seen["kernel"]):
+        raise AssertionError(f"[cells] long_500k fp32: {len(seen['kernel'])} and "
+                             f"{len(seen['plain'])} recurrence calls recorded")
+    drift = {}
+    for i, name in enumerate(("r", "y")):
+        diff, scale = [0.0] * n, [0.0] * n
+        for c, (a, b) in enumerate(zip(seen["kernel"], seen["plain"])):
+            diff[c % n] = max(diff[c % n], (a[i] - b[i]).abs().max().item())
+            scale[c % n] = max(scale[c % n], b[i].abs().max().item())
+        drift[name] = [d / max(m, 1e-30) for d, m in zip(diff, scale)]
+    full_gap = (lk - lp).abs().max().item()
+    log(f"[cells] rwkv6-1.6b long_500k fp32, {n} layers, the same {CELL_DECODE_STEPS} "
+        f"steps: logits K3 path vs plain max_abs_diff={full_gap:.3e} (max|logits| "
+        f"{lp.abs().max().item():.3e}); each layer's relative drift, recurrence "
+        f"input r: {[float(f'{d:.2e}') for d in drift['r']]}; output y: "
+        f"{[float(f'{d:.2e}') for d in drift['y']]} | {card}")
+    del lk, lp
+    lk, lp = both(CELL_FP32_LAYERS)
+    err = (lk - lp).abs().max().item()
+    log(f"[cells] rwkv6-1.6b long_500k fp32, {CELL_FP32_LAYERS} of {n} layers: every "
+        f"step's logits K3 path vs plain max_abs_diff={err:.3e} (atol=rtol=1e-3) | {card}")
+    torch.testing.assert_close(lk, lp, atol=1e-3, rtol=1e-3)
+    del lk, lp
+
+
+def cells_train_rank(rank, world, init_method, rows, steps, microbatches):
+    """One DP member of qwen2-0.5b's train_4k cell on (2, 1, 1): the cell
+    bound to this rank's mesh (the DFabric step, ZeRO-1, the cell's settings
+    with K1), ``rows`` x 4096 tokens a step from ``Model.synthetic_batch``
+    with a seed a rank, ``steps``
+    steps: each step's launches, loss, time, peak, parameters against
+    member 0's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import prims
+    from repro_torch.launch.cells import build_cell
+    kernels = kernel_modules()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world,
+                            rank=rank)
+    rec = {"steps": []}
+    try:
+        cell = build_cell("qwen2-0.5b", "train_4k", CELL_TRAIN_SIZES,
+                          attn_impl="kernel", microbatches=microbatches)
+        mesh = prims.Mesh(cell.sizes)
+        bound = cell.bind(mesh, device="cuda", seed=SEED)
+        model = bound.model
+        model.requires_grad_(True)
+        params, state = model.params(), bound.init()
+        share = dataclasses.replace(cell.shape, global_batch=rows)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + rank)
+        per = expected_launches(cell.arch, cell.model.settings)
+        rec.update(expected={k: n * cell.microbatches for k, n in per.items()},
+                   microbatches=cell.microbatches, settings=dataclasses.asdict(
+                       cell.model.settings), sections=len(cell.plan.sections),
+                   mem_after_init_gb=torch.cuda.memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(steps):
+            batch = model.synthetic_batch(gen, share)
+            torch.cuda.synchronize()
+            for mod in kernels.values():
+                mod.LAUNCHES = 0  # just before the path
+            t0 = time.perf_counter()
+            params, state, metrics = bound.run(params, state, batch, step)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+            rec["steps"].append(dict(step=step, loss=loss, dt=dt, launches=launches,
+                                     params_equal=params_bit_equal(params),
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            del batch
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def cells_train(card, microbatches=CELL_TRAIN_MICROBATCHES):
+    """qwen2-0.5b's train_4k cell: two DP members sharing the card over
+    gloo, each with a member's share of the multi-pod mesh's rows."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.cells import build_cell
+    rows = member_rows(build_cell("qwen2-0.5b", "train_4k", CELL_MESH))
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(cells_train_rank, 2, rows, CELL_TRAIN_STEPS,
+                               microbatches, timeout=900)
+    r0 = recs[0]
+    log(f"[cells] qwen2-0.5b train_4k, two DP members on {CELL_TRAIN_SIZES} over "
+        f"gloo, each a member's share of {CELL_MESH} (model axis folded): "
+        f"B={rows} S=4096 a rank, the DFabric step (ZeRO-1, codec None, "
+        f"{r0['sections']} sections), microbatches {r0['microbatches']}, "
+        f"remat {r0['settings']['remat']}, {r0['settings']['param_dtype']}: "
+        f"{time.perf_counter() - t0:.1f} s wall; memory after init "
+        f"{r0['mem_after_init_gb']:.2f} GB a rank | {card}")
+    want = dict(r0["expected"], quantize_ef_fwd=0)
+    for rank, rec in enumerate(recs):
+        for st in rec["steps"]:
+            log(f"[cells] train_4k rank {rank} step {st['step']}: loss={st['loss']:.6f} "
+                f"(pmean) step_s={st['dt']:.3f} tok/s={2 * rows * 4096 / st['dt']:.0f} "
+                f"(both members) launches={st['launches']} params_bit_equal="
+                f"{st['params_equal']} peak_mem_gb={st['peak_gb']:.2f} | {card}")
+            if st["launches"] != want:
+                raise AssertionError(f"[cells] train_4k rank {rank} step {st['step']} "
+                                     f"launched {st['launches']}, expected {want}")
+            if not (math.isfinite(st["loss"]) and st["params_equal"]):
+                raise AssertionError(f"[cells] train_4k rank {rank}: {st}")
+        if len(rec["steps"]) != CELL_TRAIN_STEPS:
+            raise AssertionError(f"[cells] train_4k rank {rank} ran {len(rec['steps'])} steps")
+    return recs
+
+
+def cells_phase(torch, gen, dev, counters, card, phase_done):
+    """``[cells]``: (a) the dry-run of the 64 default cells; (b) one DP
+    member's share of four cells on the card."""
+    dryrun_cells(card)
+    phase_done("cells: dry-run of 64 cells")
+    cells_prefill(torch, gen, dev, counters, card)
+    cells_decode(torch, gen, dev, counters, card)
+    cells_long(torch, gen, dev, counters, card)
+    phase_done("cells: prefill_32k, decode_32k, long_500k")
+    cells_train(card)
+    phase_done("cells: train_4k, 2 ranks")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         sys.exit("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -2777,7 +3228,12 @@ def main() -> None:
                  family_arch("jamba-1.5-large-398b-smoke")[0], 512, "bfloat16"),
                 # whisper's decoder: its prefill, and [train-whisper]'s rows
                 ("main-whisper", B_MAIN, whisper, whisper_seq(), "bfloat16"),
-                ("main-train-whisper", 2, whisper, whisper_seq(), "float32")),
+                ("main-train-whisper", 2, whisper, whisper_seq(), "float32"),
+                # [cells]: a DP member's rows of the prefill_32k cell and
+                # a microbatch of its rows of the train_4k cell
+                ("main-cells-prefill", 1, qwen, 32768, "bfloat16"),
+                ("main-cells-train", 8 // CELL_TRAIN_MICROBATCHES, qwen,
+                 4096, "bfloat16")),
         # a model member's local heads in [train-tp] and [train-gspmd]
         locals_=(("main-train-tp-fp32", 2, qwen.n_heads // 2, qwen.n_kv_heads // 2,
                   S_MAIN, qwen.resolved_head_dim, "float32"),
@@ -2907,6 +3363,9 @@ def main() -> None:
 
     # ---- tensor parallelism and the GSPMD step: 4 ranks on the card -------
     tp_phases(torch, card, recs, phase_done)
+
+    # ---- the cells: the dry-run, one DP member's share of four cells ------
+    cells_phase(torch, gen, dev, counters, card, phase_done)
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

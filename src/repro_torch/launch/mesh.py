@@ -1,8 +1,9 @@
-"""Mesh layout of the training CLI — what ``launch/train.py`` needs of
-``repro.launch.mesh`` and of the JAX CLI's ``--mesh`` rules.
+"""Mesh layouts — ``repro.launch.mesh`` (the production and test meshes)
+and the JAX CLI's ``--mesh`` rules.
 
-A mesh is {axis: size}, slowest tier first.  Each rank of the
-``torch.distributed`` world is one member (see ``core.prims.Mesh``).
+A mesh here is {axis: size}, slowest tier first: what the sharding rules,
+the planner and the cells read.  Each rank of the ``torch.distributed``
+world is one member of a bound mesh (``core.prims.Mesh``).
 """
 from __future__ import annotations
 
@@ -10,6 +11,36 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         tiers: int = 2) -> Dict[str, int]:
+    """The canonical 512-member production meshes.  ``tiers=2``: (pod,
+    data, model) = (2, 16, 16), or (data, model) = (16, 16) in one pod.
+    ``tiers=3``: (pod, host, data, model) = (2, 4, 4, 16), the pod's DP
+    side split into 4 hosts of 4 data ranks, or (host, data, model) =
+    (4, 4, 16) in one pod."""
+    if multi_pod and tiers >= 3:
+        return {"pod": 2, "host": 4, "data": 4, "model": 16}
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    if tiers >= 3:
+        return {"host": 4, "data": 4, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_test_mesh(shape: Sequence[int] = (2, 2, 2),
+                   axes: Sequence[str] = ("pod", "data", "model")
+                   ) -> Dict[str, int]:
+    """A small mesh for tests."""
+    return dict(zip(tuple(axes), (int(n) for n in shape)))
+
+
+def make_ntier_test_mesh(shape: Sequence[int] = (2, 2, 2),
+                         axes: Sequence[str] = ("pod", "host", "data")
+                         ) -> Dict[str, int]:
+    """A small 3-tier DP mesh for tests, slowest tier first."""
+    return dict(zip(tuple(axes), (int(n) for n in shape)))
 
 
 def mesh_axes(dims: Sequence[int]) -> Tuple[str, ...]:

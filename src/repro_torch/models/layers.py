@@ -286,18 +286,25 @@ def _fit(n: int, want: int) -> int:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
            impl: str = "masked", block: int = 1024, q_chunk: int = 1024,
-           kv_chunk: int = 1024) -> torch.Tensor:
+           kv_chunk: int = 1024, gqa_repeat: bool = False) -> torch.Tensor:
     """Multi-head attention core.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); H = KV * G.
     Returns (B, Sq, H, hd).  ``impl="kernel"`` is the twin of the JAX
     package's ``impl="pallas"``; ``impl="tri"`` decomposes causal
     self-attention whose length is a multiple of ``block`` above it, and
-    runs ``masked`` otherwise, as the reference does.
+    runs ``masked`` otherwise, as the reference does.  ``gqa_repeat``:
+    k/v repeated per query head (KV = H, G = 1) before the core, as the
+    reference lays them out when the kv heads do not split over its model
+    axis; the same function.
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
+    if gqa_repeat and G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+        KV, G = H, 1
     qg = q.reshape(B, Sq, KV, G, hd)
     if impl == "kernel":
         from repro_torch.kernels.flash_attention import ops as fa_ops

@@ -191,9 +191,47 @@ class Model(nn.Module):
         return T.decode_step(self.arch, self.params(), cache, tokens, pos,
                              self.settings)
 
-    def init_cache(self, batch: int, max_seq: int):
+    def init_cache(self, batch: int, max_seq: int,
+                   n_frames: Optional[int] = None):
         return T.init_cache(self.arch, batch, max_seq, self.settings,
-                            self.device)
+                            self.device, n_frames=n_frames)
+
+    def cache_shapes(self, batch: int, max_seq: int,
+                     n_frames: Optional[int] = None) -> Dict[str, Any]:
+        """The cache's tree of :class:`ShapeDtype` records, built on the
+        meta device (nothing allocated)."""
+        cache = T.init_cache(self.arch, batch, max_seq, self.settings,
+                             torch.device("meta"), n_frames=n_frames)
+        return tree_from_paths({
+            k: ShapeDtype(tuple(t.shape), numpy_dtype_name(t.dtype))
+            for k, t in tree_paths(cache).items()})
+
+    # --- sharding of the inputs ------------------------------------------------
+    def batch_specs(self, mi: sharding.MeshInfo) -> Dict[str, Any]:
+        return sharding.batch_specs(self.arch, mi)
+
+    def cache_specs(self, mi: sharding.MeshInfo, batch: int, max_seq: int,
+                    n_frames: Optional[int] = None) -> Dict[str, Any]:
+        shapes = {k: v.shape for k, v in tree_paths(
+            self.cache_shapes(batch, max_seq, n_frames)).items()}
+        return tree_from_paths(sharding.cache_specs(self.arch, shapes, mi, batch))
+
+    # --- inputs ------------------------------------------------------------------
+    def synthetic_batch(self, gen: torch.Generator, shape) -> Dict[str, torch.Tensor]:
+        """A random batch of ``shape`` (a ``ShapeConfig``) drawn from ``gen``
+        on its device: int32 tokens and labels in [0, vocab), and for an
+        encoder-decoder standard-normal frames (B, n_frames, d_model) in the
+        compute dtype — the reference's shapes, dtypes and ranges, other
+        numbers."""
+        B, S, dev = shape.global_batch, shape.seq_len, gen.device
+        batch = {k: torch.randint(0, self.arch.vocab, (B, S), generator=gen,
+                                  dtype=torch.int32, device=dev)
+                 for k in ("tokens", "labels")}
+        if self.arch.is_encdec:
+            batch["frames"] = torch.randn(
+                (B, self.arch.encoder.n_frames, self.arch.d_model),
+                generator=gen, dtype=self.settings.cdt(), device=dev)
+        return batch
 
 
 def build_model(arch: ArchConfig, settings: Optional[ModelSettings] = None, *,

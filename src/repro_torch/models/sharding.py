@@ -1,6 +1,6 @@
 """Parameter sharding rules of every family (dense, MoE, Mamba, RWKV6, the
-encoder-decoder) — ``MeshInfo``, ``param_specs`` and ``batch_specs`` of
-``repro.models.sharding``, copied.
+encoder-decoder) — ``MeshInfo``, ``param_specs``, ``batch_specs`` and
+``cache_specs`` of ``repro.models.sharding``, copied.
 
 A spec is a tuple with one entry per dim: an axis name, or None where the
 dim is not sharded (the JAX package's ``PartitionSpec``); the sync state's
@@ -188,6 +188,48 @@ def batch_specs(arch: ArchConfig, mi: MeshInfo) -> Dict[str, Spec]:
     if arch.is_encdec:
         specs["frames"] = (dp, None, None)
     return specs
+
+
+def cache_specs(arch: ArchConfig, shapes: Dict[str, Tuple[int, ...]],
+                mi: MeshInfo, batch: int) -> Dict[str, Spec]:
+    """{path: spec} for a flat {path: shape} cache (stacked over groups):
+    the batch over the DP axes where it divides them, else an attention
+    cache's sequence over the last DP axis (context-parallel long decode);
+    heads or channels over TP where they divide."""
+    ntp = mi.size(mi.tp)
+    dp = (mi.dp_axes if len(mi.dp_axes) > 1
+          else (mi.dp_axes[0] if mi.dp_axes else None))
+    dp_total = mi.dp_total
+    data_axis = mi.dp_axes[-1] if mi.dp_axes else None
+    ndata = mi.size(data_axis)
+
+    def spec_of(path: str, shape: Tuple[int, ...]) -> Spec:
+        name = path.split("/")[-1]
+        core = shape[1:]  # the leading dim is the group stack
+        if name in ("k", "v", "xk", "xv"):
+            b, s, kv, hd = core
+            bspec = dp if _div(b, dp_total) else None
+            sspec = data_axis if (bspec is None and _div(s, ndata)) else None
+            kvspec = mi.tp if _div(kv, ntp) else None
+            return (None, bspec, sspec, kvspec, None)
+        if name == "ssm":
+            b, di, ds = core
+            bspec = dp if _div(b, dp_total) else None
+            return (None, bspec, mi.tp if _div(di, ntp) else None, None)
+        if name == "conv":
+            b, k, di = core
+            bspec = dp if _div(b, dp_total) else None
+            return (None, bspec, None, mi.tp if _div(di, ntp) else None)
+        if name == "wkv":
+            b, h, hk, hv = core
+            bspec = dp if _div(b, dp_total) else None
+            return (None, bspec, mi.tp if _div(h, ntp) else None, None, None)
+        if name in ("tshift", "cshift"):
+            b, d = core
+            return (None, dp if _div(b, dp_total) else None, None)
+        return (None,) * len(shape)
+
+    return {path: spec_of(path, tuple(shape)) for path, shape in shapes.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -92,10 +92,11 @@ class ModelSettings:
     # MoE dispatch token groups: routing, cumsum and capacity per group
     moe_groups: int = 1
     # the JAX package's sequence-parallel settings (the residual stream's
-    # sequence over ``seq_axis``, its batch over ``batch_axes``, kv heads
-    # repeated per query head): not ported yet, they raise when set
+    # sequence over ``seq_axis``, its batch over ``batch_axes``): not
+    # ported yet, they raise when set
     seq_axis: Optional[str] = None
     batch_axes: Optional[Tuple[str, ...]] = None
+    # k/v repeated per query head before the attention core (``L.attend``)
     gqa_repeat: bool = False
 
     def pdt(self) -> torch.dtype:
@@ -114,10 +115,10 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port does not run yet."""
-    if st.seq_axis is not None or st.batch_axes is not None or st.gqa_repeat:
+    if st.seq_axis is not None or st.batch_axes is not None:
         raise NotImplementedError(
-            "the sequence-parallel settings (seq_axis, batch_axes, "
-            "gqa_repeat) are not ported yet (ROADMAP.md queue 1, item 8)")
+            "the sequence-parallel settings (seq_axis, batch_axes) are not "
+            "ported yet (ROADMAP.md queue 1, item 8)")
     if st.pdt() != st.cdt() and (st.pdt(), st.cdt()) != (torch.bfloat16,
                                                           torch.float32):
         raise NotImplementedError(
@@ -351,7 +352,7 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                 k, v = _own_kv(arch, q, k, v, heads)
             o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
                          block=st.attn_block, q_chunk=st.attn_chunk,
-                         kv_chunk=st.attn_chunk)
+                         kv_chunk=st.attn_chunk, gqa_repeat=st.gqa_repeat)
             cache = {"k": k, "v": v}
         else:
             kc, vc = cache["k"], cache["v"]
@@ -705,11 +706,11 @@ def train_loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 
 def init_cache(arch: ArchConfig, batch: int, max_seq: int, st: ModelSettings,
-               device) -> Params:
+               device, n_frames: Optional[int] = None) -> Params:
     """Zeroed cache, stacked over groups, for each within-group offset
     ``l{off}``: {'k','v': (G,B,S,KV,hd)} for attention layers, with
-    {'xk','xv': (G,B,F,KV,hd)} for cross attention (F the config's frame
-    count); {'tshift','cshift': (G,B,d) in the compute
+    {'xk','xv': (G,B,F,KV,hd)} for cross attention (F ``n_frames``, or the
+    config's frame count when None); {'tshift','cshift': (G,B,d) in the compute
     dtype, 'wkv': (G,B,H,hd,hd) fp32} for RWKV; {'conv': (G,B,d_conv-1,di)
     in the compute dtype, 'ssm': (G,B,di,ds) fp32} for Mamba (``max_seq``
     is used by attention only)."""
@@ -733,7 +734,7 @@ def init_cache(arch: ArchConfig, batch: int, max_seq: int, st: ModelSettings,
         kv = (arch.n_kv_heads, arch.resolved_head_dim)
         c = {"k": zeros((max_seq,) + kv), "v": zeros((max_seq,) + kv)}
         if arch.is_encdec:
-            frames = (arch.encoder.n_frames,) + kv
+            frames = (n_frames or arch.encoder.n_frames,) + kv
             c.update(xk=zeros(frames), xv=zeros(frames))
         return c
 

@@ -294,16 +294,20 @@ def merged_state_specs(plan: SyncPlan, param_shapes: Dict[str, Any],
 
 def init_sync_state(plan: SyncPlan, param_shapes: Dict[str, Any],
                     ss: SyncSettings, device,
-                    param_specs_tree=None) -> Dict[str, Any]:
+                    param_specs_tree=None,
+                    sizes: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
     """This member's local block of the optimizer state: moments per
     Section (+EF when the Section uses a codec), zero.  With the
     parameters' specs the blocks are those of :func:`merged_state_specs`
-    (the model axis splits them too)."""
+    (the model axis splits them too).  ``sizes``: the mesh's {axis: size}
+    (the bound mesh's when None; ``{}`` gives the global arrays, as the
+    JAX package's ``init_sync_state`` does)."""
     flat = tree_paths(param_shapes)
     specs = (sync_state_specs(plan, param_shapes, ss)
              if param_specs_tree is None else
              merged_state_specs(plan, param_shapes, param_specs_tree, ss))
-    sizes = {a: prims.axis_size(a) for a in prims.current_mesh().axis_names}
+    if sizes is None:
+        sizes = {a: prims.axis_size(a) for a in prims.current_mesh().axis_names}
     state: Dict[str, Any] = {"step": 0, "sections": {}}
     for sec in plan.sections:
         shape = _global_shape(sec, flat, ss)

@@ -29,10 +29,12 @@ from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 # the sweep of tests/test_kernels.py::test_flash_attention (same
 # tolerances), a ragged S, the widest head_dim in the configs, and
 # whisper-medium's decoder at its 448-token text context (its bf16 prefill
-# at B=4, its fp32 training rows at B=2)
+# at B=4, its fp32 training rows at B=2), and a DP member's rows of
+# qwen2-0.5b's train_4k cell (8 x 4096, bf16)
 CASES = [
     (4, 16, 16, 448, 64, True, "bfloat16", 2e-2),
     (2, 16, 16, 448, 64, True, "float32", 1e-5),
+    (8, 14, 2, 4096, 64, True, "bfloat16", 2e-2),
     (2, 4, 2, 256, 64, True, "float32", 1e-5),
     (1, 4, 4, 128, 32, False, "float32", 1e-5),
     (2, 8, 2, 256, 64, True, "bfloat16", 2e-2),
@@ -72,6 +74,25 @@ def test_kernel_matches_ref_on_card(cuda_device, B, H, KV, S, hd, causal,
     exp = attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), exp.float(), atol=tol * 10,
                                rtol=tol * 10)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_prefill_32k_cell_on_card(cuda_device):
+    """A DP member's share of qwen2-0.5b's prefill_32k cell, q (1, 14,
+    32768, 64) bf16 in the model's layout, against the chunked masked
+    attention the plain prefill runs (``attention_ref`` would hold 60 GB
+    of fp32 scores at this length), at the bf16 tolerance."""
+    from repro_torch.models import layers as L
+    B, S, H, KV, hd = 1, 32768, 14, 2, 64
+    q = _randn(43, B, S, H, hd, dtype=torch.bfloat16, device=cuda_device)
+    k = _randn(44, B, S, KV, hd, dtype=torch.bfloat16, device=cuda_device)
+    v = _randn(45, B, S, KV, hd, dtype=torch.bfloat16, device=cuda_device)
+    before = kernel.LAUNCHES
+    out = L.attend(q, k, v, causal=True, impl="kernel")
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    exp = L.attend(q, k, v, causal=True, impl="masked")
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
 
 
 # Both bodies (bf16: wgmma + TMA; fp32: CUDA cores) at every head_dim, with
@@ -172,6 +193,7 @@ WKV_CASES = [
     (1, 4, 333, 64, "bfloat16"),
     (1, 4, 333, 64, "float32"),
     (4, 32, 1, 64, "bfloat16"),
+    (1, 32, 1, 64, "bfloat16"),  # rwkv6-1.6b's long_500k cell: one row's decode
     (2, 8, 20, 64, "float32"),
     (2, 8, 31, 64, "bfloat16"),
     (2, 8, 33, 64, "bfloat16"),
@@ -937,3 +959,36 @@ def test_whisper_smoke_prefill_through_the_kernel(cuda_device, dtype):
         tol = (dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else
                dict(atol=2e-2 * ref.float().abs().max().item(), rtol=2e-2))
         torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_staging_buffers_on_card(cuda_device):
+    """``StagingBuffers`` on the card: each batch (a tree of a numpy array
+    and a tensor) lands whole on the device through pinned slots copied on
+    a side stream, the slots round-robin and keep their pinned buffers,
+    and a slot is rewritten only after its copy is done; the offload
+    placement is pinned host memory."""
+    from repro_torch.core.staging_utils import (StagingBuffers,
+                                                host_memory_kind_available,
+                                                offload_placement)
+    assert host_memory_kind_available()
+    staging = StagingBuffers(cuda_device, n_slots=2)
+    outs = []
+    for i in range(6):
+        out = staging.put({"tokens": np.full((4, 1 << 16), i, np.int32),
+                           "x": torch.full((1 << 18,), float(i))})
+        outs.append(out)
+        if i == 1:
+            pinned = staging._host[0]["tokens"]
+    # consumed on the current stream, after the copies it waits for
+    sums = [(o["tokens"].sum(), o["x"].sum()) for o in outs]
+    torch.cuda.synchronize()
+    for i, (t, x) in enumerate(sums):
+        assert outs[i]["tokens"].device.type == "cuda"
+        assert int(t) == i * 4 * (1 << 16) and float(x) == i * float(1 << 18)
+    assert staging._slots[0] is outs[4] and staging._slots[1] is outs[5]
+    assert staging._next == 0
+    assert staging._host[0]["tokens"] is pinned and pinned.is_pinned()
+    placement = offload_placement(cuda_device, offload=True)
+    assert placement.pinned and placement.zeros((2, 3)).is_pinned()
+    assert offload_placement(cuda_device, offload=False).device.type == "cuda"

@@ -86,7 +86,8 @@ def test_loss_chunk_does_not_change_the_loss(weights, batch):
 def test_untrainable_raise():
     """What the port trains: every family, remat none/full/dots, tri
     attention, fp32/fp32, bf16/bf16 and bf16/fp32, under a model axis or
-    not, in the GSPMD step too but for the encoder-decoder.  What still
+    not, in the GSPMD step too but for the encoder-decoder, with k/v
+    repeated per query head (``gqa_repeat``) or not.  What still
     raises, naming ROADMAP.md: the encoder-decoder, the sequence-parallel
     settings and MoE dispatch groups under the GSPMD step (item 8), and
     fp32 parameters with a bf16 compute dtype (no reference)."""
@@ -112,8 +113,8 @@ def test_untrainable_raise():
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue 1, item 8"):
             check_gspmd(get_smoke_arch(name), dataclasses.replace(st, moe_groups=2))
-    for sp in (dict(seq_axis="model"), dict(batch_axes=("data",)),
-               dict(gqa_repeat=True)):
+    check_trainable(get_arch(ARCH), dataclasses.replace(st, gqa_repeat=True))
+    for sp in (dict(seq_axis="model"), dict(batch_axes=("data",))):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue 1, item 8"):
             check_trainable(get_arch(ARCH), dataclasses.replace(st, **sp))

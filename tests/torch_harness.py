@@ -610,6 +610,68 @@ def rank_sync_plan_steps(rank, payload):
             tuple(sorted(mesh.coords.items()))), plan.to_json()
 
 
+def rank_in_place_steps(rank, payload):
+    """Two DFabric steps (the int8 slow tier, ZeRO-1) on (pod, data, model)
+    = (2, 1, 1) and two GSPMD steps on (1, 2, 1) of the smoke model, from
+    random batches; for each, whether every parameter and the optimizer's
+    moments kept their storage (``data_ptr``) and whether the returned
+    trees hold the given tensors — what ``donated_jit`` gives the
+    reference.  The error feedback is left out: the codec returns it as a
+    fresh residual, which replaces the old one."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import prims
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import (make_dfabric_train_step,
+                                                make_gspmd_train_step,
+                                                make_sync_plan)
+    from repro_torch.utils.trees import tree_paths
+
+    def tensors(tree):
+        return {k: v for k, v in tree_paths(tree).items()
+                if isinstance(v, torch.Tensor)}
+
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       remat="none", loss_chunk=TRAIN_LOSS_CHUNK)
+    lr = cosine_schedule(1e-3, 1, 4)
+    gen = torch.Generator().manual_seed(rank)
+    out = {}
+    for mode, sizes in (("dfabric", {"pod": 2, "data": 1, "model": 1}),
+                        ("gspmd", {"pod": 1, "data": 2, "model": 1})):
+        mesh = prims.Mesh(sizes)
+        model = build_model(get_smoke_arch(ARCH), st, device="cpu")
+        load_jax_params(model, payload["weights"])
+        if mode == "dfabric":
+            plan, ss = make_sync_plan(model, sizes,
+                                      run_topology(sizes, {}), codec="int8")
+            step_fn, init = make_dfabric_train_step(model, mesh, plan, ss,
+                                                    AdamWConfig(), lr)
+        else:
+            step_fn, init, _ = make_gspmd_train_step(model, mesh, AdamWConfig(), lr)
+        model.requires_grad_(True)
+        params, state = model.params(), init()
+        given = {**{f"p/{k}": v for k, v in tensors(params).items()},
+                 **{f"s/{k}": v for k, v in tensors(state).items()
+                    if not k.endswith("/ef")}}
+        ptrs = {k: v.data_ptr() for k, v in given.items()}
+        before = {k: v.detach().clone() for k, v in tensors(params).items()}
+        for step in range(2):
+            batch = {k: torch.randint(0, 512, (2, 16), generator=gen)
+                     for k in ("tokens", "labels")}
+            params, state, _ = step_fn(params, state, batch, step)
+        now = {**{f"p/{k}": v for k, v in tensors(params).items()},
+               **{f"s/{k}": v for k, v in tensors(state).items()
+                  if not k.endswith("/ef")}}
+        out[mode] = {"same_storage": {k: v.data_ptr() == ptrs[k]
+                                      for k, v in now.items()},
+                     "same_tensors": all(now[k] is given[k] for k in given),
+                     "updated": all(not torch.equal(before[k], v)
+                                    for k, v in tensors(params).items()),
+                     "keys": sorted(now) == sorted(given),
+                     "has_ef": any(k.endswith("/ef")
+                                   for k in tree_paths(state))}
+    return out
+
+
 STEP_JAX_SCRIPT = r'''
 import os, sys, json
 import jax, jax.numpy as jnp, numpy as np
