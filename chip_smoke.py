@@ -79,22 +79,23 @@ width, cut to 2 layers (``configs.one_card_train_arch``: a third adds
 about 18.8 GB over the two ranks), bf16, B=1 S=2048 a rank, 1 step, its
 CE and aux parts and dropped slots; ``[train-rwkv]`` rwkv6-1.6b at every
 width, cut to 2 of its 24 layers,
-bf16, B=1 S=2048 a rank, 1 step, K3 in every layer's forward and
+bf16, B=1 S=1024 a rank, 1 step, K3 in every layer's forward and
 recompute (4 a rank a step; the backward recomputes the plain
 recurrence); ``[train-jamba]`` one full-width Mamba
 layer of the jamba cut, forward and backward through K4's autograd wrapper
 against the plain path's gradients in fp32 and bf16, then the jamba smoke
 model with its experts, 1 step, K4 and K1 in the forward and recompute;
-``[train-whisper]`` whisper-medium whole in fp32, ``remat="full"``, B=2
-S=448 a rank with its frames from the data pipeline, 2 steps, K1's fp32
-body in every decoder layer's forward and recompute (48 a rank a step),
-step 0's loss held to the masked step's at 1e-4 relative, an fp32
-checkpoint at step 2 (13.0 GB) restored bit for bit.
+``[train-whisper]`` whisper-medium at every width, cut to 6 of its 24
+encoder and 24 decoder layers, in fp32, ``remat="full"``, B=2 S=448 a
+rank with its frames from the data pipeline, 2 steps, K1's fp32 body in
+every decoder layer's forward and recompute (12 a rank a step), step 0's
+loss held to the masked step's at 1e-4 relative, an fp32 checkpoint at
+step 2 restored bit for bit.
 
 Last, tensor parallelism and the GSPMD step, four ranks sharing the card
 over gloo, each holding its block of every leaf: ``[train-tp]`` the CLI
 with a model axis of 2, full-width qwen2-0.5b in fp32 on (pod, data,
-model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 3
+model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 2
 steps of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
 step) and K2 as the local plan counts it, step 0's loss held to
 ``[train]``'s at 1e-4; ``[train-gspmd]`` qwen3-1.7b at every width, cut
@@ -141,6 +142,26 @@ layers, and the logits of the two paths held at 1e-3 at 4 layers) and
 qwen2-0.5b's train_4k (two DP members over gloo on (2, 1, 1), 8 rows x
 4096 a rank in 2 microbatches, bf16, ``remat="full"``, no codec, 2 steps,
 K1 96 a rank a step, parameters bit-equal over the ranks).
+
+Last, ``[serve-mesh]``: serving over a mesh, 4 ranks sharing the card over
+gloo in one spawn, each run one DP member's share of a cell of (pod, data,
+model) = (2, 16, 16) with the cell's settings (``attn_impl="kernel"`` for
+the prefill, ``use_kernel_ssm`` for the recurrences), its model axis cut
+to the 4 ranks: (a) qwen3-1.7b's prefill_32k on (data, model) = (1, 4),
+B=1 S=32768 bf16, K1 on each rank's 4 query heads with the kv repeated
+(``gqa_repeat``), 28 a prefill; (b) its decode_32k, B=4 over a
+32768-long cache, 4 steps; (c) rwkv6-1.6b's long_500k, 4 steps, K3 on 8
+of 32 heads, 24 a step, every launch against the plain recurrence; (d) the
+jamba block's long_500k on (2, 2) under FSDP over data x TP, B=1, the
+attention cache's 524,288 rows split over data (262,144 a member) and
+its softmax combined over data, K4 on 8192 of 16384 channels, 7 a step,
+1 step; the combine beside the whole ``attend_decode`` on random caches;
+(e) the ``DecodeServer`` over (2, 2), 8 requests on 8 slots (4 a data
+member), 16 new tokens each, every member's outputs equal.  Each run is
+held against the one-member run on the card in fp32 at 4 layers (jamba:
+a Mamba and its attention layer), at 1e-4 (rwkv6: 1e-3, each layer's
+drift printed first; the server: the tokens equal); the bf16 gap of (a)
+is printed; every run's check runs before the phase fails.
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -527,8 +548,10 @@ def check_flash_attention(torch, gen, dev, arch, jamba, mains=(), trains=(),
                                    rtol=tol[dt_name], msg=lambda m: f"{name}: {m}")
         kernel_ms = time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=causal),
                             iters=20 if main else 10)
-        plain_ms = time_ms(plain, iters=1 if chunked else (5 if main else 10),
-                           warmup=1 if chunked else 2)
+        # the chunked plain version (0.7-0.9 s a call), warm from the check
+        # above, is timed once
+        plain_ms = (time_ms(plain, iters=1, warmup=0, repeats=1) if chunked else
+                    time_ms(plain, iters=5 if main else 10))
         # yardstick only: one PyTorch call for the same function (SDPA on
         # k/v repeated per q head beforehand); the port never calls it
         kr = k.repeat_interleave(Hc // KVc, dim=1)
@@ -562,6 +585,8 @@ def check_wkv6(torch, gen, dev, arch):
         ("main-fp32", B_MAIN, H, S_MAIN, hd, "float32"),
         ("decode-S1", 8, H, 1, hd, "bfloat16"),
         ("main-cells-long", 1, H, 1, hd, "bfloat16"),  # [cells] long_500k's row
+        # [serve-mesh] (c): that row on a model member's 8 heads of 32
+        ("main-serve-mesh-long", 1, H // 4, 1, hd, "bfloat16"),
         ("prefill-B1", 1, H, S_MAIN, hd, "bfloat16"),  # splits each head's columns
         # [train-gspmd-rwkv]: a model member's 16 heads at that run's S,
         # fp32 compute (its main path), and bf16
@@ -597,9 +622,10 @@ def check_wkv6(torch, gen, dev, arch):
                                        msg=lambda m: f"{name}: {m}")
         kernel_ms = time_ms(lambda: wkv_kernel.wkv6_fwd(r, k, v, w, u, s0),
                             iters=20)
-        long = S >= 1000
+        long = S >= 1000  # 0.2-0.3 s a call, warm from the check: timed once
         plain_ms = time_ms(lambda: wkv6_ref(r, k, v, w, u, s0),
-                           iters=1 if long else 3, warmup=1)
+                           **(dict(iters=1, warmup=0, repeats=1) if long
+                              else dict(iters=3, warmup=1)))
         bound_ms, bound_by = wkv6_bound_ms(B, Hc, S, d, dt_name)
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
@@ -636,6 +662,8 @@ def check_mamba_scan(torch, gen, dev, arch):
         # [train-tp-hybrid] (d): a model member's 8192 channels of that layer
         ("main-train-member", 1, S_MAIN, di // 2, m.d_state, "bfloat16"),
         ("decode-S1", 8, 1, di, m.d_state, "bfloat16"),
+        # [serve-mesh] (d): a decode step of one row on a member's channels
+        ("main-serve-mesh-long", 1, 1, di // 2, m.d_state, "bfloat16"),
         ("ragged-S40", 2, 40, di, m.d_state, "float32"),
         ("ragged-S100", 2, 100, di, m.d_state, "bfloat16"),
         ("ragged-S333", 2, 333, di, m.d_state, "float32"),
@@ -669,9 +697,10 @@ def check_mamba_scan(torch, gen, dev, arch):
             torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4,
                                        msg=lambda msg: f"{name}: {msg}")
         kernel_ms = time_ms(lambda: ms_kernel.mamba_scan_fwd(*args), iters=20)
-        long = S >= 1000
+        long = S >= 1000  # 0.25-0.35 s a call, warm from the check: timed once
         plain_ms = time_ms(lambda: mamba_scan_ref(*args),
-                           iters=1 if long else 3, warmup=1)
+                           **(dict(iters=1, warmup=0, repeats=1) if long
+                              else dict(iters=3, warmup=1)))
         bound_ms, bound_by, sfu_ms = mamba_scan_bound_ms(B, S, d, ds, dt_name)
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
@@ -1318,20 +1347,22 @@ FAMILY_RUNS = {
     "train-moe": FamilyRun("deepseek-moe-16b",
                            dict(BF16, remat="full", attn_impl="kernel"), 1, 2048, 1, None),
     # rwkv6-1.6b at 2 of its 24 layers (cut to 4 when the GSPMD phases
-    # came, to 2 when whisper's did)
+    # came, to 2 when whisper's did), S=1024 (2048 until [serve-mesh]
+    # came: the backward recomputes the plain recurrence step by step)
     "train-rwkv": FamilyRun("rwkv6-1.6b", dict(BF16, remat="full", use_kernel_ssm=True),
-                            1, 2048, 1, None, depth=2),
+                            1, 1024, 1, None, depth=2),
     "train-jamba": FamilyRun("jamba-1.5-large-398b-smoke",
                              dict(BF16, remat="full", attn_impl="kernel",
                                   use_kernel_ssm=True), 2, 512, 1, None),
-    # whisper-medium whole (24 + 24 layers), fp32, K1's fp32 body in each
-    # decoder layer's forward and recompute, the encoder and the cross
-    # attention masked; remat: without it each rank would keep every
-    # encoder layer's fp32 score chunks over 1500 frames
+    # whisper-medium at every width, 6 of its 24 + 24 layers (whole until
+    # [serve-mesh] came), fp32, K1's fp32 body in each decoder layer's
+    # forward and recompute, the encoder and the cross attention masked;
+    # remat: without it each rank would keep every encoder layer's fp32
+    # score chunks over 1500 frames
     "train-whisper": FamilyRun("whisper-medium",
                                dict(param_dtype="float32", compute_dtype="float32",
                                     remat="full", attn_impl="kernel"),
-                               2, None, 2, 2, masked_step0=True),
+                               2, None, 2, 2, depth=6, masked_step0=True),
 }
 FAMILY_SIZES = {"pod": 2, "data": 1, "model": 1}
 
@@ -1355,7 +1386,8 @@ def family_run(tag) -> FamilyRun:
 def family_arch(name, depth=None):
     """(the arch a family run trains, its cuts): the registered smoke
     config for a ``-smoke`` name (jamba's with its experts), else
-    ``one_card_train_arch``; cut to ``depth`` layers if given."""
+    ``one_card_train_arch``; cut to ``depth`` layers if given (an
+    encoder-decoder's encoder too)."""
     from repro_torch.configs import get_smoke_arch, one_card_train_arch
     if name.endswith("-smoke"):
         arch, cuts = get_smoke_arch(name[:-len("-smoke")]), ()
@@ -1364,6 +1396,9 @@ def family_arch(name, depth=None):
     if depth is not None and depth < arch.n_layers:
         cuts = cuts + (f"n_layers: {arch.n_layers} -> {depth}",)
         arch = arch.replace(n_layers=depth)
+    if depth is not None and arch.is_encdec and depth < arch.encoder.n_layers:
+        cuts = cuts + (f"encoder.n_layers: {arch.encoder.n_layers} -> {depth}",)
+        arch = arch.replace(encoder=dataclasses.replace(arch.encoder, n_layers=depth))
     return arch, cuts
 
 
@@ -1665,7 +1700,7 @@ def family_phases(torch, gen, dev, card, phase_done):
 #: qwen2-0.5b in fp32, mesh (pod, data, model) = (2, 1, 2), the int8 slow
 #: tier, ZeRO-1, B=2 S=2048 a DP member (``[train]``'s global batch)
 TP_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,1,2", "--codec", "int8",
-           "--steps", "3", "--batch", "4", "--seq", "2048",
+           "--steps", "2", "--batch", "4", "--seq", "2048",
            "--backend", "gloo", "--device", "cuda"]
 TP_RANKS, TP_TOKENS = 4, 4 * 2048
 GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
@@ -2003,7 +2038,7 @@ def tp_phases(torch, card, train_recs, phase_done):
     t0 = time.perf_counter()
     recs = train_cli.run_ranks(tp_rank, TP_RANKS, "train-tp", None, timeout=900)
     log(f"[train-tp] qwen2-0.5b fp32 (pod, data, model) = (2, 1, 2), int8 slow tier, "
-        f"ZeRO-1, B=2 S=2048 a DP member, 3 steps through the CLI: "
+        f"ZeRO-1, B=2 S=2048 a DP member, 2 steps through the CLI: "
         f"{time.perf_counter() - t0:.1f} s wall; {recs[0]['plan_k2']} int8 slow "
         f"chunks a rank a step (the plan on local shapes) | {card}")
     check_tp_steps("train-tp", recs, card, TP_TOKENS,
@@ -3157,6 +3192,623 @@ def cells_phase(torch, gen, dev, counters, card, phase_done):
     phase_done("cells: train_4k, 2 ranks")
 
 
+# ---------------------------------------------------------------------------
+# [serve-mesh]: serving over a mesh, four cells' shares and the DecodeServer
+# ---------------------------------------------------------------------------
+
+#: one DP member of CELL_MESH with its model axis cut to the 4 ranks that
+#: share the card: TP over model for (a)-(c), FSDP over data x TP for (d)
+#: and the server's two data members for (e)
+SERVE_MESH_TP = {"data": 1, "model": 4}
+SERVE_MESH_FSDP = {"data": 2, "model": 2}
+SERVE_MESH_RANKS = 4
+#: decode steps of (b) and (c) (16 in the cells; cut for time)
+SERVE_MESH_STEPS = 4
+#: (d)'s decode steps in bf16 and in fp32 (16 in the cell): every step
+#: gathers the member's FSDP blocks of the whole block (4.5 GB a rank in
+#: bf16) over gloo, which copies them through host memory, 9.65 s a step
+#: (p50 of 16 in the first chip call of the phase)
+SERVE_MESH_JAMBA_STEPS = (1, 1)
+#: the fp32 holds' depth: 4 layers for qwen3 and rwkv6 (as [cells]); for
+#: jamba a Mamba layer and the attention layer (attn_every 2), every width
+SERVE_MESH_FP32_LAYERS = 4
+SERVE_MESH_JAMBA_FP32 = dict(n_layers=2, attn_every=2)
+#: (e): 8 requests (one for each slot) of 16 new tokens (16 of 32 in the
+#: earlier phases' servers; cut for time: a step is ~0.25 s over gloo)
+SERVE_MESH_SERVER = dict(requests=8, slots=8, max_seq=256, max_new=16)
+
+
+def sm_inputs():
+    """The token ids of every run, drawn on the host from the seed (the
+    ranks and the one-member references read the same ones)."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + 27)
+    qv, rv = 151936, 65536  # qwen3's vocab; rwkv6's and jamba's
+
+    def draw(vocab, shape):
+        return torch.randint(0, vocab, shape, generator=g)
+
+    return {"a": draw(qv, (1, 32768)), "b": draw(qv, (4, SERVE_MESH_STEPS)),
+            "c": draw(rv, (1, SERVE_MESH_STEPS)), "d": draw(rv, (1, SERVE_MESH_STEPS)),
+            "e": [draw(qv, (4,)).int().numpy()
+                  for _ in range(SERVE_MESH_SERVER["requests"])]}
+
+
+def sm_model(torch, mesh, arch, st, fsdp=False, in_turns=False):
+    """The model built from the seed on the card and cut for this member of
+    ``mesh`` (FSDP over data when ``fsdp``); ``in_turns``: the ranks build
+    one after another, so that one uncut model at a time is on the card."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_loop import mesh_info
+    model = None
+    for turn in range(dist.get_world_size() if in_turns else 1):
+        if not in_turns or turn == dist.get_rank():
+            model = build_model(arch, st, device="cuda", seed=SEED)
+            model.shard(mesh_info(mesh.sizes, fsdp=fsdp), mesh.sizes, mesh.coords)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if in_turns:
+            dist.barrier()
+    return model
+
+
+def sm_fp32(st):
+    return dataclasses.replace(st, param_dtype="float32", compute_dtype="float32")
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.utils.trees import tree_paths
+    return sum(t.numel() * t.element_size() for t in tree_paths(tree).values())
+
+
+def sm_steps(torch, model, cache, toks, start, batch, max_seq, times=None):
+    """Decode ``toks``' columns from ``start``; every step's logits (a numpy
+    array on the host, stacked) and, given ``times``, each step's ms."""
+    out = []
+    for t in range(toks.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(cache, toks[:, t:t + 1], start + t, batch=batch,
+                                      max_seq=max_seq)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    return torch.stack(out).numpy()
+
+
+def sm_qwen3(torch, mesh, kernels, inputs):
+    """(a) qwen3-1.7b prefill_32k and (b) decode_32k, one DP member's share
+    each, on (data, model) = (1, 4): each rank's 4 query heads (of 16) and
+    2 kv heads (of 8), the kv repeated per query head (``gqa_repeat``, as at
+    model 16) before K1."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import prims
+    from repro_torch.launch.cells import build_cell
+    pre = build_cell("qwen3-1.7b", "prefill_32k", CELL_MESH, attn_impl="kernel")
+    dec = build_cell("qwen3-1.7b", "decode_32k", CELL_MESH)
+    arch, st = pre.arch, pre.model.settings
+    rec = {"a": {}, "b": {}}
+    toks = inputs["a"].cuda()
+    rows = toks.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    model = sm_model(torch, mesh, arch, st)
+    with prims.bind(mesh):
+        dist.barrier()
+        t0 = time.perf_counter()
+        (logits, cache), launches = drive_path(
+            kernels, lambda: model.prefill(toks, batch=rows))
+        runs = [(time.perf_counter() - t0) * 1e3]  # one run: ~20 s of gloo sums
+        del cache
+        rec["a"].update(launches=launches, runs=runs, logits=logits.float().cpu().numpy(),
+                        shape=tuple(logits.shape), settings=dataclasses.asdict(st),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        # (b): the decode cell's settings on the same cut
+        model.settings = dec.model.settings
+        btoks, brows, S = inputs["b"].cuda(), member_rows(dec), dec.shape.seq_len
+        start = S - SERVE_MESH_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        cache = model.init_cache(brows, S)
+        times = []
+        lg, launches = drive_path(kernels, lambda: sm_steps(
+            torch, model, cache, btoks, start, brows, S, times))
+        rec["b"].update(launches=launches, times=times, rows=brows, start=start,
+                        finite=bool(np.isfinite(lg).all()), cache_gb=tree_bytes(cache) / 1e9,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, cache, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+        # fp32 at SERVE_MESH_FP32_LAYERS layers: both runs' logits
+        model = sm_model(torch, mesh, arch.replace(n_layers=SERVE_MESH_FP32_LAYERS),
+                         sm_fp32(st))
+        rec["a"]["fp32"] = model.prefill(toks, batch=rows)[0].cpu().numpy()
+        model.settings = sm_fp32(dec.model.settings)
+        rec["b"]["fp32"] = sm_steps(torch, model, model.init_cache(brows, S), btoks,
+                                    start, brows, S)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sm_rwkv(torch, mesh, kernels, inputs):
+    """(c) rwkv6-1.6b long_500k, one DP member's share (B=1), on (1, 4):
+    each rank's 8 of 32 heads through K3, 24 a step; every launch of a
+    second run against the plain recurrence on its own inputs; fp32 at
+    SERVE_MESH_FP32_LAYERS layers, each recurrence's input and output
+    recorded (``sm_recorded``) for the layers' drift."""
+    import numpy as np
+    from repro_torch.core import prims
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.launch.cells import build_cell
+    cell = build_cell("rwkv6-1.6b", "long_500k", CELL_MESH)
+    arch, S = cell.arch, cell.shape.seq_len
+    st = dataclasses.replace(cell.model.settings, use_kernel_ssm=True)
+    toks, rows = inputs["c"].cuda(), member_rows(cell)
+    start = S - SERVE_MESH_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    model = sm_model(torch, mesh, arch, st)
+    rec = {}
+    with prims.bind(mesh):
+        times = []
+        lg, launches = drive_path(kernels, lambda: sm_steps(
+            torch, model, model.init_cache(rows, S), toks, start, rows, S, times))
+        rec.update(launches=launches, times=times, finite=bool(np.isfinite(lg).all()),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        real, errs, shapes = wkv_ops.wkv6_fwd, [], set()
+
+        def checked(r, k, v, w, u, s0):
+            y, sT = real(r, k, v, w, u, s0)
+            ey, es = wkv6_ref(r, k, v, w, u, s0)
+            atol = 2e-5 * (ey.abs().max().item() + 1.0)
+            for got, exp in ((y, ey), (sT, es)):
+                torch.testing.assert_close(got, exp, rtol=1e-4, atol=atol)
+            errs.append(max((y - ey).abs().max().item(), (sT - es).abs().max().item()))
+            shapes.add(tuple(r.shape))
+            return y, sT
+
+        wkv_ops.wkv6_fwd = checked
+        try:
+            sm_steps(torch, model, model.init_cache(rows, S), toks, start, rows, S)
+        finally:
+            wkv_ops.wkv6_fwd = real
+        rec.update(checked=len(errs), max_err=max(errs), k3_shapes=sorted(shapes))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = sm_model(torch, mesh, arch.replace(n_layers=SERVE_MESH_FP32_LAYERS),
+                         sm_fp32(st))
+        rec["fp32"], rec["seen"] = sm_recorded(lambda: sm_steps(
+            torch, model, model.init_cache(rows, S), toks, start, rows, S))
+        rec["heads"] = prims.axis_rank("model") * (arch.n_heads // prims.axis_size("model"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sm_recorded(fn):
+    """``fn()`` with every call of the recurrence (K3's wrapper, in layer
+    order) recorded: (its result, [(r, y) of each call, fp32 numpy])."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    real, seen = wkv_ops.wkv6, []
+
+    def call(r, k, v, w, u, state=None):
+        y, sT = real(r, k, v, w, u, state=state)
+        seen.append((r.detach().float().cpu().numpy(), y.detach().float().cpu().numpy()))
+        return y, sT
+
+    wkv_ops.wkv6 = call
+    try:
+        return fn(), seen
+    finally:
+        wkv_ops.wkv6 = real
+
+
+def sm_drift(recs, ref_seen, n_layers):
+    """Each layer's relative drift of the members' recurrence input ``r``
+    and output ``y`` from the one-member run's on the same heads (the
+    largest difference over the steps and ranks, over the one-member
+    run's largest value), as ``cells_long_fp32`` prints K3's against the
+    plain path's: {"r": [a layer], "y": [...]}."""
+    import numpy as np
+    drift = {}
+    for i, name in enumerate(("r", "y")):
+        diff, scale = [0.0] * n_layers, [0.0] * n_layers
+        for rec in recs:
+            c = rec["c"]
+            if len(c["seen"]) != len(ref_seen):
+                raise AssertionError(f"[serve-mesh] (c): {len(c['seen'])} recurrence calls "
+                                     f"recorded on a rank, {len(ref_seen)} on one member")
+            for n, (got, want) in enumerate(zip(c["seen"], ref_seen)):
+                mine = want[i][:, :, c["heads"]:c["heads"] + got[i].shape[2]]
+                diff[n % n_layers] = max(diff[n % n_layers],
+                                         float(np.abs(got[i] - mine).max()))
+                scale[n % n_layers] = max(scale[n % n_layers], float(np.abs(want[i]).max()))
+        drift[name] = [d / max(m, 1e-30) for d, m in zip(diff, scale)]
+    return drift
+
+
+def sm_combine(torch, arch, S):
+    """The two-stage softmax over data against one ``attend_decode`` over
+    the whole cache, on random bf16 k/v (B=1, S rows, this member's kv
+    heads) and fp32 q (its query heads; the output in fp32) drawn alike on
+    every member: at a
+    ``pos`` inside member 0's rows (member 1 masked whole) and one inside
+    member 1's.  Returns [(pos, max_abs_diff, max |o|)]."""
+    from repro_torch.core import prims
+    from repro_torch.models import layers as L
+    n, r = prims.axis_size("data"), prims.axis_rank("data")
+    KV = arch.n_kv_heads // prims.axis_size("model")
+    H = arch.n_heads // prims.axis_size("model")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    k = torch.randn((1, S, KV, arch.resolved_head_dim), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn(k.shape, generator=g, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((1, 1, H, arch.resolved_head_dim), generator=g, device="cuda")
+    blk = S // n
+    out = []
+    for pos in (S // 4 + 3, 3 * S // 4 + 5):
+        lens = torch.full((1,), pos, device="cuda")
+        split = L.attend_decode(q, k[:, r * blk:(r + 1) * blk],
+                                v[:, r * blk:(r + 1) * blk], lens, "data")
+        whole = L.attend_decode(q, k, v, lens)
+        out.append((pos, (split.float() - whole.float()).abs().max().item(),
+                    whole.float().abs().max().item()))
+    del k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def sm_jamba(torch, mesh, kernels, inputs):
+    """(d) jamba long_500k, one DP member's share (B=1) of one Jamba block
+    without experts at every width, on (data, model) = (2, 2) with FSDP
+    over data as the cell: each rank's 8192 of 16384 channels through K4 (7
+    a step), the attention cache's 524,288 rows split over data (262,144 a
+    member, its kv heads over model), the softmax combined over data; then
+    the combine beside the whole ``attend_decode`` on random caches; then
+    fp32 on a Mamba layer and the attention layer."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import one_card_arch
+    from repro_torch.core import prims
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.utils.trees import tree_paths
+    cell = build_cell("jamba-1.5-large-398b", "long_500k", CELL_MESH)
+    arch = one_card_arch("jamba-1.5-large-398b")[0]
+    S, rows = cell.shape.seq_len, member_rows(cell)
+    st = dataclasses.replace(cell.model.settings, use_kernel_ssm=True)
+    bf16_steps, fp32_steps = SERVE_MESH_JAMBA_STEPS
+    toks = inputs["d"].cuda()
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    model = sm_model(torch, mesh, arch, st, fsdp=True, in_turns=True)
+    rec["params_gb"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    with prims.bind(mesh):
+        cache = model.init_cache(rows, S)
+        rec["cache"] = {k: tuple(v.shape) for k, v in tree_paths(cache).items()}
+        rec["cache_gb"] = tree_bytes(cache) / 1e9
+        times = []
+        dist.barrier()
+        lg, launches = drive_path(kernels, lambda: sm_steps(
+            torch, model, cache, toks[:, :bf16_steps], S - bf16_steps, rows, S, times))
+        rec.update(launches=launches, times=times, finite=bool(np.isfinite(lg).all()),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, cache, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["combine"] = sm_combine(torch, arch, S)
+        model = sm_model(torch, mesh, arch.replace(**SERVE_MESH_JAMBA_FP32),
+                         sm_fp32(st), fsdp=True, in_turns=True)
+        rec["fp32"] = sm_steps(torch, model, model.init_cache(rows, S),
+                               toks[:, :fp32_steps], S - fp32_steps, rows, S)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sm_server(torch, mesh, inputs):
+    """(e) the DecodeServer over (2, 2), qwen3-1.7b: 16 requests, 8 slots (4
+    a data member), greedy, bf16; then fp32 at SERVE_MESH_FP32_LAYERS
+    layers, its tokens for the one-member server's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ModelSettings
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    arch = get_arch("qwen3-1.7b")
+    cfg = SERVE_MESH_SERVER
+    rec = {}
+    for tag, depth, st in (("bf16", arch.n_layers, ModelSettings()),
+                           ("fp32", SERVE_MESH_FP32_LAYERS, sm_fp32(ModelSettings()))):
+        torch.cuda.reset_peak_memory_stats()
+        model = sm_model(torch, mesh, arch.replace(n_layers=depth), st)
+        server = DecodeServer(model, mesh, batch_slots=cfg["slots"], max_seq=cfg["max_seq"])
+        for i, prompt in enumerate(inputs["e"]):
+            server.submit(Request(uid=i, prompt=prompt, max_new=cfg["max_new"]))
+        outs = server.run(max_steps=cfg["max_seq"] - 1)
+        rec[tag] = dict(outs=outs, stats=dict(server.stats), rows=server.rows,
+                        latency=server.latency_summary(), tok_s=server.throughput(),
+                        done=all(r.done for r in server.all_requests),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, server
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def serve_mesh_rank(rank, world, init_method, inputs):
+    """One rank of ``[serve-mesh]``: (a)-(e), (a)-(c) on SERVE_MESH_TP, (d)
+    and (e) on SERVE_MESH_FSDP, each run's launches counted in this
+    process."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import prims
+    kernels = kernel_modules()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
+    try:
+        tp, fs = prims.Mesh(SERVE_MESH_TP), prims.Mesh(SERVE_MESH_FSDP)
+        rec = {"s": {}}
+        for name, fn, mesh in (("ab", sm_qwen3, tp), ("c", sm_rwkv, tp),
+                               ("d", sm_jamba, fs), ("e", sm_server, fs)):
+            t0 = time.perf_counter()
+            out = (fn(torch, mesh, inputs) if name == "e"
+                   else fn(torch, mesh, kernels, inputs))
+            rec.update(out if name == "ab" else {name: out})
+            rec["s"][name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def sm_reference(torch, arch, st, fn):
+    """``fn(model)`` on the one-member model of ``arch`` built from the seed
+    on the card, freed after."""
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(arch, st, device="cuda", seed=SEED)
+    try:
+        return fn(model)
+    finally:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sm_check(torch, tag, recs, ref, tol):
+    """Every rank's fp32 logits of run ``tag`` within ``tol`` (atol =
+    rtol) of the one-member run's; returns the largest difference."""
+    import numpy as np
+    err = max(float(np.abs(rec[tag]["fp32"] - ref).max()) for rec in recs)
+    for rank, rec in enumerate(recs):
+        torch.testing.assert_close(torch.from_numpy(rec[tag]["fp32"]),
+                                   torch.from_numpy(ref), atol=tol, rtol=tol,
+                                   msg=lambda m: f"[serve-mesh] ({tag}) rank {rank}: {m}")
+    return err
+
+
+def sm_check_qwen3(torch, recs, inputs, card):
+    """(a) and (b) against the one-member runs."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import build_cell
+    zero = {k: 0 for k in kernel_modules()}
+    qwen3 = get_arch("qwen3-1.7b")
+    pre = build_cell("qwen3-1.7b", "prefill_32k", CELL_MESH, attn_impl="kernel")
+    dec = build_cell("qwen3-1.7b", "decode_32k", CELL_MESH)
+    r0 = recs[0]
+    want = dict(zero, flash_attention_fwd=qwen3.n_layers)
+    for rank, rec in enumerate(recs):
+        a = rec["a"]
+        if a["launches"] != want or a["shape"] != (1, qwen3.vocab) \
+                or not bool(np.isfinite(a["logits"]).all()):
+            raise AssertionError(f"[serve-mesh] (a) rank {rank}: launches {a['launches']} "
+                                 f"(expected {want}), logits {a['shape']}")
+    toks = inputs["a"].cuda()
+    S = toks.shape[1]
+    bf16_ref = sm_reference(torch, qwen3, pre.model.settings,
+                            lambda m: m.prefill(toks)[0].float().cpu().numpy())
+    gap = max(float(np.abs(rec["a"]["logits"] - bf16_ref).max()) for rec in recs)
+    b0 = r0["b"]
+    btoks, S_dec = inputs["b"].cuda(), dec.shape.seq_len
+
+    def fp32_runs(m):  # (a)'s prefill, then (b)'s steps on the same model, as the ranks run
+        a = m.prefill(toks)[0].cpu().numpy()
+        m.settings = sm_fp32(dec.model.settings)
+        return a, sm_steps(torch, m, m.init_cache(b0["rows"], S_dec), btoks, b0["start"],
+                           b0["rows"], S_dec)
+
+    fp32_ref, ref = sm_reference(torch, qwen3.replace(n_layers=SERVE_MESH_FP32_LAYERS),
+                                 sm_fp32(pre.model.settings), fp32_runs)
+    err = sm_check(torch, "a", recs, fp32_ref, 1e-4)
+    ms = statistics.median(r0["a"]["runs"])
+    log(f"[serve-mesh] (a) qwen3-1.7b prefill_32k, one DP member of {CELL_MESH}, model axis "
+        f"cut to {SERVE_MESH_TP}: B=1 S={S} bf16 gqa_repeat="
+        f"{r0['a']['settings']['gqa_repeat']}: K1 a rank a prefill "
+        f"{r0['a']['launches']['flash_attention_fwd']} at q (1,{qwen3.n_heads // 4},{S},"
+        f"{qwen3.resolved_head_dim}) and kv after the repeat; prefill_ms rank 0 runs="
+        f"{[round(t, 2) for t in r0['a']['runs']]} tok/s={S / ms * 1e3:.0f} peak_gb a "
+        f"rank={[round(r['a']['peak_gb'], 2) for r in recs]}; members' logits vs one-member: "
+        f"fp32 at {SERVE_MESH_FP32_LAYERS} layers max_abs_diff={err:.3e} (atol=rtol=1e-4), "
+        f"bf16 at {qwen3.n_layers} layers max_abs_diff={gap:.3e} | {card}")
+    for rank, rec in enumerate(recs):
+        if rec["b"]["launches"] != zero or not rec["b"]["finite"]:
+            raise AssertionError(f"[serve-mesh] (b) rank {rank}: {rec['b']['launches']}, "
+                                 f"finite {rec['b']['finite']}")
+    err = sm_check(torch, "b", recs, ref, 1e-4)
+    S = S_dec
+    p50 = statistics.median(b0["times"])
+    log(f"[serve-mesh] (b) qwen3-1.7b decode_32k, one DP member on {SERVE_MESH_TP}: "
+        f"B={b0['rows']} over a {S}-long cache ({b0['cache_gb']:.2f} GB a rank), "
+        f"{SERVE_MESH_STEPS} steps at pos {b0['start']}..{S - 1}: launches={b0['launches']} "
+        f"tpot_p50_ms={p50:.2f} step_ms={[round(t, 2) for t in b0['times']]} "
+        f"tok/s={b0['rows'] * SERVE_MESH_STEPS / sum(b0['times']) * 1e3:.1f} peak_gb a rank="
+        f"{[round(r['b']['peak_gb'], 2) for r in recs]}; every step's logits vs one-member "
+        f"fp32 at {SERVE_MESH_FP32_LAYERS} layers max_abs_diff={err:.3e} (atol=rtol=1e-4) "
+        f"| {card}")
+
+
+def sm_check_rwkv(torch, recs, inputs, card):
+    """(c) against the one-member run, with the layers' drift printed
+    before the hold."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import build_cell
+    rwkv = get_arch("rwkv6-1.6b")
+    long = build_cell("rwkv6-1.6b", "long_500k", CELL_MESH)
+    c0 = recs[0]["c"]
+    want = dict({k: 0 for k in kernel_modules()}, wkv6_fwd=rwkv.n_layers * SERVE_MESH_STEPS)
+    for rank, rec in enumerate(recs):
+        c = rec["c"]
+        if c["launches"] != want or not c["finite"] or c["checked"] != want["wkv6_fwd"] \
+                or c["k3_shapes"] != [(1, rwkv.n_heads // 4, 1, rwkv.rwkv.head_size)]:
+            raise AssertionError(f"[serve-mesh] (c) rank {rank}: {c['launches']} (expected "
+                                 f"{want}), {c['checked']} checked at {c['k3_shapes']}")
+    S = long.shape.seq_len
+    ctoks = inputs["c"].cuda()
+    st = dataclasses.replace(long.model.settings, use_kernel_ssm=True)
+    depth = SERVE_MESH_FP32_LAYERS
+    ref, ref_seen = sm_reference(
+        torch, rwkv.replace(n_layers=depth), sm_fp32(st),
+        lambda m: sm_recorded(lambda: sm_steps(torch, m, m.init_cache(1, S), ctoks,
+                                               S - SERVE_MESH_STEPS, 1, S)))
+    drift = sm_drift(recs, ref_seen, depth)
+    err = max(float(np.abs(rec["c"]["fp32"] - ref).max()) for rec in recs)
+    log(f"[serve-mesh] (c) rwkv6-1.6b long_500k, one DP member on {SERVE_MESH_TP}: B=1, "
+        f"{SERVE_MESH_STEPS} steps at pos {S - SERVE_MESH_STEPS}..{S - 1}, bf16: K3 a rank "
+        f"{c0['launches']['wkv6_fwd']} ({rwkv.n_layers} a step) at {c0['k3_shapes'][0]}; "
+        f"tpot_p50_ms={statistics.median(c0['times']):.2f} step_ms="
+        f"{[round(t, 2) for t in c0['times']]} peak_gb a rank="
+        f"{[round(r['c']['peak_gb'], 2) for r in recs]}; every K3 launch of a second run vs "
+        f"plain on its inputs: max_err={max(r['c']['max_err'] for r in recs):.3e} "
+        f"({sum(r['c']['checked'] for r in recs)} launches; rtol 1e-4, atol 2e-5 x "
+        f"(max|y|+1)); fp32 at {depth} layers, members vs one-member: each layer's "
+        f"relative drift, recurrence input r: {[float(f'{d:.2e}') for d in drift['r']]}; "
+        f"output y: {[float(f'{d:.2e}') for d in drift['y']]}; logits max_abs_diff="
+        f"{err:.3e} (max|logits| {float(np.abs(ref).max()):.3e}; atol=rtol=1e-3) | {card}")
+    sm_check(torch, "c", recs, ref, 1e-3)
+
+
+def sm_check_jamba(torch, recs, inputs, card):
+    """(d) against the one-member run, and the combine's differences."""
+    from repro_torch.configs import one_card_arch
+    from repro_torch.launch.cells import build_cell
+    jamba, cuts = one_card_arch("jamba-1.5-large-398b")
+    cell = build_cell("jamba-1.5-large-398b", "long_500k", CELL_MESH)
+    d0 = recs[0]["d"]
+    bf16_steps, fp32_steps = SERVE_MESH_JAMBA_STEPS
+    n_mamba = jamba.n_layers - len(jamba.attn_layer_ids())
+    want = dict({k: 0 for k in kernel_modules()}, mamba_scan_fwd=n_mamba * bf16_steps)
+    S = cell.shape.seq_len
+    kv = jamba.n_kv_heads // SERVE_MESH_FSDP["model"]
+    for rank, rec in enumerate(recs):
+        d = rec["d"]
+        k_shape = [v for p, v in d["cache"].items() if p.endswith("/k")][0]
+        if d["launches"] != want or not d["finite"] \
+                or k_shape != (1, 1, S // 2, kv, jamba.resolved_head_dim):
+            raise AssertionError(f"[serve-mesh] (d) rank {rank}: {d['launches']} (expected "
+                                 f"{want}), finite {d['finite']}, k block {k_shape}")
+        for pos, diff, top in d["combine"]:
+            if not diff <= 1e-5 * max(top, 1.0):
+                raise AssertionError(f"[serve-mesh] (d) rank {rank}: the combine at pos "
+                                     f"{pos} is {diff} off the whole attend_decode")
+    dtoks = inputs["d"].cuda()
+    st = dataclasses.replace(cell.model.settings, use_kernel_ssm=True)
+    ref = sm_reference(
+        torch, jamba.replace(**SERVE_MESH_JAMBA_FP32), sm_fp32(st),
+        lambda m: sm_steps(torch, m, m.init_cache(1, S), dtoks[:, :fp32_steps],
+                           S - fp32_steps, 1, S))
+    err = sm_check(torch, "d", recs, ref, 1e-4)
+    k_block = [v for p, v in d0["cache"].items() if p.endswith("/k")][0]
+    log(f"[serve-mesh] (d) {jamba.name} long_500k, one DP member of one block "
+        f"({'; '.join(cuts)}) on {SERVE_MESH_FSDP}, FSDP over data: B=1, {bf16_steps} steps "
+        f"at pos {S - bf16_steps}..{S - 1}, bf16: parameters {d0['params_gb']:.2f} GB a rank, "
+        f"cache {d0['cache_gb']:.2f} GB a rank (k block {k_block}); K4 a rank "
+        f"{d0['launches']['mamba_scan_fwd']} ({n_mamba} a step) at (1,1,"
+        f"{jamba.mamba.expand * jamba.d_model // SERVE_MESH_FSDP['model']}); tpot_p50_ms="
+        f"{statistics.median(d0['times']):.2f} step_ms={[round(t, 2) for t in d0['times']]} "
+        f"peak_gb a rank={[round(r['d']['peak_gb'], 2) for r in recs]}; the combine vs the "
+        f"whole attend_decode, (pos, max_abs_diff, max|o|) rank 0: {d0['combine']}; logits "
+        f"vs one-member fp32 ({SERVE_MESH_JAMBA_FP32}, {fp32_steps} steps) max_abs_diff="
+        f"{err:.3e} (atol=rtol=1e-4) | {card}")
+
+
+def sm_check_server(torch, recs, inputs, card):
+    """(e): every member's outputs equal; fp32 tokens for the one-member
+    server's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ModelSettings
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    qwen3 = get_arch("qwen3-1.7b")
+    cfg = SERVE_MESH_SERVER
+    e0 = recs[0]["e"]
+    for rank, rec in enumerate(recs):
+        for tag in ("bf16", "fp32"):
+            e = rec["e"][tag]
+            if not e["done"] or e["outs"] != e0[tag]["outs"] \
+                    or e["stats"]["tokens"] != e0[tag]["stats"]["tokens"]:
+                raise AssertionError(f"[serve-mesh] (e) {tag} rank {rank}: outputs differ "
+                                     f"from rank 0's or a request did not finish")
+
+    def one_member(model):
+        server = DecodeServer(model, "cuda", batch_slots=cfg["slots"], max_seq=cfg["max_seq"])
+        for i, prompt in enumerate(inputs["e"]):
+            server.submit(Request(uid=i, prompt=prompt, max_new=cfg["max_new"]))
+        return server.run(max_steps=cfg["max_seq"] - 1)
+
+    ref = sm_reference(torch, qwen3.replace(n_layers=SERVE_MESH_FP32_LAYERS),
+                       sm_fp32(ModelSettings()), one_member)
+    same = sum(ref[u] == t for u, t in e0["fp32"]["outs"].items())
+    lat, stats = e0["bf16"]["latency"], e0["bf16"]["stats"]
+    log(f"[serve-mesh] (e) DecodeServer over {SERVE_MESH_FSDP}, qwen3-1.7b: "
+        f"{cfg['requests']} requests, {cfg['slots']} slots ({cfg['slots'] // 2} a data "
+        f"member: rank 0 slots {e0['bf16']['rows']}), max_seq {cfg['max_seq']}, max_new "
+        f"{cfg['max_new']}, greedy, bf16: tokens={stats['tokens']} steps={stats['steps']} "
+        f"wall_s={stats['wall']:.3f} tok/s={e0['bf16']['tok_s']:.1f} "
+        f"ttft_p50_ms={lat['ttft_p50_s'] * 1e3:.2f} ttft_p99_ms={lat['ttft_p99_s'] * 1e3:.2f} "
+        f"tpot_p50_ms={lat['tpot_p50_s'] * 1e3:.2f} tpot_p99_ms={lat['tpot_p99_s'] * 1e3:.2f} "
+        f"peak_gb a rank={[round(r['e']['bf16']['peak_gb'], 2) for r in recs]}; every "
+        f"member's outputs equal; fp32 at {SERVE_MESH_FP32_LAYERS} layers: {same} of "
+        f"{len(ref)} requests' tokens equal to the one-member server's | {card}")
+    if same != len(ref) or len(ref) != cfg["requests"]:
+        raise AssertionError("[serve-mesh] (e) fp32 tokens differ from the one-member server's")
+
+
+def serve_mesh_phase(torch, card, phase_done):
+    """``[serve-mesh]``: the four cells' shares and the DecodeServer over a
+    mesh on 4 ranks sharing the card over gloo (one spawn), each run held
+    against the one-member run on the card; every run's check runs, and
+    the phase fails after them if any failed."""
+    from repro_torch.launch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = sm_inputs()
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(serve_mesh_rank, SERVE_MESH_RANKS, inputs, timeout=900)
+    log(f"[serve-mesh] {SERVE_MESH_RANKS} ranks over gloo on one card: "
+        f"{time.perf_counter() - t0:.1f} s wall; rank 0's seconds by run: "
+        f"{ {k: round(v, 1) for k, v in recs[0]['s'].items()} } | {card}")
+    failed = []
+    for fn, what in ((sm_check_qwen3, "(a) qwen3 prefill_32k, (b) decode_32k on (1, 4)"),
+                     (sm_check_rwkv, "(c) rwkv6 long_500k on (1, 4)"),
+                     (sm_check_jamba, "(d) jamba long_500k on (2, 2), FSDP"),
+                     (sm_check_server, "(e) DecodeServer on (2, 2)")):
+        try:
+            fn(torch, recs, inputs, card)
+        except AssertionError as e:
+            log(f"[serve-mesh] {what} FAILED: {e}")
+            failed.append(what)
+        phase_done(f"serve-mesh: {what}")
+    if failed:
+        raise AssertionError(f"[serve-mesh] failed: {'; '.join(failed)}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         sys.exit("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -3239,7 +3891,11 @@ def main() -> None:
                   S_MAIN, qwen.resolved_head_dim, "float32"),
                  ("main-train-gspmd-bf16", 1, qwen3.n_heads // 2,
                   qwen3.n_kv_heads // 2, S_MAIN, qwen3.resolved_head_dim,
-                  "bfloat16")))
+                  "bfloat16"),
+                 # [serve-mesh] (a): a model member's 4 query heads of
+                 # qwen3's prefill_32k share, the kv repeated per head
+                 ("main-serve-mesh-prefill", 1, qwen3.n_heads // 4,
+                  qwen3.n_heads // 4, 32768, qwen3.resolved_head_dim, "bfloat16")))
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
@@ -3366,6 +4022,9 @@ def main() -> None:
 
     # ---- the cells: the dry-run, one DP member's share of four cells ------
     cells_phase(torch, gen, dev, counters, card, phase_done)
+
+    # ---- serving over a mesh: four cells' shares and the DecodeServer -----
+    serve_mesh_phase(torch, card, phase_done)
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,10 @@ is allocated and no collective is issued: the model is built on the meta
 device, and every input of the step is a :class:`StandIn` (global shape,
 numpy dtype name, spec), the twin of the reference's
 ``jax.ShapeDtypeStruct`` with a ``NamedSharding``.  ``Cell.bind`` builds
-the model for real on a device and hands it to the step the cell chose.
+the model for real on a device and hands it to the step the cell chose;
+given the bound mesh of one member, of the cell's sizes, it cuts the model
+for that member (a serving cell too: its prefill and decode then take the
+member's rows and cache blocks).
 
 The sequence-parallel settings (``seq_shard``, ``context_parallel``) and
 MoE dispatch groups under the GSPMD step raise ``NotImplementedError``,
@@ -18,6 +21,7 @@ naming ROADMAP.md queue 1, item 8 (``transformer.check_supported``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -94,7 +98,8 @@ class Bound:
     cell's step (train: ``run(params, state, batch, step_idx)``; prefill:
     ``run(tokens[, frames])``; decode: ``run(cache, tokens, pos)``) and
     ``init`` what it carries (train: ``init()``, the sync or optimizer
-    state; decode: ``init(batch, max_seq)``, a zeroed cache)."""
+    state; decode: ``init(batch, max_seq)``, a zeroed cache: this member's
+    blocks of it when bound to a mesh)."""
 
     model: Model
     run: Callable
@@ -119,19 +124,18 @@ class Cell:
              seed: int = 0) -> Bound:
         """The model built on ``device`` from ``seed`` and the cell's step
         on it.  A training cell takes the bound ``mesh`` of this member,
-        whose sizes must be the cell's.  A serving cell runs the whole
-        model on this member (one DP member, its model axis folded);
-        ``mesh``, if given, must not split the model (the DecodeServer over
-        a model axis is ROADMAP.md queue 1, item 8)."""
-        if self.mode == "train":
-            if mesh is None or mesh.sizes != self.sizes:
-                raise ValueError(f"a {self.step_kind} cell on {self.sizes} "
-                                 f"binds to a mesh of those sizes, got "
-                                 f"{mesh and mesh.sizes}")
-        elif mesh is not None and mesh.sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                "a serving cell over a model axis: the DecodeServer over a "
-                "model axis is not ported yet (ROADMAP.md queue 1, item 8)")
+        whose sizes must be the cell's.  A serving cell given that mesh
+        holds this member's blocks (cut under the cell's ``mesh_info``,
+        FSDP for ``FSDP_ARCHS``), runs on its rows of the cell's batch
+        (every row where the batch does not divide the DP members) under
+        the mesh, and ``init`` gives its cache blocks; without a mesh it
+        runs the whole model on this member (one DP member, its model axis
+        folded)."""
+        if (self.mode == "train" or mesh is not None) and (
+                mesh is None or mesh.sizes != self.sizes):
+            raise ValueError(f"a {self.step_kind} cell on {self.sizes} "
+                             f"binds to a mesh of those sizes, got "
+                             f"{mesh and mesh.sizes}")
         model = build_model(self.arch, self.model.settings, device=device,
                             seed=seed)
         return self._bind(model, mesh)
@@ -242,24 +246,41 @@ def build_cell(arch_name: str, shape_name: str, sizes: Dict[str, int], *,
     params = _stand_ins(pshapes, model.param_specs(mi))
     B = shape.global_batch
     frames = arch.encoder.n_frames if arch.is_encdec else None
+
+    def on_member(model: Model, mesh: Optional[prims.Mesh], fn):
+        """``fn`` under ``mesh``, the model cut for its member first."""
+        if mesh is None:
+            return fn
+        model.shard(mi, mesh.sizes, mesh.coords)
+
+        def run(*args, **kw):
+            with prims.bind(mesh):
+                return fn(*args, **kw)
+        return run
+
     if shape.kind == "prefill" or shape.name == "prefill_32k":
         args = [params, StandIn((B, shape.seq_len), "int32", _dp_spec(mi, 2, B))]
         if arch.is_encdec:
             args.append(StandIn((B, frames, arch.d_model), "bfloat16",
                                 _dp_spec(mi, 3, B)))
         return cell("prefill", "serve", args,
-                    lambda model, mesh: Bound(model, model.prefill))
+                    lambda model, mesh: Bound(model, on_member(
+                        model, mesh, functools.partial(model.prefill, batch=B))))
 
     # decode
     cache = _stand_ins(model.cache_shapes(B, shape.seq_len, n_frames=frames),
                        model.cache_specs(mi, B, shape.seq_len, n_frames=frames))
     tokens = StandIn((B, 1), "int32", _dp_spec(mi, 2, B))
+
+    def bind_decode(model: Model, mesh: Optional[prims.Mesh]) -> Bound:
+        run = on_member(model, mesh, functools.partial(
+            model.decode_step, batch=B, max_seq=shape.seq_len, n_frames=frames))
+        return Bound(model, run, on_member(
+            model, mesh, lambda batch, max_seq: model.init_cache(
+                batch, max_seq, n_frames=frames)))
+
     return cell("decode", "serve", (params, cache, tokens, _scalar()),
-                lambda model, mesh: Bound(
-                    model, model.decode_step,
-                    lambda batch, max_seq: model.init_cache(batch, max_seq,
-                                                            n_frames=frames)),
-                donate=(1,))
+                bind_decode, donate=(1,))
 
 
 def _gspmd_args(model: Model, shape: ShapeConfig, mi, pspecs):

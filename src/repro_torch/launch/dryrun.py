@@ -37,8 +37,11 @@ Training adds one sum of the same size a split sublayer for its input's
 gradient, and ``remat="full"`` runs each layer's forward again.  An
 all-reduce of X bytes over n members moves 2 (n - 1) / n X a member (a
 ring); a gather or reduce-scatter to or from X bytes, (n - 1) / n X.  A
-decode cell whose attention cache is split on its sequence (B = 1) needs
-GSPMD's collectives over that split, which are not counted.
+decode cell whose attention cache is split on its sequence (B = 1: the
+batch does not divide the DP members) combines each attention layer's
+softmax over the members of that axis (``layers.attend_decode``): one max
+and two sums a layer a step, all-reduces of its (B, H_local) and (B,
+H_local, hd) fp32 values (H_local: the query heads a model member holds).
 
 Usage::
 
@@ -171,6 +174,28 @@ def fsdp_bytes(cell: Cell) -> Dict[str, float]:
     return out
 
 
+def split_attention_bytes(cell: Cell) -> Dict[str, float]:
+    """{axis: wire bytes a member a step} of the two-stage softmax of a
+    decode cell's attention layers whose cache splits on its sequence."""
+    if cell.mode != "decode":
+        return {}
+    params = tree_paths(cell.args[0])
+    ntp = cell.sizes.get("model", 1)
+    out: Dict[str, float] = {}
+    for path, leaf in tree_paths(cell.args[1]).items():
+        *parent, name = path.split("/")
+        axis = leaf.spec[2] if name in ("k", "xk") else None
+        if axis is None or cell.sizes.get(axis, 1) == 1:
+            continue
+        layers, B = leaf.shape[0], leaf.shape[1]
+        hd = leaf.shape[-1]
+        wq = params[f"blocks/{parent[0]}/{'xattn' if name == 'xk' else 'attn'}/wq"]
+        H = wq.shape[2] // (ntp if "model" in entry_axes(wq.spec[2]) else 1)
+        values = (2 * B * H + B * H * hd) * 4  # max and sum, then o; fp32
+        out[axis] = out.get(axis, 0.0) + layers * _ring(values, cell.sizes[axis], 2.0)
+    return out
+
+
 def collective_bytes(cell: Cell, topo) -> Dict:
     """Wire bytes a member a step, by tier, and the source of each."""
     by_tier: Dict[str, float] = {}
@@ -197,18 +222,18 @@ def collective_bytes(cell: Cell, topo) -> Dict:
                           "parameter specs" if cell.mode == "train" else
                           "FSDP gathers over data, once a forward, from the "
                           "parameter specs")
+    for a, b in split_attention_bytes(cell).items():
+        by_tier[a] = by_tier.get(a, 0.0) + b
+        sources[a] = "; ".join(filter(None, (
+            sources.get(a), "the two-stage softmax of decode attention over a "
+            "cache split on its sequence: a max and two sums a layer a step, "
+            "analytic (launch/dryrun.py)")))
     if cell.sizes.get("model", 1) > 1:
         by_tier["model"] = tp_bytes(cell, rows)
         sources["model"] = "the TP activation sums: analytic (launch/dryrun.py)"
     order = [a for a in ("data", "host", "pod", "model") if a in by_tier]
-    out = {"bytes_per_member": {a: by_tier[a] for a in order},
-           "sources": {a: sources[a] for a in order}, "rows_per_member": rows}
-    cache = cell.args[1] if cell.mode == "decode" else {}
-    if any(leaf.spec[2] is not None for k, leaf in tree_paths(cache).items()
-           if k.split("/")[-1] in ("k", "v")):
-        out["not_counted"] = ("attention over a cache split on its sequence: "
-                              "GSPMD's collectives there")
-    return out
+    return {"bytes_per_member": {a: by_tier[a] for a in order},
+            "sources": {a: sources[a] for a in order}, "rows_per_member": rows}
 
 
 def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,

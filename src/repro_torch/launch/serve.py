@@ -23,6 +23,20 @@ every ported kernel (flash attention in prefill, WKV6 in every RWKV6 step,
 the selective scan in every Mamba step).  An arch that does not fit one
 card (jamba, nemotron) runs its one-card cut (``configs.one_card_arch``),
 which is printed.
+
+The CLI serves on one member, on one device, as the reference's CLI serves
+on a mesh of (data, model) = (devices, 1).  To serve over a mesh from
+Python, start one process a member (``torch.distributed`` initialised
+with the world's size and this rank), bind the mesh and hand it to the
+server in place of the device::
+
+    mesh = prims.Mesh({"data": 2, "model": 2})
+    server = DecodeServer(model, mesh, batch_slots=8, max_seq=256)
+    ... server.submit(...) on every rank alike ...
+    outputs = server.run()
+
+The server cuts the model for the member (``Model.shard``) and decodes
+its rows of the slots; every rank's ``outputs`` are the same.
 """
 from __future__ import annotations
 

@@ -327,11 +327,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  pos: torch.Tensor) -> torch.Tensor:
+                  pos: torch.Tensor, seq_axis: Optional[str] = None) -> torch.Tensor:
     """Single-token decode attention over a (B, S_max, KV, hd) cache.
 
     ``pos`` (B,) integer: number of valid cache entries (the new token's
     kv must already be written).  Masked softmax over S_max, in fp32.
+
+    ``seq_axis``: the cache holds this member's rows ``[r S, (r+1) S)`` of
+    the sequence (S its local length, r its index on the axis), as
+    ``sharding.cache_specs`` splits a long cache.  The softmax is then
+    taken in two stages over the members: the global max (``prims.pmax``),
+    then the sums of exp(s - max) and of their products with v
+    (``prims.psum``), divided.  A member whose rows all lie past ``pos``
+    adds zeros: it subtracts the global max, never its own -inf.
     """
     B, Sq, H, hd = q.shape
     KV = k_cache.shape[2]
@@ -340,10 +348,20 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     qg = q.reshape(B, Sq, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache.float()) * scale
     S = k_cache.shape[1]
-    valid = torch.arange(S, device=q.device)[None, :] < pos[:, None]  # (B, S)
+    split = seq_axis is not None and prims.axis_size(seq_axis) > 1
+    start = prims.axis_rank(seq_axis) * S if split else 0
+    rows = start + torch.arange(S, device=q.device)
+    valid = rows[None, :] < pos[:, None]  # (B, S)
     s = s.masked_fill(~valid[:, None, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bkgqh", p, v_cache.float())
+    if not split:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskh->bkgqh", p, v_cache.float())
+    else:
+        m = prims.pmax(s.amax(dim=-1, keepdim=True), seq_axis)
+        e = torch.exp(s - m)
+        den = prims.psum(e.sum(dim=-1, keepdim=True), seq_axis)
+        o = prims.psum(torch.einsum("bkgqs,bskh->bkgqh", e, v_cache.float()),
+                       seq_axis) / den
     return o.movedim(3, 1).to(q.dtype).reshape(B, Sq, H, hd)
 
 

@@ -12,6 +12,17 @@ keeps this member's block of every leaf, as its spec gives it, and records
 the :class:`Layout`; the layers then run on the blocks with the
 collectives GSPMD would put in for the JAX package.  ``param_shapes`` and
 ``param_specs`` stay the global tree's, as ``jax.eval_shape`` gives them.
+
+Serving under a layout (the mesh bound with ``prims.bind``):
+``prefill`` and ``decode_step`` take this member's rows of the batch and
+``init_cache`` gives its block of every cache leaf under
+``sharding.cache_specs``, allocated at the block's shape.  The rows are
+split over the DP axes when the global ``batch`` divides their members
+(the JAX ``_dp_spec``); otherwise every member holds every row, and an
+attention cache's sequence (and a cross-attention cache's frames) splits
+over the last DP axis where the axis divides it.  A model cut for a
+DP-only training step serves its member's rows too; an uncut model serves
+the whole batch.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prims
 from repro_torch.core.planner import ShapeDtype
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
@@ -79,6 +91,21 @@ class Layout:
 
     def split(self, axis: Optional[str]) -> bool:
         return axis is not None and self.sizes.get(axis, 1) > 1
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        """The DP axes of the mesh, slowest first."""
+        return tuple(a for a in prims.MESH_AXES[:-1] if a in self.sizes)
+
+    @property
+    def dp_total(self) -> int:
+        return math.prod(self.sizes[a] for a in self.dp_axes)
+
+    def mesh_info(self) -> sharding.MeshInfo:
+        """The rule inputs the layout was cut by (the cache's rules read
+        the model and DP axes)."""
+        return sharding.MeshInfo(self.sizes, tp_axis=self.tp, fsdp_axis=self.fsdp,
+                                 dp_axes=self.dp_axes)
 
     @property
     def sharded(self) -> bool:
@@ -172,34 +199,104 @@ class Model(nn.Module):
         return T.train_loss(self.arch, params, batch, self.settings,
                             self.layout)
 
-    def _whole(self, what: str) -> None:
-        if self.layout is not None and self.layout.sharded:
-            raise NotImplementedError(
-                f"{what} over a model or FSDP axis is not ported yet: the "
-                f"DecodeServer over a model axis (ROADMAP.md queue 1, item 8)")
+    def _serving(self, rows: int, batch: Optional[int]):
+        """(the model's layout or None, the DP axes over which the members'
+        ``rows`` form the batch, and the DP axis over which a cache's
+        sequence may split or None) for a global ``batch`` (None: ``rows``
+        on every DP member).  The sequence may split only where the batch
+        does not divide the DP members: over the last DP axis, where that
+        has several members."""
+        lay = self.layout
+        if lay is None:
+            return None, (), None
+        n = lay.dp_total
+        batch = rows * n if batch is None else batch
+        if batch % n == 0:
+            if rows * n != batch:
+                raise ValueError(f"a batch of {batch} gives each of {n} DP "
+                                 f"members {batch // n} rows, got {rows}")
+            return lay, tuple(a for a in lay.dp_axes if lay.split(a)), None
+        if rows != batch:
+            raise ValueError(f"a batch of {batch} does not split over {n} DP "
+                             f"members: each holds all of it, got {rows} rows")
+        data = lay.dp_axes[-1]
+        return lay, (), data if lay.split(data) else None
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
-                frames: Optional[torch.Tensor] = None):
-        self._whole("prefill")
-        return T.prefill(self.arch, self.params(), tokens, self.settings,
-                         frames=frames)
+                frames: Optional[torch.Tensor] = None, *,
+                batch: Optional[int] = None):
+        """(last-position logits (B, V) fp32, cache).  Under a layout
+        ``tokens`` (and ``frames``) are this member's rows of a ``batch``
+        (see the module docstring), the logits its rows over the whole
+        vocab, and the cache its block of each leaf under
+        ``sharding.cache_specs`` for the prompt's length."""
+        lay, rows, _ = self._serving(tokens.shape[0], batch)
+        logits, cache = T.prefill(self.arch, self.params(), tokens, self.settings,
+                                  frames=frames, layout=lay, token_axes=rows)
+        if lay is None:
+            return logits, cache
+        B = tokens.shape[0] * lay.dp_total if batch is None else batch
+        specs = tree_paths(self.cache_specs(
+            lay.mesh_info(), B, tokens.shape[1],
+            n_frames=frames.shape[1] if frames is not None else None))
+        flat = tree_paths(cache)
+        for path, t in flat.items():  # the sequence split is the only cut left
+            seq = (None, None, specs[path][2]) if path.split("/")[-1] in (
+                "k", "v", "xk", "xv") else ()
+            blk = sharding.local_block(t, seq, lay.coords, lay.sizes)
+            flat[path] = blk.clone() if blk.shape != t.shape else t
+        return logits, tree_from_paths(flat)
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens: torch.Tensor, pos: int):
-        self._whole("decode")
+    def decode_step(self, cache, tokens: torch.Tensor, pos: int, *,
+                    batch: Optional[int] = None, max_seq: Optional[int] = None,
+                    n_frames: Optional[int] = None):
+        """One decode step at ``pos``: (logits (B, V) fp32, the cache written
+        in place).  Under a layout ``tokens`` are this member's rows of a
+        ``batch``, ``cache`` its blocks of a cache of ``max_seq`` positions
+        and ``n_frames`` cross-attention frames (the config's when None), as
+        :meth:`init_cache` gives them.  Where the batch does not split over
+        the DP members, each of the two splits its sequence as
+        ``sharding.cache_specs`` does, where the axis divides it, so
+        ``max_seq`` must be given there."""
+        lay, rows, data = self._serving(tokens.shape[0], batch)
+        seq = xseq = None
+        if data is not None:
+            if max_seq is None:
+                raise ValueError(f"a batch of {tokens.shape[0]} rows on every DP "
+                                 f"member: give max_seq, by which the cache's "
+                                 f"sequence splits over {data!r}")
+            n = lay.sizes[data]
+            seq = data if max_seq % n == 0 else None
+            if self.arch.is_encdec:
+                frames = n_frames or self.arch.encoder.n_frames
+                xseq = data if frames % n == 0 else None
         return T.decode_step(self.arch, self.params(), cache, tokens, pos,
-                             self.settings)
+                             self.settings, layout=lay, token_axes=rows,
+                             seq_axis=seq, xseq_axis=xseq)
 
     def init_cache(self, batch: int, max_seq: int,
                    n_frames: Optional[int] = None):
-        return T.init_cache(self.arch, batch, max_seq, self.settings,
-                            self.device, n_frames=n_frames)
+        """A zeroed cache for ``batch`` rows of ``max_seq`` positions (see
+        ``transformer.init_cache``); under a layout this member's block of
+        each leaf under ``sharding.cache_specs``, allocated at its shape."""
+        lay = self.layout
+        if lay is None:
+            return T.init_cache(self.arch, batch, max_seq, self.settings,
+                                self.device, n_frames=n_frames)
+        shapes = tree_paths(self.cache_shapes(batch, max_seq, n_frames))
+        specs = tree_paths(self.cache_specs(lay.mesh_info(), batch, max_seq,
+                                            n_frames))
+        return tree_from_paths({
+            k: torch.zeros(sharding.local_shape(v.shape, specs[k], lay.sizes),
+                           dtype=getattr(torch, v.dtype), device=self.device)
+            for k, v in shapes.items()})
 
     def cache_shapes(self, batch: int, max_seq: int,
                      n_frames: Optional[int] = None) -> Dict[str, Any]:
         """The cache's tree of :class:`ShapeDtype` records, built on the
-        meta device (nothing allocated)."""
+        meta device (nothing allocated): the global shapes."""
         cache = T.init_cache(self.arch, batch, max_seq, self.settings,
                              torch.device("meta"), n_frames=n_frames)
         return tree_from_paths({

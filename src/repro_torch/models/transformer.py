@@ -22,8 +22,9 @@ prefill caches the cross attention's k/v (``xk``/``xv``), which decode
 reads.
 
 Training under a model axis (tensor parallelism; every decoder family)
-and an FSDP axis (the GSPMD step) runs on each member's blocks of the
-leaves (``registry.Layout``): the code reads each leaf's spec, never
+and an FSDP axis (the GSPMD step), and prefill and decode under either or
+both (serving over a mesh, every family), run on each member's blocks of
+the leaves (``registry.Layout``): the code reads each leaf's spec, never
 assumes a split, and puts in the collectives GSPMD puts in for the JAX
 package — local heads with a row-parallel ``wo`` then a sum, column- then
 row-parallel MLPs, RWKV6 and Mamba mixers on local heads or channels
@@ -33,9 +34,15 @@ over the axis, the learned positions' d columns gathered
 local heads, and each layer's FSDP blocks gathered on use (again in the
 recompute) with their gradients reduce-scattered back (not for the
 encoder-decoder, which the GSPMD step refuses: ``check_fsdp``).  Under
-the GSPMD step the MoE layers route the whole batch as one dispatch
-group, as the JAX package's ``jax.jit`` of the global batch does
-(``layers.apply_moe``'s ``token_axes``).
+the GSPMD step, and in serving where the batch's rows split over the DP
+members, the MoE layers route the whole batch as one dispatch group, as
+the JAX package's ``jax.jit`` of the global batch does
+(``layers.apply_moe``'s ``token_axes``).  In serving the logits' vocab
+columns are gathered over the model axis, the decode cache holds each
+member's heads and channels (``sharding.cache_specs``), and a cache whose
+sequence splits over a DP axis (a batch that does not divide the DP
+members) takes decode attention's softmax in two stages over it
+(``layers.attend_decode``).
 
 Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
 meet an fp32 compute dtype, promoted as jnp promotes them.  fp32
@@ -266,14 +273,46 @@ def _own_kv(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _own_kv_heads(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, heads: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_own_kv` of a decode cache: where this member's query heads
+    use a run of whole kv groups, or share one kv head, that run of the
+    cache's kv heads (a view; the query heads keep their grouping over
+    it), else one kv head a query head (a copy)."""
+    Hl, G = q.shape[2], arch.n_heads // arch.n_kv_heads
+    if Hl % G and G % Hl:
+        return _own_kv(arch, q, k, v, heads)
+    lo = prims.axis_rank(heads) * Hl // G
+    n = max(Hl // G, 1)
+    return k.narrow(2, lo, n), v.narrow(2, lo, n)
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int,
+               seq_axis: Optional[str]) -> None:
+    """Write the (B, 1, ...) ``new`` at row ``pos`` of a (B, S, ...) cache
+    leaf, in place; under ``seq_axis`` the leaf holds this member's rows of
+    the sequence and only the member that holds row ``pos`` writes it (the
+    port of ``dynamic_update_slice`` on a sequence-split cache)."""
+    S = cache.shape[1]
+    n = prims.axis_size(seq_axis) if seq_axis is not None else 1
+    pos = min(pos, n * S - 1)  # clamped, as dynamic_update_slice clamps
+    if seq_axis is not None:
+        pos -= prims.axis_rank(seq_axis) * S
+    if 0 <= pos < S:
+        cache[:, pos:pos + 1] = new.to(cache.dtype)
+
+
 def _cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
                      enc_out: Optional[torch.Tensor], st: ModelSettings,
-                     cache: Optional[Params], specs: Optional[Params]
+                     cache: Optional[Params], specs: Optional[Params],
+                     xseq_axis: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decoder layer's cross attention (whisper), non-causal
     ``masked`` attention of the normed stream over the encoder's output:
     its k/v projected from ``enc_out``, or in decode (``cache`` given)
-    read from the cache's ``xk``/``xv``.  Returns (x, k, v)."""
+    read from the cache's ``xk``/``xv``; under ``xseq_axis`` those hold
+    this member's frames, over which :func:`L.attend_decode` takes the
+    softmax in two stages.  Returns (x, k, v)."""
     h = L.apply_norm(arch, p["lnx"], x)
     pa, heads, whole_kv = _member_heads(p, specs, "xattn")
     q = L.einsum("bsd,dhk->bshk", prims.to_parallel(h, heads), pa["wq"])
@@ -288,8 +327,13 @@ def _cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
         if "bk" in pa:
             kx, vx = kx + pa["bk"], vx + pa["bv"]
     k, v = _own_kv(arch, q, kx, vx, heads) if whole_kv else (kx, vx)
-    o = L.attend(q, k, v, causal=False, impl="masked", q_chunk=st.attn_chunk,
-                 kv_chunk=st.attn_chunk)
+    if cache is not None and xseq_axis is not None:
+        frames = torch.full((x.shape[0],), kx.shape[1] * prims.axis_size(xseq_axis),
+                            device=x.device)
+        o = L.attend_decode(q, k, v, frames, xseq_axis)
+    else:
+        o = L.attend(q, k, v, causal=False, impl="masked", q_chunk=st.attn_chunk,
+                     kv_chunk=st.attn_chunk)
     return x + prims.psum_replicated(L.attention_out(pa, o), heads), kx, vx
 
 
@@ -315,16 +359,21 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  st: ModelSettings, layer_id: int,
                  cache: Optional[Params] = None, pos: Optional[int] = None,
                  specs: Optional[Params] = None, token_axes: Tuple[str, ...] = (),
-                 enc_out: Optional[torch.Tensor] = None
+                 enc_out: Optional[torch.Tensor] = None,
+                 seq_axis: Optional[str] = None, xseq_axis: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
     or the new recurrent states, are written into ``cache`` in place).
     Returns (x, its MoE aux loss or None, the layer's cache), as the
-    reference's ``_apply_layer`` does.  ``specs`` (training only): the
-    layer's leaf specs, by which its leaves are this member's blocks;
-    ``token_axes``: the DP axes whose members' rows a MoE layer routes as
-    one batch (the GSPMD step's); ``enc_out``: the encoder's output, which
-    a layer with cross attention reads in prefill and training."""
+    reference's ``_apply_layer`` does.  ``specs``: the layer's leaf specs,
+    by which its leaves are this member's blocks (its heads' caches and
+    states in decode); ``token_axes``: the DP axes whose members' rows a
+    MoE layer routes as one batch (the GSPMD step's, and serving's over
+    rows split by member); ``enc_out``: the encoder's output, which a
+    layer with cross attention reads in prefill and training;
+    ``seq_axis``, ``xseq_axis``: the axes that split the decode cache's
+    sequence (an attention layer's k/v) and its frames (a cross
+    attention's ``xk``/``xv``), each as its own leaf's spec does, or None."""
     kind = layer_kind(arch, layer_id)
     decode = cache is not None
     if kind == "rwkv":
@@ -348,23 +397,25 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads),
                                   positions)
         if cache is None:
+            cache = {"k": k, "v": v}  # whole kv heads stay whole in the cache
             if whole_kv:
                 k, v = _own_kv(arch, q, k, v, heads)
             o = L.attend(q, k, v, causal=True, impl=st.attn_impl,
                          block=st.attn_block, q_chunk=st.attn_chunk,
                          kv_chunk=st.attn_chunk, gqa_repeat=st.gqa_repeat)
-            cache = {"k": k, "v": v}
         else:
             kc, vc = cache["k"], cache["v"]
-            kc[:, pos:pos + 1] = k.to(kc.dtype)
-            vc[:, pos:pos + 1] = v.to(vc.dtype)
+            _write_row(kc, k, pos, seq_axis)
+            _write_row(vc, v, pos, seq_axis)
+            if whole_kv:
+                kc, vc = _own_kv_heads(arch, q, kc, vc, heads)
             lens = torch.full((x.shape[0],), pos + 1, device=x.device)
-            o = L.attend_decode(q, kc, vc, lens)
+            o = L.attend_decode(q, kc, vc, lens, seq_axis)
         out = prims.psum_replicated(L.attention_out(pa, o), heads)
     x = x + out
     if "xattn" in p:
         x, xk, xv = _cross_attention(arch, p, x, enc_out, st,
-                                     cache if decode else None, specs)
+                                     cache if decode else None, specs, xseq_axis)
         if not decode:
             cache = dict(cache, xk=xk, xv=xv)
     h = L.apply_norm(arch, p["ln2"], x)
@@ -448,14 +499,18 @@ def encode(arch: ArchConfig, params: Params, frames: torch.Tensor,
     frame embeddings (B, F, d_model)): the frames in the compute dtype
     plus the fp32 sinusoidal table, the encoder layers (in training each
     recomputed in the backward as ``st.remat`` says), the final norm.
-    With a ``layout`` the leaves are this member's blocks."""
+    With a ``layout`` the leaves are this member's blocks, each layer's
+    FSDP blocks gathered on use (serving; the GSPMD step refuses an
+    encoder-decoder, ``check_fsdp``)."""
     x = frames.to(st.cdt())
     x = x + L.sinusoidal_positions(x.shape[1], arch.d_model, x.device).to(x.dtype)
     enc_arch = arch.replace(positional="none")
     specs = _stacked_specs(layout, "enc_blocks")
+    fsdp = layout.fsdp if layout is not None else None
     for lp in _unstack(params["enc_blocks"]):
         def layer(x_, lp=lp):
-            return _apply_encoder_layer(enc_arch, lp, x_, st, specs)
+            return _apply_encoder_layer(enc_arch, _gather_fsdp(lp, specs, fsdp),
+                                        x_, st, specs)
         x = _remat(st, layer, x) if train else layer(x)
     return L.apply_norm(arch, params["enc_final_norm"], x)
 
@@ -469,26 +524,54 @@ def _positions_table(params: Params, layout=None) -> torch.Tensor:
     return pe
 
 
+def _embed(params: Params, tokens: torch.Tensor, st: ModelSettings,
+           layout=None) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype: under a layout from
+    this member's vocab rows (``L.embed_lookup``), its FSDP blocks
+    gathered."""
+    if layout is None:
+        return params["embed"][tokens].to(st.cdt())
+    espec = layout.tree["embed"]
+    return L.embed_lookup(_gather_fsdp(params["embed"], espec, layout.fsdp),
+                          tokens, espec[0]).to(st.cdt())
+
+
+def _layer_params(params: Params, off: int, gi: int, specs, fsdp) -> Params:
+    """Layer ``gi`` of group offset ``off``, its FSDP blocks gathered (one
+    layer's at a time)."""
+    lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
+    return _gather_fsdp(lp, specs, fsdp)
+
+
 def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-            st: ModelSettings, frames: Optional[torch.Tensor] = None
+            st: ModelSettings, frames: Optional[torch.Tensor] = None,
+            layout=None, token_axes: Tuple[str, ...] = ()
             ) -> Tuple[torch.Tensor, Params]:
     """Prefill forward.  Returns (hidden (B,S,d), the cache: for each
     within-group offset ``l{off}``, that layer's cache stacked over groups:
     {'k','v': (G,B,S,KV,hd)} for attention layers, with {'xk','xv':
     (G,B,F,KV,hd)} for cross attention, {'tshift','cshift': (G,B,d), 'wkv':
     (G,B,H,hd,hd)} for RWKV, {'conv': (G,B,d_conv-1,di), 'ssm':
-    (G,B,di,ds)} for Mamba).  An encoder-decoder needs ``frames``."""
+    (G,B,di,ds)} for Mamba).  An encoder-decoder needs ``frames``.  With a
+    ``layout`` the leaves are this member's blocks, each layer's FSDP
+    blocks gathered on use, and the cache holds this member's heads and
+    channels (all kv heads where they stay whole); ``token_axes``: the DP
+    axes over which the members' rows (``tokens``) form the batch."""
     B, Sq = tokens.shape
-    x = params["embed"][tokens].to(st.cdt())
+    x = _embed(params, tokens, st, layout)
     if arch.positional == "learned":
-        x = x + _positions_table(params)[:Sq].to(x.dtype)
+        x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
-    enc_out = _encoder_output(arch, params, frames, st)
-    caches = [[] for _ in range(group_size(arch))]  # [offset][group]
+    enc_out = _encoder_output(arch, params, frames, st, layout)
+    fsdp = layout.fsdp if layout is not None else None
+    g = group_size(arch)
+    specs = [_stacked_specs(layout, "blocks", f"l{off}") for off in range(g)]
+    caches = [[] for _ in range(g)]  # [offset][group]
     for gi in range(n_groups(arch)):
         for off, per_group in enumerate(caches):
-            lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
+            lp = _layer_params(params, off, gi, specs[off], fsdp)
             x, _, c = _apply_layer(arch, lp, x, positions, st, off,
+                                   specs=specs[off], token_axes=token_axes,
                                    enc_out=enc_out)
             per_group.append(c)
     x = L.apply_norm(arch, params["final_norm"], x)
@@ -510,10 +593,17 @@ def _encoder_output(arch: ArchConfig, params: Params,
     return encode(arch, params, frames, st, layout, train)
 
 
-def logits_from_hidden(arch: ArchConfig, params: Params,
-                       x: torch.Tensor) -> torch.Tensor:
-    head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
-    return (x @ head.to(x.dtype)).float()
+def logits_from_hidden(arch: ArchConfig, params: Params, x: torch.Tensor,
+                       layout=None) -> torch.Tensor:
+    """fp32 logits over the whole vocab: under a vocab-split layout each
+    member's columns, gathered over the axis (the layout of the JAX
+    package's ``jit`` output)."""
+    if layout is None:
+        head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
+        return (x @ head.to(x.dtype)).float()
+    head, vocab = _head(arch, params, layout)
+    logits = (x @ head.to(x.dtype)).float()
+    return prims.all_gather_tiled(logits, vocab, -1) if vocab else logits
 
 
 # ---------------------------------------------------------------------------
@@ -601,9 +691,7 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     if fsdp is not None:
         check_fsdp(arch)
     token_axes = layout.loss_axes if layout is not None else ()
-    espec = layout.tree["embed"] if layout is not None else None
-    x = L.embed_lookup(_gather_fsdp(params["embed"], espec, fsdp), tokens,
-                       espec[0] if espec is not None else None).to(st.cdt())
+    x = _embed(params, tokens, st, layout)
     if arch.positional == "learned":
         x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
@@ -742,32 +830,45 @@ def init_cache(arch: ArchConfig, batch: int, max_seq: int, st: ModelSettings,
 
 
 def decode_step(arch: ArchConfig, params: Params, cache: Params,
-                tokens: torch.Tensor, pos: int, st: ModelSettings
+                tokens: torch.Tensor, pos: int, st: ModelSettings,
+                layout=None, token_axes: Tuple[str, ...] = (),
+                seq_axis: Optional[str] = None, xseq_axis: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) integer; pos: tokens already in the
     cache.  Writes the new kv at ``pos`` (or the new recurrent states) in
     place and returns (logits (B, V) fp32, cache).  Cross attention reads
-    the cache's ``xk``/``xv`` and leaves them as they are."""
+    the cache's ``xk``/``xv`` and leaves them as they are.  With a
+    ``layout``: as :func:`forward`, the cache this member's blocks under
+    ``sharding.cache_specs``, its attention sequence split over
+    ``seq_axis`` and its cross-attention frames over ``xseq_axis`` when
+    those are not None."""
     pos = int(pos)
     B = tokens.shape[0]
-    x = params["embed"][tokens].to(st.cdt())
+    x = _embed(params, tokens, st, layout)
     if arch.positional == "learned":
         # row ``pos``, clamped into the table as lax.dynamic_slice clamps it
-        pe = params["pos_embed"]
+        pe = _positions_table(params, layout)
         x = x + pe[min(pos, pe.shape[0] - 1)].to(x.dtype)
     positions = torch.full((B, 1), pos, device=tokens.device)
+    fsdp = layout.fsdp if layout is not None else None
+    g = group_size(arch)
+    specs = [_stacked_specs(layout, "blocks", f"l{off}") for off in range(g)]
     for gi in range(n_groups(arch)):
-        for off in range(group_size(arch)):
-            lp = _tree_map(lambda a: a[gi], params["blocks"][f"l{off}"])
+        for off in range(g):
+            lp = _layer_params(params, off, gi, specs[off], fsdp)
             lc = _tree_map(lambda a: a[gi], cache[f"l{off}"])
-            x, _, _ = _apply_layer(arch, lp, x, positions, st, off, lc, pos=pos)
+            x, _, _ = _apply_layer(arch, lp, x, positions, st, off, lc, pos=pos,
+                                   specs=specs[off], token_axes=token_axes,
+                                   seq_axis=seq_axis, xseq_axis=xseq_axis)
     x = L.apply_norm(arch, params["final_norm"], x)
-    return logits_from_hidden(arch, params, x)[:, 0], cache
+    return logits_from_hidden(arch, params, x, layout)[:, 0], cache
 
 
 def prefill(arch: ArchConfig, params: Params, tokens: torch.Tensor,
-            st: ModelSettings, frames: Optional[torch.Tensor] = None
+            st: ModelSettings, frames: Optional[torch.Tensor] = None,
+            layout=None, token_axes: Tuple[str, ...] = ()
             ) -> Tuple[torch.Tensor, Params]:
-    """Prefill forward: returns (last-position logits (B, V), cache)."""
-    hidden, cache = forward(arch, params, tokens, st, frames)
-    return logits_from_hidden(arch, params, hidden[:, -1:])[:, 0], cache
+    """Prefill forward: returns (last-position logits (B, V), cache); with
+    a ``layout`` as :func:`forward`."""
+    hidden, cache = forward(arch, params, tokens, st, frames, layout, token_axes)
+    return logits_from_hidden(arch, params, hidden[:, -1:], layout)[:, 0], cache

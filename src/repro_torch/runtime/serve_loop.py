@@ -11,6 +11,18 @@ into its slot: there is no prompt prefill here.  That is the reference's
 behaviour, which the port keeps; so an encoder-decoder (whisper) runs no
 encoder here and decodes against a zeroed cross-attention cache of the
 config's frame count, as the reference's server does.
+
+Over a mesh (a bound ``prims.Mesh`` in place of the device; one server a
+rank) the model is cut by ``Model.shard`` under ``mesh_info(sizes)``, as
+the JAX server lays out its parameters by ``param_specs(mesh_info(mesh))``,
+and the cache is each member's block under ``cache_specs``.  Each DP
+member decodes its rows of the slots (``_dp_spec``'s split), or every
+slot where the slots do not divide the DP members, the cache's sequence
+then split.  Every rank runs the same admission over the same queue, and
+the sampled tokens are gathered over the DP axes after each step, so that
+every member's ``outputs`` and ``stats`` are equal; sampling with
+``temperature > 0`` draws from one generator, seeded alike on every
+member, over the gathered logits.
 """
 from __future__ import annotations
 
@@ -21,8 +33,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prims
 from repro_torch.models.registry import Model, resolve_device
 from repro_torch.obs.metrics import MetricsLogger
+from repro_torch.runtime.train_loop import dp_rank, mesh_info
 from repro_torch.utils.stats import percentile
 
 
@@ -57,17 +71,32 @@ def priority_admission(queue: List[Request]) -> int:
 
 
 class DecodeServer:
-    """``device`` takes the place of the JAX server's mesh: the model is
-    moved there and decodes there.  Greedy decoding takes the argmax;
+    """``mesh``: a bound ``prims.Mesh`` of which this rank is a member (the
+    model is cut for it and decodes on its own device), or a device, which
+    takes the place of the JAX server's mesh on one member (the model is
+    moved there and decodes there).  Greedy decoding takes the argmax;
     ``temperature > 0`` samples from a ``torch.Generator`` seeded with
     ``seed``."""
 
-    def __init__(self, model: Model, device="cuda", *, batch_slots: int = 4,
+    def __init__(self, model: Model, mesh="cuda", *, batch_slots: int = 4,
                  max_seq: int = 128, temperature: float = 0.0, seed: int = 0,
                  metrics: Optional[MetricsLogger] = None,
                  admission: Optional[Callable[[List[Request]], int]] = None):
-        self.device = resolve_device(device)
+        self.mesh = mesh if isinstance(mesh, prims.Mesh) else None
         self.model = model
+        self.rows = slice(0, batch_slots)  # this member's slots
+        self.dp: tuple = ()  # the DP axes over which the slots split
+        if self.mesh is None:
+            self.device = resolve_device(mesh)
+        else:
+            self.device = model.device
+            layout = model.shard(mesh_info(self.mesh.sizes), self.mesh.sizes,
+                                 self.mesh.coords)
+            n = layout.dp_total
+            if batch_slots % n == 0:
+                b, r = batch_slots // n, dp_rank(self.mesh)
+                self.rows = slice(r * b, (r + 1) * b)
+                self.dp = tuple(a for a in layout.dp_axes if layout.split(a))
         self.metrics = metrics or MetricsLogger(echo=False, run="serve")
         # admission picks WHICH queued request takes a freed slot (an
         # index into the queue); FIFO unless told otherwise
@@ -104,22 +133,45 @@ class DecodeServer:
         return tokens
 
     # ---- main loop -----------------------------------------------------------------
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of ``x`` from the DP members' (slowest axis
+        major, the rows' order)."""
+        for a in reversed(self.dp):
+            x = prims.all_gather_tiled(x, a, 0)
+        return x
+
+    def _step(self, cache, tokens: np.ndarray, pos: int):
+        """One decode step of this member's slots; (every slot's next token
+        as numpy, the cache)."""
+        toks = torch.from_numpy(tokens[self.rows]).to(self.device)
+        if self.mesh is None:
+            logits, cache = self.model.decode_step(cache, toks, pos)
+        else:
+            logits, cache = self.model.decode_step(cache, toks, pos, batch=self.B,
+                                                   max_seq=self.S)
+        if self.temperature > 0:
+            probs = torch.softmax(self._gather_rows(logits) / self.temperature,
+                                  dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
+        else:
+            nxt = self._gather_rows(torch.argmax(logits, dim=-1))
+        return nxt.cpu().numpy(), cache
+
     def run(self, max_steps: int = 64) -> Dict[int, List[int]]:
+        if self.mesh is not None:
+            with prims.bind(self.mesh):
+                return self._run(max_steps)
         self.model.to(self.device)
+        return self._run(max_steps)
+
+    def _run(self, max_steps: int) -> Dict[int, List[int]]:
         cache = self.model.init_cache(self.B, self.S)
         tokens = self._admit(np.zeros((self.B, 1), np.int64))
         t0 = time.perf_counter()
         for pos in range(min(max_steps, self.S - 1)):
             if not any(self.active):
                 break
-            logits, cache = self.model.decode_step(
-                cache, torch.from_numpy(tokens).to(self.device), pos)
-            if self.temperature > 0:
-                probs = torch.softmax(logits / self.temperature, dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
-            else:
-                nxt = torch.argmax(logits, dim=-1)
-            nxt_np = nxt.cpu().numpy()
+            nxt_np, cache = self._step(cache, tokens, pos)
             now = time.perf_counter()
             self.stats["steps"] += 1
             self.metrics.inc("decode_steps")

@@ -239,6 +239,7 @@ def test_member_bytes_equal_jax_shards(ref, mname, tmp_path):
         assert mem["temp_bytes"] is None and mem["temp_note"]
         coll = rec["collectives"]
         assert set(coll["bytes_per_member"]) == set(coll["sources"])
+        assert "not_counted" not in coll, (arch, shape)
         assert "roofline" not in rec
         if rec["step_kind"] == "dfabric":
             axes = set(dp_axes_of(MESHES[mname]))
@@ -331,6 +332,43 @@ def test_collective_bytes_of_an_fsdp_cell_by_hand():
         assert got[axis] == pytest.approx(want[axis], rel=1e-12), axis
 
 
+def test_collective_bytes_of_a_sequence_split_decode_cell_by_hand():
+    """jamba long_500k on (pod, data, model) = (2, 16, 16), counted by hand
+    from the config.  B = 1 does not divide the 32 DP members, so every
+    member holds the row and each attention layer's 524,288-long cache
+    splits over data (32,768 rows a member).  Over data: the FSDP gathers,
+    once a decode step, of every matrix's blocks after the model axis's cut
+    (attention's query heads, the MLP's and the experts' columns, Mamba's
+    channels and the vocabulary split over model; the 8 kv heads and the
+    router's 16 experts whole), 15/16 of their bf16 bytes (the router's
+    fp32); and in each of
+    the 9 attention layers the two-stage softmax over the 16 members of
+    data, one max and two sums of (1, 4) and (1, 4, 128) fp32 values (4
+    query heads a model member), each a ring all-reduce."""
+    a = get_arch("jamba-1.5-large-398b")
+    d, hd, H, KV, V = a.d_model, a.resolved_head_dim, a.n_heads, a.n_kv_heads, a.vocab
+    f, E, di = a.d_ff, a.moe.num_experts, a.mamba.expand * a.d_model
+    n_attn, n_moe = len(a.attn_layer_ids()), len(a.moe_layer_ids())
+    attn = 2 * d * H * hd // 16 + 2 * d * KV * hd
+    mamba = 3 * d * di // 16
+    moe, mlp = 3 * E * d * f // 16, 3 * d * f // 16
+    router = n_moe * d * E  # fp32
+    nbytes = 2 * (n_attn * attn + (a.n_layers - n_attn) * mamba + n_moe * moe
+                  + (a.n_layers - n_moe) * mlp + 2 * V * d // 16) + 4 * router
+    combine = n_attn * _ring((2 * 1 * (H // 16) + 1 * (H // 16) * hd) * 4, 16, 2.0)
+    assert (n_attn, n_moe, combine) == (9, 36, 35100.0)
+    rec = dryrun.run_cell("jamba-1.5-large-398b", "long_500k", multi_pod=True)
+    coll = rec["collectives"]
+    assert rec["mode"] == "decode" and coll["rows_per_member"] == 1
+    assert "not_counted" not in coll and "two-stage softmax" in coll["sources"]["data"]
+    assert coll["bytes_per_member"]["data"] == pytest.approx(
+        _ring(nbytes, 16) + combine, rel=1e-12)
+    cell = build_cell("jamba-1.5-large-398b", "long_500k", MESHES["multi"])
+    assert dryrun.split_attention_bytes(cell) == {"data": combine}
+    assert dryrun.fsdp_bytes(cell)["data"] == pytest.approx(_ring(nbytes, 16),
+                                                            rel=1e-12)
+
+
 # ---------------------------------------------------------------------------
 # (iv) the flags that reach item 8
 # ---------------------------------------------------------------------------
@@ -405,16 +443,19 @@ def test_batch_specs_and_synthetic_batch():
 
 
 def test_bind_checks_the_mesh_and_runs_a_serving_cell():
-    """A training cell binds only to a mesh of its sizes; a serving cell
-    over a model axis raises (item 8); a decode cell runs one step of the
-    whole model on the CPU from its zeroed cache."""
+    """A training cell binds only to a mesh of its sizes, and so does a
+    serving cell given a mesh (over a model axis too; the mesh bound by
+    its members is in ``test_torch_serve_mesh.py``); without a mesh a
+    decode cell runs one step of the whole model on the CPU from its
+    zeroed cache."""
     cell = build_cell("qwen2-0.5b", "train_4k", MESHES["test"])
     for mesh in (None, types.SimpleNamespace(sizes={"pod": 2, "data": 1, "model": 1})):
         with pytest.raises(ValueError, match="binds to a mesh"):
             cell.bind(mesh, device="cpu")
     dec = build_cell("qwen2-0.5b", "decode_32k", MESHES["test"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dec.bind(types.SimpleNamespace(sizes=MESHES["test"]), device="cpu")
+    with pytest.raises(ValueError, match="binds to a mesh"):
+        dec.bind(types.SimpleNamespace(sizes={"pod": 2, "data": 1, "model": 2}),
+                 device="cpu")
     bound = dec.bind(device="cpu")
     assert bound.model.settings == dec.model.settings
     cache = bound.init(1, 8)

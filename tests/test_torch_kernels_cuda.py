@@ -95,6 +95,25 @@ def test_kernel_at_the_prefill_32k_cell_on_card(cuda_device):
     torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.cuda
+def test_kernel_at_a_model_members_share_of_prefill_32k_on_card(cuda_device):
+    """One model member's heads of qwen3-1.7b's prefill_32k share at model
+    = 4 (``[serve-mesh]`` (a)): q (1, 32768, 4, 128) bf16 and 2 kv heads
+    repeated per query head (``gqa_repeat``), against the chunked masked
+    attention at the bf16 tolerance."""
+    from repro_torch.models import layers as L
+    B, S, H, KV, hd = 1, 32768, 4, 2, 128
+    q = _randn(46, B, S, H, hd, dtype=torch.bfloat16, device=cuda_device)
+    k = _randn(47, B, S, KV, hd, dtype=torch.bfloat16, device=cuda_device)
+    v = _randn(48, B, S, KV, hd, dtype=torch.bfloat16, device=cuda_device)
+    before = kernel.LAUNCHES
+    out = L.attend(q, k, v, causal=True, impl="kernel", gqa_repeat=True)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    exp = L.attend(q, k, v, causal=True, impl="masked")
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
+
+
 # Both bodies (bf16: wgmma + TMA; fp32: CUDA cores) at every head_dim, with
 # G = 1 and G = 8, causal and not, in the model's strided layout and
 # contiguous; then S at and around the 64-row q tiles and the 128-key (hd
@@ -194,6 +213,7 @@ WKV_CASES = [
     (1, 4, 333, 64, "float32"),
     (4, 32, 1, 64, "bfloat16"),
     (1, 32, 1, 64, "bfloat16"),  # rwkv6-1.6b's long_500k cell: one row's decode
+    (1, 8, 1, 64, "bfloat16"),  # the same on a member's heads at model = 4
     (2, 8, 20, 64, "float32"),
     (2, 8, 31, 64, "bfloat16"),
     (2, 8, 33, 64, "bfloat16"),
@@ -304,6 +324,7 @@ MS_CASES = [
     (2, 100, 200, 16, "bfloat16"),
     (1, 333, 128, 8, "float32"),
     (3, 40, 384, 4, "bfloat16"),
+    (1, 1, 8192, 16, "bfloat16"),  # a decode step on a model member's jamba channels
 ]
 
 
@@ -992,3 +1013,69 @@ def test_staging_buffers_on_card(cuda_device):
     placement = offload_placement(cuda_device, offload=True)
     assert placement.pinned and placement.zeros((2, 3)).is_pinned()
     assert offload_placement(cuda_device, offload=False).device.type == "cuda"
+
+
+def _split_decode_rank(rank, store, queue, pos):
+    """One of two ranks sharing the card over gloo, the members of a
+    ``data`` axis: decode attention at jamba's model member shape (B=1, a
+    524,288-long cache of 4 kv heads, 32 query heads, hd 128, bf16 k/v
+    drawn alike on both), this member's half of the rows through the
+    two-stage softmax and the whole cache through one ``attend_decode``."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.core import prims
+        from repro_torch.models import layers as L
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=2, rank=rank)
+        S, KV, H, hd = 524288, 4, 32, 128
+        gen = torch.Generator(device=dev).manual_seed(9)
+        k = torch.randn((1, S, KV, hd), generator=gen, device=dev).bfloat16()
+        v = torch.randn((1, S, KV, hd), generator=gen, device=dev).bfloat16()
+        q = torch.randn((1, 1, H, hd), generator=gen, device=dev)
+        lens = torch.full((1,), pos, device=dev)
+        half = S // 2
+        with prims.bind(prims.Mesh({"data": 2})):
+            split = L.attend_decode(q, k[:, rank * half:(rank + 1) * half],
+                                    v[:, rank * half:(rank + 1) * half], lens, "data")
+        whole = L.attend_decode(q, k, v, lens)
+        err = (split - whole).abs().max().item()
+        scale = whole.abs().max().item()
+        finite = bool(torch.isfinite(split).all())
+        dist.destroy_process_group()
+        queue.put((rank, (err, scale, finite), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [100003, 300001])
+def test_split_decode_attention_matches_the_whole_on_card(cuda_device, tmp_path, pos):
+    """``attend_decode`` over a cache split on its sequence between two
+    ranks (``[serve-mesh]`` (d)): a ``pos`` where member 1's rows all lie
+    past it (its max is -inf, the global one is used) and a ragged one
+    inside member 1's rows; each member's fp32 output within 1e-6 of one
+    ``attend_decode`` over the whole cache, and finite."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_split_decode_rank,
+                         args=(r, str(tmp_path / "store"), queue, pos))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(2):
+            rank, res, err = queue.get(timeout=600)
+            assert err is None, err
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    for rank, (err, scale, finite) in out.items():
+        assert finite and err <= 1e-6 * max(scale, 1.0), (rank, err, scale)

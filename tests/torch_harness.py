@@ -7,6 +7,7 @@ The JAX package is imported inside the helpers that use it, so that the
 port's rank processes (``spawn_ranks``), which import this module to find
 their entry point, load torch only.
 """
+import math
 import multiprocessing
 import os
 import tempfile
@@ -1467,3 +1468,143 @@ def rank_gspmd_zero_opt(rank, payload):
                     for k, v in tree_paths(params).items()})
     return out[0], out[1], {k: tuple(v.shape)
                             for k, v in tree_paths(opt["m"]).items()}
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh (test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _pad_seq(cache: dict, max_seq: int) -> dict:
+    """Every attention cache leaf ('k', 'v') of a prefill cache padded with
+    zero rows to ``max_seq`` positions (dim 2), for decode to go on from it;
+    the cross cache and the states as they are."""
+    out = {}
+    for path, t in cache.items():
+        if path.split("/")[-1] in ("k", "v"):
+            pad = np.zeros(t.shape[:2] + (max_seq - t.shape[2],) + t.shape[3:], t.dtype)
+            t = np.concatenate([t, pad], axis=2)
+        out[path] = t
+    return out
+
+
+def rank_serve_mesh(rank, payload):
+    """The port's serving on this rank's member of the mesh
+    ``payload["sizes"]``, for each of ``payload["cases"]`` (a dict each:
+    ``arch`` (its registered smoke config), ``fsdp``, ``settings`` beside
+    fp32, and either ``tokens`` (B, S) of a prefill, with ``frames`` for an
+    encoder-decoder, then optionally ``decode`` (B, n) tokens decoded from
+    that cache padded to ``max_seq``; or ``zero``: (B, n) tokens decoded
+    from ``init_cache(B, max_seq, n_frames)`` at ``start``, its cross cache
+    set to the global leaves ``xcache`` where given), and each of
+    ``payload["servers"]`` (a ``DecodeServer`` over the mesh: ``arch``,
+    ``slots``, ``max_seq``, ``prompts``, ``max_new``, ``max_steps``).  The
+    model is cut by ``mesh_info(sizes, fsdp=...)`` and loaded from
+    ``payload["weights"][arch]``; every input is this member's rows (the
+    JAX ``_dp_spec``).  Returns {coords, cases: {name: {logits, cache,
+    decode: [logits a step], final}}, servers: {name: (outputs, stats)}},
+    the caches as {path: this member's block}."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import prims
+    from repro_torch.launch.cells import _dp_spec
+    from repro_torch.models import sharding
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    from repro_torch.runtime.train_loop import mesh_info
+    from repro_torch.utils.trees import tree_from_paths, tree_paths
+    sizes = payload["sizes"]
+    mesh = prims.Mesh(sizes)
+    coords = mesh.coords
+
+    def built(arch, fsdp=False, **settings):
+        st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                           max_seq=MAX_SEQ, **settings)
+        model = build_model(get_smoke_arch(arch), st, device="cpu")
+        model.shard(mesh_info(sizes, fsdp=fsdp), sizes, coords)
+        load_jax_params(model, payload["weights"][arch])
+        return model
+
+    def rows(x, B):
+        mi = mesh_info(sizes)
+        return torch.from_numpy(np.ascontiguousarray(
+            sharding.local_block(x, _dp_spec(mi, x.ndim, B), coords, sizes)))
+
+    def blocks(cache):
+        return {k: v.numpy().copy() for k, v in tree_paths(cache).items()}
+
+    out = {"coords": dict(coords), "cases": {}, "servers": {}}
+    with prims.bind(mesh):
+        for case in payload.get("cases", ()):
+            model = built(case["arch"], case.get("fsdp", False),
+                          **case.get("settings", {}))
+            rec = {}
+            if "tokens" in case:
+                toks = case["tokens"]
+                B, S = toks.shape
+                frames = (rows(case["frames"], B) if "frames" in case else None)
+                logits, cache = model.prefill(rows(toks, B).long(), frames, batch=B)
+                rec.update(logits=logits.numpy().copy(), cache=blocks(cache))
+                start, steps = S, case.get("decode")
+                if steps is not None:
+                    cache = tree_from_paths({
+                        k: torch.from_numpy(v) for k, v in
+                        _pad_seq(blocks(cache), case["max_seq"]).items()})
+            else:
+                steps, start = case["zero"], case["start"]
+                B = steps.shape[0]
+                cache = model.init_cache(B, case["max_seq"], case.get("n_frames"))
+                specs = tree_paths(model.cache_specs(
+                    mesh_info(sizes, fsdp=case.get("fsdp", False)), B,
+                    case["max_seq"], case.get("n_frames")))
+                flat = tree_paths(cache)
+                for path, x in case.get("xcache", {}).items():
+                    flat[path].copy_(torch.from_numpy(np.ascontiguousarray(
+                        sharding.local_block(x, specs[path], coords, sizes))))
+            if steps is not None:
+                rec["decode"] = []
+                for t in range(steps.shape[1]):
+                    logits, cache = model.decode_step(
+                        cache, rows(steps[:, t:t + 1], B).long(), start + t,
+                        batch=B, max_seq=case["max_seq"], n_frames=case.get("n_frames"))
+                    rec["decode"].append(logits.numpy().copy())
+                rec["final"] = blocks(cache)
+            out["cases"][case["name"]] = rec
+    for srv in payload.get("servers", ()):
+        model = built(srv["arch"])
+        server = DecodeServer(model, mesh, batch_slots=srv["slots"],
+                              max_seq=srv["max_seq"])
+        for i, prompt in enumerate(srv["prompts"]):
+            server.submit(Request(uid=i, prompt=prompt, max_new=srv["max_new"]))
+        outs = server.run(max_steps=srv["max_steps"])
+        stats = {k: v for k, v in server.stats.items() if k != "wall"}
+        out["servers"][srv["name"]] = (outs, stats,
+                                       [len(r.token_s) for r in server.all_requests])
+    if payload.get("cell"):
+        out["cell"] = _serve_cell(mesh, payload["cell"])
+    return out
+
+
+def _serve_cell(mesh, cell_case):
+    """``Cell.bind`` of a serving cell on this member's mesh (of the cell's
+    sizes), the cell's arch cut to ``layers`` (an encoder-decoder's
+    encoder too), bf16 on the CPU: one decode step at pos 0 from
+    ``init(batch, max_seq)``.  Returns (logits, rows, its cache's leaf
+    shapes)."""
+    import dataclasses
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.runtime.train_loop import dp_rank
+    from repro_torch.utils.trees import tree_paths
+    cell = build_cell(cell_case["arch"], cell_case["shape"], mesh.sizes)
+    cut = cell.arch.replace(n_layers=cell_case["layers"])
+    if cut.is_encdec:
+        cut = cut.replace(encoder=dataclasses.replace(
+            cut.encoder, n_layers=cell_case["layers"]))
+    cell = dataclasses.replace(cell, arch=cut)
+    bound = cell.bind(mesh, device="cpu", seed=0)
+    B = cell.shape.global_batch
+    cache = bound.init(B, cell_case["max_seq"])
+    n = B // math.prod(mesh.size(a) for a in mesh.sizes if a != "model")
+    r = dp_rank(mesh)
+    toks = torch.arange(r * n, (r + 1) * n).reshape(n, 1) % cut.vocab
+    logits, cache = bound.run(cache, toks, 0)
+    return (logits.float().numpy().copy(), n,
+            {k: tuple(v.shape) for k, v in tree_paths(cache).items()})
