@@ -55,7 +55,7 @@ Then ``[train3]``: 8 ranks share the card over gloo, mesh (pod, host,
 data, model) = (2, 2, 2, 1), full-width qwen2-0.5b in fp32, B=1 S=512 a
 rank: (a) the CLI with ``--codec topk`` for 1 step (24 K1 launches a rank
 a step, no K2); (b) ``make_sync_plan(..., mid_codec="int8")`` on
-``three_tier_fabric(2, 2, 2)`` and ``make_dfabric_train_step`` for 2 steps
+``three_tier_fabric(2, 2, 2)`` and ``make_dfabric_train_step`` for 1 step (2 until the sequence split's phase came)
 (K2 on every mid-coded leg and int8 slow chunk, as many launches as the
 plan says); parameters bit-equal over the 8 ranks after every step; (c)
 ``dfabric_all_to_all`` of one deepseek-moe-16b dispatch buffer (64 x 960 x
@@ -140,7 +140,7 @@ held to the plain recurrence on its own inputs at ``[K3]``'s tolerance;
 then in fp32 each layer's drift between the K3 and the plain path at 24
 layers, and the logits of the two paths held at 1e-3 at 4 layers) and
 qwen2-0.5b's train_4k (two DP members over gloo on (2, 1, 1), 8 rows x
-4096 a rank in 2 microbatches, bf16, ``remat="full"``, no codec, 2 steps,
+4096 a rank in 2 microbatches, bf16, ``remat="full"``, no codec, 1 step (2 until the sequence split's phase came),
 K1 96 a rank a step, parameters bit-equal over the ranks).
 
 Last, ``[serve-mesh]``: serving over a mesh, 4 ranks sharing the card over
@@ -162,6 +162,36 @@ held against the one-member run on the card in fp32 at 4 layers (jamba:
 a Mamba and its attention layer), at 1e-4 (rwkv6: 1e-3, each layer's
 drift printed first; the server: the tokens equal); the bf16 gap of (a)
 is printed; every run's check runs before the phase fails.
+
+Last, ``[seq-par]``: the sequence split, the context-parallel cell and
+MoE dispatch groups, 4 ranks sharing the card over gloo in one spawn,
+published widths, K1 on the gathered sequence: (a) qwen2-0.5b's train_4k
+cell with ``seq_shard`` (``Cell.bind``: the DFabric step, the residual
+stream's sequence split over model) on (pod, data, model) = (1, 2, 2),
+B=1 S=4096 a DP member, bf16, ``remat="full"``, 2 steps, K1 48 a rank a
+step at (1,7,4096,64); (b) qwen3-1.7b's train_4k cell with
+``context_parallel`` (the GSPMD step, every block whole on both model
+members, the fp32 moments under ``zero_moment_specs``) at 8 of its 28
+layers on (1, 2, 2), 2 steps, K1 16 a rank a step at (1,16,4096,128),
+each moment's block against its stand-in's; (c) qwen3-1.7b at 4 layers under FSDP over data x TP over
+model with the nemotron cell's settings (``seq_axis``, ``batch_axes``),
+fp32, 1 step; each of (a)-(c) with the blocks two members hold alike
+bit-equal after every step and, in fp32 at 4 layers, step 0's loss within
+1e-5 and gradient norm within 1e-4 of the same step without the split;
+(d) qwen3-1.7b's prefill_32k cell with ``seq_shard``, one DP member on
+(data, model) = (1, 4), B=1 S=32768 bf16 timed once, K1 28 a rank, the
+cache the whole sequence, and in fp32 at 4 layers the logits within
+atol = rtol = 1e-5 of the same prefill without the split; (e) one
+deepseek-moe-16b MoE layer in fp32 in 2 dispatch groups of a 4-row global
+batch over 4 DP members (each group spans two), the members' dropped slots
+summed equal to the whole grouped layer's and each member's output within
+1e-5 of its largest value.
+
+The ranks start once for each set of phases that share a world: the
+``FAMILY_RUNS`` and ``[cells]``' train_4k share (2 ranks), and
+``[train-tp]``, ``[train-gspmd]``, ``[train-gspmd-rwkv]``,
+``[train-tp-hybrid]``, ``[serve-mesh]`` and ``[seq-par]`` (4 ranks, run
+last, after ``[cells]``); each phase is checked in turn after its spawn.
 
 Any failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi``), one JSON object describing each kernel, and
@@ -219,7 +249,7 @@ TRAIN3_STEPS = 1
 TRAIN3_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,2,2,1", "--codec", "topk",
                "--steps", str(TRAIN3_STEPS), "--batch", "8", "--seq", "512",
                "--backend", "gloo", "--device", "cuda"]
-TRAIN3_RANKS, TRAIN3_TOKENS, TRAIN3_MID_STEPS = 8, 8 * 512, 2
+TRAIN3_RANKS, TRAIN3_TOKENS, TRAIN3_MID_STEPS = 8, 8 * 512, 1
 # one deepseek-moe-16b MoE layer's dispatch buffer at the serving shape
 # (B=4 S=2048): 64 experts x C 960 x d_model 2048, bf16, as 8 rows
 A2A_SHAPE = (64, 960, 2048)
@@ -1428,14 +1458,41 @@ def leaf_digests(params) -> dict:
     return out
 
 
-def family_rank(rank, world, init_method, tag, ckpt_dir):
-    """One rank of a ``FAMILY_RUNS`` run: the model drawn from seed 0 on the
-    card, the ``Trainer`` on (2, 1, 1) with the int8 slow tier, each step's
-    launches of every kernel, loss (and for experts its CE and aux parts,
-    this rank's, and the (token, k) slots the forward dropped), parameters
-    against member 0's, step time and peak memory recorded; at the
-    checkpoint step, member 0 records each leaf's digest."""
+def family_rank(rank, world, init_method, ckpt_root):
+    """One of the two ranks of every ``FAMILY_RUNS`` run in turn, then of
+    ``[cells]``' train_4k share (one spawn, so the ranks start once): {tag:
+    :func:`family_run_rank`'s record, "cells-train":
+    :func:`cells_train_run`'s, each with the run's seconds}."""
     import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world,
+                            rank=rank)
+    out = {}
+    try:
+        for tag in FAMILY_RUNS:
+            t0 = time.perf_counter()
+            out[tag] = family_run_rank(torch, rank, world, tag,
+                                       os.path.join(ckpt_root, tag))
+            out[tag]["s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["cells-train"] = cells_train_run(torch, rank, cells_train_rows(),
+                                             CELL_TRAIN_STEPS, CELL_TRAIN_MICROBATCHES)
+        out["cells-train"]["s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def family_run_rank(torch, rank, world, tag, ckpt_dir):
+    """This rank's part of a ``FAMILY_RUNS`` run: the model drawn from seed
+    0 on the card, the ``Trainer`` on (2, 1, 1) with the int8 slow tier,
+    each step's launches of every kernel, loss (and for experts its CE and
+    aux parts, this rank's, and the (token, k) slots the forward dropped),
+    parameters against member 0's, step time and peak memory recorded; at
+    the checkpoint step, member 0 records each leaf's digest."""
     import torch.distributed as dist
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import prims
@@ -1446,10 +1503,8 @@ def family_rank(rank, world, init_method, tag, ckpt_dir):
     from repro_torch.runtime.train_loop import Trainer, TrainerConfig
     arch_name, fields, rows, seq, steps, ckpt_at, depth, masked_step0 = family_run(tag)
     kernels = kernel_modules()
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=init_method, world_size=world,
-                            rank=rank)
     rec = {"steps": []}
+    real_forward = T.forward_train
     try:
         arch, _ = family_arch(arch_name, depth)
         st = ModelSettings(loss_chunk=min(2048, seq), **fields)
@@ -1476,7 +1531,6 @@ def family_rank(rank, world, init_method, tag, ckpt_dir):
             del batch, masked
         n_moe = len(arch.moe_layer_ids()) if arch.moe is not None else 0
         auxes = []
-        real_forward = T.forward_train
 
         def recording(*a, **k):  # the aux term, apart from the CE
             hidden, aux = real_forward(*a, **k)
@@ -1524,25 +1578,23 @@ def family_rank(rank, world, init_method, tag, ckpt_dir):
             rec["writes"] = trainer.ckpt.stats
         del out, trainer, params, opt
     finally:
-        dist.destroy_process_group()
+        T.forward_train = real_forward
+        L.DROP_LOG = None
     return rec
 
 
-def run_family(tag, card, ckpt_root):
-    """A ``FAMILY_RUNS`` run on two ranks: checks and logs each step, and a
-    checkpoint run's step restored bit for bit on a fresh model in this
-    process."""
+def check_family(tag, recs, card, ckpt_root):
+    """A ``FAMILY_RUNS`` run's two ranks' records: checks and logs each
+    step, and a checkpoint run's step restored bit for bit on a fresh
+    model in this process."""
     import torch
-    from repro_torch.launch import train as train_cli
     arch_name, fields, rows, seq, steps, ckpt_at, depth, masked_step0 = family_run(tag)
     arch, cuts = family_arch(arch_name, depth)
     ckpt_dir = os.path.join(ckpt_root, tag)
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(family_rank, 2, tag, ckpt_dir, timeout=1200)
     r0 = recs[0]
     log(f"[{tag}] {arch.name}{' (cut: ' + '; '.join(cuts) + ')' if cuts else ''} "
         f"{fields}, 2 ranks (2,1,1) int8 slow tier ZeRO-1, B={rows} S={seq} a rank, "
-        f"{steps} steps: {time.perf_counter() - t0:.1f} s wall; params "
+        f"{steps} steps: {r0['s']:.1f} s on rank 0; params "
         f"{r0['n_params']} (active {r0['n_active']}) {r0['dtypes']}; memory after "
         f"init {r0['mem_after_init_gb']:.2f} GB a rank; {r0['sections']} sections, "
         f"{r0['slow_chunks']} int8 slow chunks | {card}")
@@ -1669,26 +1721,37 @@ def jamba_layer_check(torch, gen, dev, card):
 
 def family_phases(torch, gen, dev, card, phase_done):
     """``[train-bf16]``, ``[train-moe]``, ``[train-rwkv]``, ``[train-jamba]``,
-    ``[train-whisper]``; returns {tag: per-rank records}."""
+    ``[train-whisper]``, and ``[cells]``' train_4k share run by the same
+    spawn; returns {tag: per-rank records} ("cells-train" for the
+    latter, checked by ``cells_phase``)."""
     import gc
     root = os.path.join(HERE, "build", "ckpt_family")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    # bf16 params + fp32 m, v, EF, twice; whisper's fp32 checkpoint (811.8 M
-    # parameters at 16 bytes) is smaller and written after they are deleted
-    need = 2 * 494_032_768 * (2 + 12)
+    # bf16 params + fp32 m, v, EF, twice, beside whisper's fp32 checkpoint
+    # (at most its 811.8 M parameters at 16 bytes): every run's checkpoint
+    # is written before the first is checked
+    need = 2 * 494_032_768 * (2 + 12) + 811_792_384 * 16
     free = shutil.disk_usage(root).free
     if free < need:
         raise RuntimeError(f"{free} bytes free under {root}; [train-bf16] needs {need}")
+    from repro_torch.launch import train as train_cli
+    jamba_layer_check(torch, gen, dev, card)
+    phase_done("train-jamba: one Mamba layer through K4 vs plain")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(family_rank, 2, root, timeout=1800)
+    log(f"[train-family] 2 ranks, every run in turn: {time.perf_counter() - t0:.1f} s "
+        f"wall | {card}")
+    phase_done("train-family: 2 ranks, the runs")
     out = {}
     for tag in FAMILY_RUNS:
-        gc.collect()
-        torch.cuda.empty_cache()
-        if tag == "train-jamba":
-            jamba_layer_check(torch, gen, dev, card)
-        out[tag] = run_family(tag, card, root)
+        out[tag] = [r[tag] for r in recs]
+        check_family(tag, out[tag], card, root)
         phase_done(tag)
     shutil.rmtree(root, ignore_errors=True)
+    out["cells-train"] = [r["cells-train"] for r in recs]
     return out
 
 
@@ -1865,26 +1928,61 @@ def kernel_modules() -> dict:
             "mamba_scan_fwd": ms_kernel, "quantize_ef_fwd": q_kernel}
 
 
-def tp_rank(rank, world, init_method, tag, ckpt_dir):
-    """One rank of ``[train-tp]`` (the CLI's ``run_rank`` with
-    ``TP_ARGV``) or of a ``GSPMD_RUNS`` run (the ``Trainer`` in GSPMD mode;
-    one with a checkpoint step then restores that checkpoint into a fresh
-    model and state on this rank), recorded by :func:`step_recorder`."""
+def four_rank(rank, world, init_method, ckpt_dir, out_dir, inputs):
+    """One of the 4 ranks sharing the card over gloo for ``[train-tp]`` (the
+    CLI's ``run_rank`` with ``TP_ARGV``, whose process group the rest
+    keeps), the ``GSPMD_RUNS`` runs, ``[train-tp-hybrid]``,
+    ``[serve-mesh]`` and ``[seq-par]``, in turn (one spawn, so the ranks
+    start once): {"train-tp": its :func:`step_recorder` record, tag:
+    :func:`gspmd_run`'s, "hybrid": :func:`hybrid_runs`', "serve-mesh":
+    :func:`serve_mesh_runs`', "seq-par": :func:`seq_par_runs`'}."""
     import torch
     import torch.distributed as dist
+    from repro_torch.launch import train as train_cli
+    out = {"train-tp": {"steps": []}}
+    start, on_step = step_recorder(out["train-tp"])
+    args = train_cli.resolve_args(train_cli.build_parser().parse_args(TP_ARGV))
+    try:
+        trainer, result = train_cli.run_rank(
+            args, rank, world, init_method, on_step=on_step, keep_group=True,
+            before_train=lambda trainer, params, opt: start(trainer))
+        # the recorder's closures hold the trainer: all of it freed here
+        del trainer, result, start, on_step
+        for tag in GSPMD_RUNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out[tag] = gspmd_run(torch, tag, ckpt_dir)
+            out[tag]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["hybrid"] = hybrid_runs(torch, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels = kernel_modules()
+        out["serve-mesh"] = serve_mesh_runs(torch, kernels, inputs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seq-par"] = seq_par_runs(torch, kernels, inputs, out["serve-mesh"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def gspmd_run(torch, tag, ckpt_dir):
+    """This rank's part of a ``GSPMD_RUNS`` run (the ``Trainer`` in GSPMD
+    mode; one with a checkpoint step then restores that checkpoint into a
+    fresh model and state on this rank), recorded by
+    :func:`step_recorder`."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import prims
-    from repro_torch.launch import train as train_cli
     from repro_torch.models import ModelSettings, build_model
     from repro_torch.runtime.train_loop import Trainer, TrainerConfig
-    rec = {"steps": []}
-    if tag == "train-tp":
-        start, on_step = step_recorder(rec)
-        args = train_cli.resolve_args(train_cli.build_parser().parse_args(TP_ARGV))
-        train_cli.run_rank(args, rank, world, init_method, on_step=on_step,
-                           before_train=lambda trainer, params, opt: start(trainer))
-        return rec
     from repro_torch.utils.trees import tree_paths
+    rec = {"steps": []}
     run = GSPMD_RUNS[tag]
     start, on_step = step_recorder(rec, tag, run["ckpt"])
 
@@ -1899,39 +1997,30 @@ def tp_rank(rank, world, init_method, tag, ckpt_dir):
                                  layers=[x * s for x in n["layers"]])
         on_step(step, params, opt, metrics)
 
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=init_method, world_size=world,
-                            rank=rank)
-    try:
-        mesh = prims.Mesh(run["sizes"])
-        arch = gspmd_arch(run)
-        st = ModelSettings(**run["fields"])
-        shape = ShapeConfig("custom", run["seq"], run["rows"], "train")
-        cfg = TrainerConfig(steps=run["steps"], lr=3e-4, warmup=1, mode="gspmd",
-                            ckpt_dir=ckpt_dir if run["ckpt"] else None,
-                            ckpt_every=run["ckpt"] or 0)
-        trainer = Trainer(build_model(arch, st, device="cuda", seed=0), mesh,
-                          shape, cfg)
-        params, opt, step0 = trainer.init_state()
-        start(trainer)
-        trainer.train(params, opt, step0, on_step=on_step_norms)
-        if run["ckpt"]:
-            rec["ckpt_log"], rec["writes"] = trainer.ckpt_log, trainer.ckpt.stats
-        del trainer, params, opt
-        torch.cuda.empty_cache()
-        if run["ckpt"]:
-            # the checkpoint into a fresh model (other seed) and state
-            fresh = Trainer(build_model(arch, st, device="cuda", seed=1), mesh,
-                            shape, cfg)
-            params, opt, step = fresh.try_restore()
-            got = state_digests(params, opt)
-            rec["restore"] = dict(step=step, restore_s=fresh.restore_s,
-                                  leaves=len(got),
-                                  equal=sum(got[k] == v
-                                            for k, v in rec["ckpt_digests"].items()))
-            del fresh, params, opt
-    finally:
-        dist.destroy_process_group()
+    mesh = prims.Mesh(run["sizes"])
+    arch = gspmd_arch(run)
+    st = ModelSettings(**run["fields"])
+    shape = ShapeConfig("custom", run["seq"], run["rows"], "train")
+    cfg = TrainerConfig(steps=run["steps"], lr=3e-4, warmup=1, mode="gspmd",
+                        ckpt_dir=ckpt_dir if run["ckpt"] else None,
+                        ckpt_every=run["ckpt"] or 0)
+    trainer = Trainer(build_model(arch, st, device="cuda", seed=0), mesh, shape, cfg)
+    params, opt, step0 = trainer.init_state()
+    start(trainer)
+    trainer.train(params, opt, step0, on_step=on_step_norms)
+    if run["ckpt"]:
+        rec["ckpt_log"], rec["writes"] = trainer.ckpt_log, trainer.ckpt.stats
+    del trainer, params, opt
+    torch.cuda.empty_cache()
+    if run["ckpt"]:
+        # the checkpoint into a fresh model (other seed) and state
+        fresh = Trainer(build_model(arch, st, device="cuda", seed=1), mesh, shape, cfg)
+        params, opt, step = fresh.try_restore()
+        got = state_digests(params, opt)
+        rec["restore"] = dict(step=step, restore_s=fresh.restore_s, leaves=len(got),
+                              equal=sum(got[k] == v
+                                        for k, v in rec["ckpt_digests"].items()))
+        del fresh, params, opt
     return rec
 
 
@@ -2028,23 +2117,13 @@ def check_tp_steps(tag, recs, card, tokens, want_loss0=None, tol=None,
         f"{total - sum(peaks):.2f} GB free of allocations | {card}")
 
 
-def tp_phases(torch, card, train_recs, phase_done):
-    """``[train-tp]`` against ``[train]``'s step-0 loss, and
-    ``[train-gspmd]`` against one unsharded forward, its step-2
-    checkpoint restored bit for bit."""
+def four_rank_phases(torch, card, train_recs, phase_done):
+    """One spawn of 4 ranks sharing the card (:func:`four_rank`), then each
+    phase's checks in turn: ``[train-tp]`` against ``[train]``'s step-0
+    loss, ``[train-gspmd]`` against one unsharded forward (its step-2
+    checkpoint restored bit for bit), ``[train-gspmd-rwkv]``,
+    ``[train-tp-hybrid]``, ``[serve-mesh]`` and ``[seq-par]``."""
     from repro_torch.launch import train as train_cli
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(tp_rank, TP_RANKS, "train-tp", None, timeout=900)
-    log(f"[train-tp] qwen2-0.5b fp32 (pod, data, model) = (2, 1, 2), int8 slow tier, "
-        f"ZeRO-1, B=2 S=2048 a DP member, 2 steps through the CLI: "
-        f"{time.perf_counter() - t0:.1f} s wall; {recs[0]['plan_k2']} int8 slow "
-        f"chunks a rank a step (the plan on local shapes) | {card}")
-    check_tp_steps("train-tp", recs, card, TP_TOKENS,
-                   train_recs[0]["steps"][0]["loss"], 1e-4)
-    phase_done("train-tp: qwen2-0.5b at TP 2, 4 ranks")
-
     ckpt_dir = os.path.join(HERE, "build", "ckpt_gspmd")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     os.makedirs(ckpt_dir)
@@ -2053,15 +2132,50 @@ def tp_phases(torch, card, train_recs, phase_done):
     free = shutil.disk_usage(ckpt_dir).free
     if free < need:
         raise RuntimeError(f"{free} bytes free under {ckpt_dir}; [train-gspmd] needs {need}")
-    recs = gspmd_phase(torch, card, "train-gspmd", ckpt_dir)
-    ckpt = GSPMD_RUNS["train-gspmd"]["ckpt"]
+    out_dir = os.path.join(HERE, "build", "mamba_cut")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    refs = {}
+    for tag, run in GSPMD_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        refs[tag] = gspmd_reference(torch, tag)
+        log(f"[{tag}] unsharded {run['arch']} forward and backward on the global batch "
+            f"({run['rows']} x {run['seq']}), its kernels in the forward, this process: "
+            f"loss {refs[tag][0]!r}, grad_norm {refs[tag][1]['whole']!r}, tail norm "
+            f"{refs[tag][1]['tail']!r} in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = sm_inputs()
+    t0 = time.perf_counter()
+    recs = train_cli.run_ranks(four_rank, TP_RANKS, ckpt_dir, out_dir, inputs,
+                               timeout=2400)
+    log(f"[train-tp] [train-gspmd] [train-gspmd-rwkv] [train-tp-hybrid] [serve-mesh] "
+        f"[seq-par] four ranks over gloo on one card: "
+        f"{time.perf_counter() - t0:.1f} s wall | {card}")
+    phase_done("train-tp, train-gspmd, train-gspmd-rwkv, train-tp-hybrid, serve-mesh, "
+               "seq-par: the 4 ranks' runs")
+
+    tp = [r["train-tp"] for r in recs]
+    log(f"[train-tp] qwen2-0.5b fp32 (pod, data, model) = (2, 1, 2), int8 slow tier, "
+        f"ZeRO-1, B=2 S=2048 a DP member, 2 steps through the CLI's run_rank; "
+        f"{tp[0]['plan_k2']} int8 slow chunks a rank a step (the plan on local "
+        f"shapes) | {card}")
+    check_tp_steps("train-tp", tp, card, TP_TOKENS,
+                   train_recs[0]["steps"][0]["loss"], 1e-4)
+    phase_done("train-tp: qwen2-0.5b at TP 2, 4 ranks")
+
+    tag = "train-gspmd"
+    gspmd_check(card, tag, [r[tag] for r in recs], *refs[tag])
+    ckpt = GSPMD_RUNS[tag]["ckpt"]
     step_dir = os.path.join(ckpt_dir, f"step_{ckpt:08d}")
-    save = recs[0]["ckpt_log"][0]
-    write = recs[0]["writes"][0]
+    save = recs[0][tag]["ckpt_log"][0]
+    write = recs[0][tag]["writes"][0]
     log(f"[train-gspmd] checkpoint step {ckpt}: {dir_bytes(step_dir)} bytes; "
         f"gather to member 0 {save['gather_s']:.2f} s, blocking {save['blocking_s']:.2f} s, "
         f"writer {write['write_s']:.2f} s | {card}")
-    for rank, rec in enumerate(recs):
+    for rank, rec in enumerate(r[tag] for r in recs):
         r = rec["restore"]
         log(f"[train-gspmd] rank {rank}: restored step {r['step']} into a fresh model "
             f"in {r['restore_s']:.2f} s; {r['equal']} of {r['leaves']} blocks "
@@ -2073,39 +2187,30 @@ def tp_phases(torch, card, train_recs, phase_done):
     phase_done(f"train-gspmd: qwen3-1.7b ({GSPMD_RUNS['train-gspmd']['depth']} layers) "
                f"FSDP x TP, 4 ranks, checkpoint")
 
-    gspmd_phase(torch, card, "train-gspmd-rwkv")
+    tag = "train-gspmd-rwkv"
+    gspmd_check(card, tag, [r[tag] for r in recs], *refs[tag])
     phase_done(f"train-gspmd-rwkv: rwkv6-1.6b ({GSPMD_RUNS['train-gspmd-rwkv']['depth']} "
                f"layers) FSDP x TP, 4 ranks")
-    hybrid_phase(torch, card)
+    hybrid_phase(torch, card, [r["hybrid"] for r in recs], out_dir)
     phase_done("train-tp-hybrid: jamba and rwkv6 under a model axis, "
                "one Mamba layer and one MoE layer cut, 4 ranks")
-    return recs
+    serve_mesh_phase(torch, card, phase_done, [r["serve-mesh"] for r in recs], inputs)
+    seq_par_phase(torch, card, phase_done, [r["seq-par"] for r in recs], inputs)
 
 
-def gspmd_phase(torch, card, tag, ckpt_dir=None):
-    """A ``GSPMD_RUNS`` run on four ranks, checked by :func:`check_tp_steps`
-    against one unsharded step of the same global batch in this process:
-    step 0's loss to 1e-3 and its gradient norms to the run's
-    ``gnorm_tol``, relative; each layer's is printed beside the
-    reference's."""
-    from repro_torch.launch import train as train_cli
+def gspmd_check(card, tag, recs, ref, want):
+    """A ``GSPMD_RUNS`` run's four ranks' records, checked by
+    :func:`check_tp_steps` against one unsharded step of the same global
+    batch (``ref`` its loss, ``want`` its :func:`grad_norms`): step 0's
+    loss to 1e-3 and its gradient norms to the run's ``gnorm_tol``,
+    relative; each layer's is printed beside the reference's."""
     run = GSPMD_RUNS[tag]
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ref, want = gspmd_reference(torch, tag)
-    log(f"[{tag}] unsharded {run['arch']} forward and backward on the global batch "
-        f"({run['rows']} x {run['seq']}), its kernels in the forward, this process: "
-        f"loss {ref!r}, grad_norm {want['whole']!r}, tail norm {want['tail']!r} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(tp_rank, TP_RANKS, tag, ckpt_dir, timeout=1200)
     ckpt = f", a checkpoint at step {run['ckpt']}" if run["ckpt"] else ""
     cut = f" cut to {run['depth']} layers" if run.get("depth") else ""
     log(f"[{tag}] {run['arch']}{cut} {run['fields']} GSPMD (pod, data, model) = "
         f"{tuple(run['sizes'].values())}, FSDP over data x TP over model, B=1 "
         f"S={run['seq']} a DP member, {run['steps']} steps{ckpt}: "
-        f"{time.perf_counter() - t0:.1f} s wall | {card}")
+        f"{recs[0]['s']:.1f} s on rank 0 | {card}")
     tol = run["gnorm_tol"]
     check_tp_steps(tag, recs, card, run["rows"] * run["seq"], ref, 1e-3,
                    want["whole"], tol["whole"])
@@ -2119,7 +2224,6 @@ def gspmd_phase(torch, card, tag, ckpt_dir=None):
         f"to last: {layers}")
     if any(r["norms0"] != got for r in recs) or not rel <= tol["tail"]:
         raise AssertionError(f"[{tag}] step 0's tail norm is off its reference")
-    return recs
 
 
 #: ``[train-tp-hybrid]`` (a)-(c): {part: (arch, mesh sizes, mode)}, the smoke
@@ -2250,44 +2354,36 @@ def moe_member(torch, mesh):
                 local_params=sum(t.numel() for t in local.values()))
 
 
-def hybrid_rank(rank, world, init_method, out_dir):
-    """One rank of ``[train-tp-hybrid]``: the ``HYBRID_RUNS`` (each recorded
+def hybrid_runs(torch, out_dir):
+    """This rank's ``[train-tp-hybrid]``: the ``HYBRID_RUNS`` (each recorded
     by :func:`step_recorder`), then (d) and (e) on ``GSPMD_SIZES``."""
-    import torch
-    import torch.distributed as dist
     from repro_torch.configs import get_smoke_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import prims
     from repro_torch.models import ModelSettings, build_model
     from repro_torch.runtime.train_loop import Trainer, TrainerConfig, dp_axes_of
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=init_method, world_size=world,
-                            rank=rank)
     out = {}
-    try:
-        for part, (name, sizes, mode) in HYBRID_RUNS.items():
-            rec = out[part] = {"steps": []}
-            start, on_step = step_recorder(rec)
-            n_dp = math.prod(sizes[a] for a in dp_axes_of(sizes))
-            cfg = TrainerConfig(steps=HYBRID_STEPS, lr=3e-4, warmup=1, mode=mode,
-                                codec="int8" if mode == "dfabric" else None)
-            trainer = Trainer(build_model(get_smoke_arch(name),
-                                          ModelSettings(**HYBRID_FIELDS),
-                                          device="cuda", seed=0),
-                              prims.Mesh(sizes),
-                              ShapeConfig("custom", HYBRID_SEQ, HYBRID_ROWS * n_dp,
-                                          "train"), cfg)
-            params, opt, step0 = trainer.init_state()
-            start(trainer)
-            trainer.train(params, opt, step0, on_step=on_step)
-            del trainer, params, opt
-        mesh = prims.Mesh(GSPMD_SIZES)
-        out["d"] = mamba_member_grads(torch, mesh, out_dir)
-        torch.cuda.empty_cache()
-        out["e"] = moe_member(torch, mesh)
-        out["coords"] = mesh.coords
-    finally:
-        dist.destroy_process_group()
+    for part, (name, sizes, mode) in HYBRID_RUNS.items():
+        rec = out[part] = {"steps": []}
+        start, on_step = step_recorder(rec)
+        n_dp = math.prod(sizes[a] for a in dp_axes_of(sizes))
+        cfg = TrainerConfig(steps=HYBRID_STEPS, lr=3e-4, warmup=1, mode=mode,
+                            codec="int8" if mode == "dfabric" else None)
+        trainer = Trainer(build_model(get_smoke_arch(name),
+                                      ModelSettings(**HYBRID_FIELDS),
+                                      device="cuda", seed=0),
+                          prims.Mesh(sizes),
+                          ShapeConfig("custom", HYBRID_SEQ, HYBRID_ROWS * n_dp,
+                                      "train"), cfg)
+        params, opt, step0 = trainer.init_state()
+        start(trainer)
+        trainer.train(params, opt, step0, on_step=on_step)
+        del trainer, params, opt
+    mesh = prims.Mesh(GSPMD_SIZES)
+    out["d"] = mamba_member_grads(torch, mesh, out_dir)
+    torch.cuda.empty_cache()
+    out["e"] = moe_member(torch, mesh)
+    out["coords"] = mesh.coords
     return out
 
 
@@ -2353,21 +2449,12 @@ def check_mamba_cut(torch, recs, out_dir, card):
         torch.cuda.empty_cache()
 
 
-def hybrid_phase(torch, card):
-    """``[train-tp-hybrid]``: (a)-(c) checked by :func:`check_tp_steps`;
-    (d) by :func:`check_mamba_cut`; (e) the members' dropped slots summed
-    equal to the unsharded layer's on the 2-row batch, the output within
-    1e-5 of its largest value (fp32) and the aux loss within 1e-6."""
-    from repro_torch.launch import train as train_cli
-    out_dir = os.path.join(HERE, "build", "mamba_cut")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(hybrid_rank, TP_RANKS, out_dir, timeout=1200)
-    log(f"[train-tp-hybrid] four ranks, (a)-(e): {time.perf_counter() - t0:.1f} s "
-        f"wall | {card}")
+def hybrid_phase(torch, card, recs, out_dir):
+    """``[train-tp-hybrid]`` (``recs``: each rank's :func:`hybrid_runs`):
+    (a)-(c) checked by :func:`check_tp_steps`; (d) by
+    :func:`check_mamba_cut`; (e) the members' dropped slots summed equal to
+    the unsharded layer's on the 2-row batch, the output within 1e-5 of
+    its largest value (fp32) and the aux loss within 1e-6."""
     for part, (name, sizes, mode) in HYBRID_RUNS.items():
         tag = f"train-tp-hybrid ({part})"
         log(f"[{tag}] {name} smoke with its experts, {mode} on (pod, data, model) = "
@@ -2796,7 +2883,7 @@ CELL_MESH = {"pod": 2, "data": 16, "model": 16}
 CELL_TRAIN_SIZES = {"pod": 2, "data": 1, "model": 1}
 CELL_TRAIN_MICROBATCHES = 2
 CELL_DECODE_STEPS = 16
-CELL_TRAIN_STEPS = 2
+CELL_TRAIN_STEPS = 1
 #: the depth of the fp32 holds of prefill_32k and long_500k (the bf16 runs
 #: are at full depth): at 24 random layers rwkv6's fp32 rounding is
 #: amplified past 1e-3, as in rwkv6's ``[prefill]`` checks, and qwen2's fp32
@@ -3093,74 +3180,68 @@ def cells_long_fp32(torch, arch, st, toks, rows, S, start, card):
     del lk, lp
 
 
-def cells_train_rank(rank, world, init_method, rows, steps, microbatches):
-    """One DP member of qwen2-0.5b's train_4k cell on (2, 1, 1): the cell
-    bound to this rank's mesh (the DFabric step, ZeRO-1, the cell's settings
-    with K1), ``rows`` x 4096 tokens a step from ``Model.synthetic_batch``
-    with a seed a rank, ``steps``
-    steps: each step's launches, loss, time, peak, parameters against
-    member 0's."""
-    import torch
-    import torch.distributed as dist
+def cells_train_run(torch, rank, rows, steps, microbatches):
+    """This rank, one DP member of qwen2-0.5b's train_4k cell on (2, 1, 1):
+    the cell bound to this rank's mesh (the DFabric step, ZeRO-1, the
+    cell's settings with K1), ``rows`` x 4096 tokens a step from
+    ``Model.synthetic_batch`` with a seed a rank, ``steps`` steps: each
+    step's launches, loss, time, peak, parameters against member 0's."""
     from repro_torch.core import prims
     from repro_torch.launch.cells import build_cell
     kernels = kernel_modules()
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=init_method, world_size=world,
-                            rank=rank)
     rec = {"steps": []}
-    try:
-        cell = build_cell("qwen2-0.5b", "train_4k", CELL_TRAIN_SIZES,
-                          attn_impl="kernel", microbatches=microbatches)
-        mesh = prims.Mesh(cell.sizes)
-        bound = cell.bind(mesh, device="cuda", seed=SEED)
-        model = bound.model
-        model.requires_grad_(True)
-        params, state = model.params(), bound.init()
-        share = dataclasses.replace(cell.shape, global_batch=rows)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + rank)
-        per = expected_launches(cell.arch, cell.model.settings)
-        rec.update(expected={k: n * cell.microbatches for k, n in per.items()},
-                   microbatches=cell.microbatches, settings=dataclasses.asdict(
-                       cell.model.settings), sections=len(cell.plan.sections),
-                   mem_after_init_gb=torch.cuda.memory_allocated() / 1e9)
-        torch.cuda.reset_peak_memory_stats()
-        for step in range(steps):
-            batch = model.synthetic_batch(gen, share)
-            torch.cuda.synchronize()
-            for mod in kernels.values():
-                mod.LAUNCHES = 0  # just before the path
-            t0 = time.perf_counter()
-            params, state, metrics = bound.run(params, state, batch, step)
-            loss = float(metrics["loss"])
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
-            rec["steps"].append(dict(step=step, loss=loss, dt=dt, launches=launches,
-                                     params_equal=params_bit_equal(params),
-                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-            del batch
-    finally:
-        dist.destroy_process_group()
+    cell = build_cell("qwen2-0.5b", "train_4k", CELL_TRAIN_SIZES,
+                      attn_impl="kernel", microbatches=microbatches)
+    mesh = prims.Mesh(cell.sizes)
+    bound = cell.bind(mesh, device="cuda", seed=SEED)
+    model = bound.model
+    model.requires_grad_(True)
+    params, state = model.params(), bound.init()
+    share = dataclasses.replace(cell.shape, global_batch=rows)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + rank)
+    per = expected_launches(cell.arch, cell.model.settings)
+    rec.update(expected={k: n * cell.microbatches for k, n in per.items()},
+               microbatches=cell.microbatches, settings=dataclasses.asdict(
+                   cell.model.settings), sections=len(cell.plan.sections),
+               mem_after_init_gb=torch.cuda.memory_allocated() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(steps):
+        batch = model.synthetic_batch(gen, share)
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0  # just before the path
+        t0 = time.perf_counter()
+        params, state, metrics = bound.run(params, state, batch, step)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+        rec["steps"].append(dict(step=step, loss=loss, dt=dt, launches=launches,
+                                 params_equal=params_bit_equal(params),
+                                 peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        del batch
     return rec
 
 
-def cells_train(card, microbatches=CELL_TRAIN_MICROBATCHES):
-    """qwen2-0.5b's train_4k cell: two DP members sharing the card over
-    gloo, each with a member's share of the multi-pod mesh's rows."""
-    from repro_torch.launch import train as train_cli
+def cells_train_rows() -> int:
+    """The rows one DP member holds of qwen2-0.5b's train_4k cell on the
+    multi-pod mesh."""
     from repro_torch.launch.cells import build_cell
-    rows = member_rows(build_cell("qwen2-0.5b", "train_4k", CELL_MESH))
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(cells_train_rank, 2, rows, CELL_TRAIN_STEPS,
-                               microbatches, timeout=900)
+    return member_rows(build_cell("qwen2-0.5b", "train_4k", CELL_MESH))
+
+
+def cells_train(card, recs):
+    """qwen2-0.5b's train_4k cell: two DP members sharing the card over
+    gloo (run in the family spawn, :func:`family_rank`), each with a
+    member's share of the multi-pod mesh's rows."""
+    rows = cells_train_rows()
     r0 = recs[0]
     log(f"[cells] qwen2-0.5b train_4k, two DP members on {CELL_TRAIN_SIZES} over "
         f"gloo, each a member's share of {CELL_MESH} (model axis folded): "
         f"B={rows} S=4096 a rank, the DFabric step (ZeRO-1, codec None, "
         f"{r0['sections']} sections), microbatches {r0['microbatches']}, "
         f"remat {r0['settings']['remat']}, {r0['settings']['param_dtype']}: "
-        f"{time.perf_counter() - t0:.1f} s wall; memory after init "
+        f"{r0['s']:.1f} s on rank 0; memory after init "
         f"{r0['mem_after_init_gb']:.2f} GB a rank | {card}")
     want = dict(r0["expected"], quantize_ef_fwd=0)
     for rank, rec in enumerate(recs):
@@ -3179,17 +3260,18 @@ def cells_train(card, microbatches=CELL_TRAIN_MICROBATCHES):
     return recs
 
 
-def cells_phase(torch, gen, dev, counters, card, phase_done):
+def cells_phase(torch, gen, dev, counters, card, phase_done, train_recs):
     """``[cells]``: (a) the dry-run of the 64 default cells; (b) one DP
-    member's share of four cells on the card."""
+    member's share of four cells on the card (train_4k's two ranks'
+    records ``train_recs``, run by the family spawn)."""
     dryrun_cells(card)
     phase_done("cells: dry-run of 64 cells")
     cells_prefill(torch, gen, dev, counters, card)
     cells_decode(torch, gen, dev, counters, card)
     cells_long(torch, gen, dev, counters, card)
     phase_done("cells: prefill_32k, decode_32k, long_500k")
-    cells_train(card)
-    phase_done("cells: train_4k, 2 ranks")
+    cells_train(card, train_recs)
+    phase_done("cells: train_4k, 2 ranks (run in the family spawn)")
 
 
 # ---------------------------------------------------------------------------
@@ -3539,30 +3621,19 @@ def sm_server(torch, mesh, inputs):
     return rec
 
 
-def serve_mesh_rank(rank, world, init_method, inputs):
-    """One rank of ``[serve-mesh]``: (a)-(e), (a)-(c) on SERVE_MESH_TP, (d)
-    and (e) on SERVE_MESH_FSDP, each run's launches counted in this
-    process."""
-    import torch
-    import torch.distributed as dist
+def serve_mesh_runs(torch, kernels, inputs):
+    """This rank's ``[serve-mesh]`` runs: (a)-(c) on SERVE_MESH_TP, (d) and
+    (e) on SERVE_MESH_FSDP, each run's launches counted in this process."""
     from repro_torch.core import prims
-    kernels = kernel_modules()
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
-    try:
-        tp, fs = prims.Mesh(SERVE_MESH_TP), prims.Mesh(SERVE_MESH_FSDP)
-        rec = {"s": {}}
-        for name, fn, mesh in (("ab", sm_qwen3, tp), ("c", sm_rwkv, tp),
-                               ("d", sm_jamba, fs), ("e", sm_server, fs)):
-            t0 = time.perf_counter()
-            out = (fn(torch, mesh, inputs) if name == "e"
-                   else fn(torch, mesh, kernels, inputs))
-            rec.update(out if name == "ab" else {name: out})
-            rec["s"][name] = time.perf_counter() - t0
-    finally:
-        dist.destroy_process_group()
+    tp, fs = prims.Mesh(SERVE_MESH_TP), prims.Mesh(SERVE_MESH_FSDP)
+    rec = {"s": {}}
+    for name, fn, mesh in (("ab", sm_qwen3, tp), ("c", sm_rwkv, tp),
+                           ("d", sm_jamba, fs), ("e", sm_server, fs)):
+        t0 = time.perf_counter()
+        out = (fn(torch, mesh, inputs) if name == "e"
+               else fn(torch, mesh, kernels, inputs))
+        rec.update(out if name == "ab" else {name: out})
+        rec["s"][name] = time.perf_counter() - t0
     return rec
 
 
@@ -3780,19 +3851,12 @@ def sm_check_server(torch, recs, inputs, card):
         raise AssertionError("[serve-mesh] (e) fp32 tokens differ from the one-member server's")
 
 
-def serve_mesh_phase(torch, card, phase_done):
+def serve_mesh_phase(torch, card, phase_done, recs, inputs):
     """``[serve-mesh]``: the four cells' shares and the DecodeServer over a
-    mesh on 4 ranks sharing the card over gloo (one spawn), each run held
-    against the one-member run on the card; every run's check runs, and
-    the phase fails after them if any failed."""
-    from repro_torch.launch import train as train_cli
-    gc.collect()
-    torch.cuda.empty_cache()
-    inputs = sm_inputs()
-    t0 = time.perf_counter()
-    recs = train_cli.run_ranks(serve_mesh_rank, SERVE_MESH_RANKS, inputs, timeout=900)
-    log(f"[serve-mesh] {SERVE_MESH_RANKS} ranks over gloo on one card: "
-        f"{time.perf_counter() - t0:.1f} s wall; rank 0's seconds by run: "
+    mesh (``recs``: each rank's record, :func:`serve_mesh_runs`), each run
+    held against the one-member run on the card; every run's check runs,
+    and the phase fails after them if any failed."""
+    log(f"[serve-mesh] rank 0's seconds by run: "
         f"{ {k: round(v, 1) for k, v in recs[0]['s'].items()} } | {card}")
     failed = []
     for fn, what in ((sm_check_qwen3, "(a) qwen3 prefill_32k, (b) decode_32k on (1, 4)"),
@@ -3807,6 +3871,402 @@ def serve_mesh_phase(torch, card, phase_done):
         phase_done(f"serve-mesh: {what}")
     if failed:
         raise AssertionError(f"[serve-mesh] failed: {'; '.join(failed)}")
+
+
+# ---------------------------------------------------------------------------
+# [seq-par]: the sequence split, the context-parallel cell, MoE groups
+# ---------------------------------------------------------------------------
+
+#: the training runs' mesh, (pod, data, model) = (1, 2, 2): two DP members
+#: of a model axis of 2, the 4 ranks sharing the card; B=1 S=4096 (the
+#: train_4k cells' length) a DP member, 2 steps
+SEQ_PAR_SIZES = {"pod": 1, "data": 2, "model": 2}
+SEQ_PAR_STEPS, SEQ_PAR_SEQ = 2, 4096
+#: (d) one DP member of CELL_MESH with its model axis cut to the 4 ranks;
+#: (e) 4 DP members of one deepseek MoE layer in 2 dispatch groups
+SEQ_PAR_PREFILL = {"data": 1, "model": 4}
+SEQ_PAR_MOE, SEQ_PAR_MOE_GROUPS = {"data": 4}, 2
+#: the fp32 holds' depth: with and without the sequence split, one step
+#: (a)-(c) or one prefill (d) on the same inputs
+SEQ_PAR_FP32_LAYERS = 4
+#: (a) and (b): {part: (arch, the cell's flag, depth: None for every
+#: layer)}; (b) runs 8 of qwen3's 28 layers (at 28 its two steps and their
+#: checks took 59-83 s of the phase: each step sums and gathers the whole
+#: replicated blocks over gloo)
+SEQ_PAR_TRAIN = {"a": ("qwen2-0.5b", "seq_shard", None),
+                 "b": ("qwen3-1.7b", "context_parallel", 8)}
+
+
+def sp_steps(torch, kernels, mesh, model, run, state, steps, agree=True):
+    """``steps`` steps of ``run(params, state, batch, step)`` (a bound cell
+    or a step factory's) on this DP member's B=1 S=SEQ_PAR_SEQ, drawn from
+    a seed a DP member (the same rows on its model members, and in every
+    call): each step's loss, gradient norm, time, launches (every count
+    set to 0 just before the step), the collectives of the model's
+    TP/FSDP/sequence-split Functions (``prims.TP_CALLS``), whether the
+    blocks two members hold alike agree bit for bit (with ``agree``), and
+    the peak memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.runtime.train_loop import dp_rank
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + dp_rank(mesh))
+    share = ShapeConfig("seq-par", SEQ_PAR_SEQ, 1, "train")
+    model.requires_grad_(True)
+    params, out = model.params(), []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(steps):
+        batch = model.synthetic_batch(gen, share)
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0  # just before the path
+        calls = dict(prims.TP_CALLS)
+        t0 = time.perf_counter()
+        params, state, metrics = run(params, state, batch, step)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+        calls = {k: v - calls[k] for k, v in prims.TP_CALLS.items()}
+        agree, shared = (blocks_agree(params, model.layout, mesh) if agree
+                         else (None, None))
+        out.append(dict(step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
+                        dt=dt, launches=launches, calls=calls, agree=agree,
+                        shared=shared, peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        del batch
+    return out, state
+
+
+def sp_factory(model, mesh, kind):
+    """(step, init) of the step factory ``kind`` uses for ``model`` on
+    ``mesh``: the DFabric step (a), the context-parallel cell's GSPMD step
+    (b), the GSPMD step with FSDP (c)."""
+    from repro_torch.core.topology import topology_from_mesh_sizes
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import (make_dfabric_train_step,
+                                                make_gspmd_train_step,
+                                                make_sync_plan, mesh_info)
+    lr = cosine_schedule(3e-4, 100, 10000)
+    if kind == "a":
+        plan, ss = make_sync_plan(model, mesh.sizes, topology_from_mesh_sizes(mesh.sizes))
+        return make_dfabric_train_step(model, mesh, plan, ss, AdamWConfig(), lr)
+    mi = mesh_info(mesh.sizes, fsdp=kind == "c")
+    if kind == "b":
+        mi.tp_scope = "embed_only"
+    step, init, _ = make_gspmd_train_step(model, mesh, AdamWConfig(), lr,
+                                          fsdp=kind == "c", mi=mi, zero_opt=kind == "b")
+    return step, init
+
+
+def sp_fp32_hold(torch, kernels, mesh, arch, st, kind):
+    """One fp32 step at SEQ_PAR_FP32_LAYERS layers with the sequence split
+    and one without, on the same rows: (the split step's record, [(loss,
+    grad_norm) of each])."""
+    from repro_torch.models import build_model
+    out, first = [], None
+    for split in (True, False):
+        fields = dict(param_dtype="float32", compute_dtype="float32")
+        if not split:
+            fields.update(seq_axis=None, batch_axes=None)
+        model = build_model(arch.replace(n_layers=SEQ_PAR_FP32_LAYERS),
+                            dataclasses.replace(st, **fields), device="cuda", seed=SEED)
+        step, init = sp_factory(model, mesh, kind)
+        # the blocks are compared in the split step (c) records
+        steps, _ = sp_steps(torch, kernels, mesh, model, step, init(), 1,
+                            agree=split and kind == "c")
+        if split:
+            first = steps
+        out.append((steps[0]["loss"], steps[0]["grad_norm"], steps[0]["calls"]))
+        del model, step, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    return first, out
+
+
+def sp_train(torch, kernels, mesh, part):
+    """(a) or (b): the train_4k cell of SEQ_PAR_TRAIN[part] with its flag,
+    at its depth, bound to this rank's mesh (``Cell.bind``), SEQ_PAR_STEPS
+    steps; the context-parallel cell's moments' blocks against its
+    stand-ins' specs (``zero_moment_specs``); then the fp32 hold."""
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models.sharding import local_shape
+    from repro_torch.utils.trees import tree_paths
+    name, flag, depth = SEQ_PAR_TRAIN[part]
+    cell = build_cell(name, "train_4k", SEQ_PAR_SIZES, attn_impl="kernel", **{flag: True})
+    if depth:
+        cell.arch = cell.arch.replace(n_layers=depth)
+    bound = cell.bind(mesh, device="cuda", seed=SEED)
+    state = bound.init()
+    st = cell.model.settings
+    rec = dict(step_kind=cell.step_kind, microbatches=cell.microbatches,
+               settings=dataclasses.asdict(st), n_steps=SEQ_PAR_STEPS,
+               layers=cell.arch.n_layers,
+               expected={k: n * cell.microbatches
+                         for k, n in expected_launches(cell.arch, st).items()},
+               mem_after_init_gb=torch.cuda.memory_allocated() / 1e9)
+    if cell.step_kind == "gspmd_cp":
+        shapes = {k: v.shape for k, v in tree_paths(bound.model.param_shapes()).items()}
+        specs = bound.model.layout.specs
+        want = {k: local_shape(shapes[k], leaf.spec, mesh.sizes)
+                for k, leaf in tree_paths(cell.args[1]["m"]).items()}
+        blocks = {k: local_shape(shapes[k], specs[k], mesh.sizes) for k in shapes}
+        got = {k: tuple(t.shape) for k, t in tree_paths(state["m"]).items()}
+        rec["moments"] = dict(equal=got == want, leaves=len(want), split=sum(
+            math.prod(v) < math.prod(blocks[k]) for k, v in want.items()))
+    rec["steps"], state = sp_steps(torch, kernels, mesh, bound.model, bound.run, state,
+                                   SEQ_PAR_STEPS)
+    del bound, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, rec["fp32"] = sp_fp32_hold(torch, kernels, mesh, cell.arch, st, part)
+    return rec
+
+
+def sp_fsdp(torch, kernels, mesh):
+    """(c) qwen3-1.7b at SEQ_PAR_FP32_LAYERS layers under FSDP over data x
+    TP over model with the nemotron cell's settings (``seq_axis``,
+    ``batch_axes``), the GSPMD step, in fp32: the fp32 hold, whose split
+    step is the run recorded."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import build_cell
+    nemotron = build_cell("nemotron-4-340b", "train_4k", SEQ_PAR_SIZES, seq_shard=True,
+                          attn_impl="kernel").model.settings
+    arch = get_arch("qwen3-1.7b")
+    st = dataclasses.replace(nemotron, param_dtype="float32", compute_dtype="float32")
+    rec = dict(settings=dataclasses.asdict(st), n_steps=1,
+               expected=expected_launches(arch.replace(n_layers=SEQ_PAR_FP32_LAYERS), st))
+    rec["steps"], rec["fp32"] = sp_fp32_hold(torch, kernels, mesh, arch, st, "c")
+    return rec
+
+
+def sp_prefill(torch, kernels, tokens, nosplit):
+    """(d) qwen3-1.7b's prefill_32k cell with ``seq_shard``, one DP member
+    (B=1) on SEQ_PAR_PREFILL: bf16 at every layer, timed once; then fp32
+    at SEQ_PAR_FP32_LAYERS layers, beside ``nosplit``, the same prefill's
+    fp32 logits without the split (``[serve-mesh]`` (a)'s)."""
+    import torch.distributed as dist
+    from repro_torch.core import prims
+    from repro_torch.launch.cells import build_cell
+    mesh = prims.Mesh(SEQ_PAR_PREFILL)
+    cell = build_cell("qwen3-1.7b", "prefill_32k", CELL_MESH, seq_shard=True,
+                      attn_impl="kernel")
+    arch, st = cell.arch, cell.model.settings
+    toks = tokens.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    model = sm_model(torch, mesh, arch, st)
+    rec = dict(settings=dataclasses.asdict(st))
+    with prims.bind(mesh):
+        dist.barrier()
+        t0 = time.perf_counter()
+        (logits, cache), launches = drive_path(
+            kernels, lambda: model.prefill(toks, batch=toks.shape[0]))
+        rec.update(ms=(time.perf_counter() - t0) * 1e3, launches=launches,
+                   shape=tuple(logits.shape), finite=bool(torch.isfinite(logits).all()),
+                   cache_seq=cache["l0"]["k"].shape[2],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = sm_model(torch, mesh, arch.replace(n_layers=SEQ_PAR_FP32_LAYERS),
+                         sm_fp32(st))
+        rec["fp32"] = [model.prefill(toks, batch=toks.shape[0])[0].cpu().numpy(), nosplit]
+        del model
+    return rec
+
+
+def sp_moe(torch):
+    """(e) one deepseek-moe-16b MoE layer in fp32 on SEQ_PAR_MOE_GROUPS
+    dispatch groups of a 4-row global batch (S=2048), whole on this rank
+    (output, aux loss, dropped slots), then this DP member's row routed
+    with the batch's (``token_axes``: each group spans two members)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prims
+    from repro_torch.models import layers as L
+    mesh = prims.Mesh(SEQ_PAR_MOE)
+    arch, dev = get_arch("deepseek-moe-16b"), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(MOE_CUT_SEED)
+    p = L.init_moe(arch, gen, (), torch.float32, dev)
+    # a direction shared by every token skews the routing past the capacity
+    x = (torch.randn((4, S_MAIN, arch.d_model), generator=gen, device=dev)
+         + 0.5 * torch.randn(arch.d_model, generator=gen, device=dev))
+    row, g = mesh.coords["data"], SEQ_PAR_MOE_GROUPS
+    L.DROP_LOG = []
+    try:
+        with torch.no_grad():
+            whole, whole_aux = L.apply_moe(arch, p, x, groups=g)
+            whole_drops = int(L.DROP_LOG.pop().sum())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with prims.bind(mesh):
+                y, aux = L.apply_moe(arch, p, x[row:row + 1], groups=g,
+                                     token_axes=("data",))
+            torch.cuda.synchronize()
+            drops = int(L.DROP_LOG.pop().sum())
+    finally:
+        L.DROP_LOG = None
+    return dict(drops=drops, whole_drops=whole_drops, s=time.perf_counter() - t0,
+                err=(y[0] - whole[row]).abs().max().item(),
+                scale=whole.abs().max().item(), aux=aux.item(),
+                whole_aux=whole_aux.item())
+
+
+def seq_par_runs(torch, kernels, inputs, sm):
+    """This rank's ``[seq-par]`` runs: (a)-(c) on SEQ_PAR_SIZES, (d) on
+    SEQ_PAR_PREFILL on ``[serve-mesh]`` (a)'s tokens (its fp32 logits,
+    ``sm["a"]["fp32"]``, are the prefill without the split on the same
+    mesh and settings), (e) on SEQ_PAR_MOE, each run's launches counted in
+    this process."""
+    from repro_torch.core import prims
+    mesh = prims.Mesh(SEQ_PAR_SIZES)
+    rec = {"s": {}}
+    for part, fn in (("a", lambda: sp_train(torch, kernels, mesh, "a")),
+                     ("b", lambda: sp_train(torch, kernels, mesh, "b")),
+                     ("c", lambda: sp_fsdp(torch, kernels, mesh)),
+                     ("d", lambda: sp_prefill(torch, kernels, inputs["a"],
+                                              sm["a"]["fp32"])),
+                     ("e", lambda: sp_moe(torch))):
+        t0 = time.perf_counter()
+        rec[part] = fn()
+        rec["s"][part] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def sp_check_train(part, recs, card):
+    """(a), (b) or (c): every rank's launches as the code counts them,
+    finite losses the ranks agree on, the blocks two members hold alike
+    bit-equal after every step; the fp32 hold: step 0's loss within 1e-5
+    and its gradient norm within 1e-4 of the step without the split."""
+    tag = f"[seq-par] ({part})"
+    r0 = recs[0]
+    want = dict(r0["expected"], quantize_ef_fwd=0)
+    tokens = 2 * SEQ_PAR_SEQ  # the global batch: B=1 a DP member
+    for rank, rec in enumerate(recs):
+        for st in rec["steps"]:
+            log(f"{tag} rank {rank} step {st['step']}: loss={st['loss']:.6f} "
+                f"grad_norm={st['grad_norm']:.4f} step_s={st['dt']:.3f} "
+                f"tok/s={tokens / st['dt']:.0f} (global batch) launches={st['launches']} "
+                f"(expected {want}) collectives {st['calls']} "
+                f"blocks_bit_equal={st['agree']} ({st['shared']} "
+                f"blocks held by 2+ members) peak_gb={st['peak_gb']:.2f} | {card}")
+            if st["launches"] != want:
+                raise AssertionError(f"{tag} rank {rank} step {st['step']} launched "
+                                     f"{st['launches']}, expected {want}")
+            if not (math.isfinite(st["loss"]) and st["agree"] and st["shared"] > 0):
+                raise AssertionError(f"{tag} rank {rank} step {st['step']}: {st}")
+        if [a["loss"] for a in rec["steps"]] != [a["loss"] for a in r0["steps"]]:
+            raise AssertionError(f"{tag} rank {rank} disagrees on the loss")
+        if len(rec["steps"]) != rec["n_steps"]:
+            raise AssertionError(f"{tag} rank {rank} ran {len(rec['steps'])} steps")
+    if "moments" in r0:
+        for rank, rec in enumerate(recs):
+            m = rec["moments"]
+            log(f"{tag} rank {rank}: the ZeRO moments' blocks as zero_moment_specs "
+                f"cuts them: {m['equal']} ({m['split']} of {m['leaves']} leaves split "
+                f"beyond the parameter's block)")
+            if not (m["equal"] and m["split"] > 0):
+                raise AssertionError(f"{tag} rank {rank}: moments {m}")
+    (loss, gnorm, calls), (loss0, gnorm0, calls0) = r0["fp32"]
+    rel_l, rel_g = abs(loss - loss0) / abs(loss0), abs(gnorm - gnorm0) / abs(gnorm0)
+    log(f"{tag} fp32 at {SEQ_PAR_FP32_LAYERS} layers, step 0 with the sequence split "
+        f"against without it: loss {loss!r} vs {loss0!r} rel {rel_l:.2e} (tol 1e-5); "
+        f"grad_norm {gnorm!r} vs {gnorm0!r} rel {rel_g:.2e} (tol 1e-4); the model's "
+        f"collectives a rank {calls} vs {calls0}")
+    if not calls["reduce_scatter"] > calls0["reduce_scatter"]:
+        raise AssertionError(f"{tag} the split step ran no more reduce-scatters than "
+                             f"the step without it")
+    if any(rec["fp32"] != r0["fp32"] for rec in recs):
+        raise AssertionError(f"{tag} the ranks' fp32 holds differ")
+    if not (rel_l <= 1e-5 and rel_g <= 1e-4):
+        raise AssertionError(f"{tag} the split step is off the step without it")
+
+
+def sp_check_prefill(torch, recs, tokens, card):
+    """(d): K1 in every layer on every rank, the logits (1, vocab) and
+    finite, the cache the whole sequence; fp32 at SEQ_PAR_FP32_LAYERS
+    layers with the split within atol = rtol = 1e-5 of without it."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    qwen3 = get_arch("qwen3-1.7b")
+    d = recs[0]["d"]
+    want = {k: 0 for k in kernel_modules()}
+    want["flash_attention_fwd"] = qwen3.n_layers
+    for rank, rec in enumerate(recs):
+        if rec["d"]["launches"] != want or rec["d"]["shape"] != (1, qwen3.vocab) \
+                or not rec["d"]["finite"] or rec["d"]["cache_seq"] != tokens.shape[1]:
+            raise AssertionError(f"(d) rank {rank}: launches {rec['d']['launches']} "
+                                 f"(expected {want}), logits {rec['d']['shape']}, "
+                                 f"cache rows {rec['d']['cache_seq']}")
+    err = max(float(np.abs(rec["d"]["fp32"][0] - rec["d"]["fp32"][1]).max())
+              for rec in recs)
+    S = tokens.shape[1]
+    log(f"[seq-par] (d) qwen3-1.7b prefill_32k seq_shard, one DP member of "
+        f"{CELL_MESH} cut to {SEQ_PAR_PREFILL}: B=1 S={S} bf16, K1 a rank "
+        f"{d['launches']['flash_attention_fwd']} on the gathered sequence; "
+        f"prefill_ms={d['ms']:.2f} tok/s={S / d['ms'] * 1e3:.0f} peak_gb a rank="
+        f"{[round(r['d']['peak_gb'], 2) for r in recs]}; fp32 logits at "
+        f"{SEQ_PAR_FP32_LAYERS} layers with the split vs without max_abs_diff="
+        f"{err:.3e} (atol=rtol=1e-5) | {card}")
+    for rank, rec in enumerate(recs):
+        torch.testing.assert_close(
+            torch.from_numpy(rec["d"]["fp32"][0]), torch.from_numpy(rec["d"]["fp32"][1]),
+            atol=1e-5, rtol=1e-5, msg=lambda m: f"(d) rank {rank}: {m}")
+
+
+def sp_check_moe(recs, card):
+    """(e): the members' dropped slots summed equal the whole grouped
+    layer's, each member's output within 1e-5 of the whole layer's largest
+    value, the aux loss within 1e-6."""
+    drops = sum(rec["e"]["drops"] for rec in recs)
+    e = recs[0]["e"]
+    log(f"[seq-par] (e) one deepseek-moe-16b MoE layer in fp32, {SEQ_PAR_MOE_GROUPS} "
+        f"dispatch groups of a 4-row global batch (S={S_MAIN}) over {SEQ_PAR_MOE}, "
+        f"each member's row routed with the batch's: dropped slots summed over the "
+        f"members {drops} vs the whole grouped layer's {e['whole_drops']}; output "
+        f"max_abs_err {max(r['e']['err'] for r in recs):.3e} of max|y| "
+        f"{e['scale']:.3f} (tol 1e-5 of it); aux {e['aux']!r} vs {e['whole_aux']!r}; "
+        f"{e['s'] * 1e3:.1f} ms on rank 0 | {card}")
+    if drops != e["whole_drops"] or any(
+            r["e"]["err"] > 1e-5 * r["e"]["scale"] for r in recs):
+        raise AssertionError("(e) the members' layer is off the whole layer's")
+    if any(abs(r["e"]["aux"] - r["e"]["whole_aux"]) > 1e-6 for r in recs):
+        raise AssertionError("(e) the aux loss is off the whole layer's")
+
+
+def seq_par_phase(torch, card, phase_done, recs, inputs):
+    """``[seq-par]``: (a)-(e) (``recs``: each rank's record,
+    :func:`seq_par_runs`); every run's check runs, and the phase fails
+    after them if any failed."""
+    log(f"[seq-par] rank 0's seconds by run: "
+        f"{ {k: round(v, 1) for k, v in recs[0]['s'].items()} } | {card}")
+    tokens = inputs["a"]
+    r0 = recs[0]
+    failed = []
+
+    def held(what, fn):
+        try:
+            fn()
+        except AssertionError as e:
+            log(f"[seq-par] {what} FAILED: {e}")
+            failed.append(what)
+
+    for part, what in (("a", "qwen2-0.5b train_4k seq_shard, DFabric"),
+                       ("b", "qwen3-1.7b train_4k context_parallel"),
+                       ("c", "qwen3-1.7b (4 layers) FSDP x TP with seq_axis")):
+        log(f"[seq-par] ({part}) {what} on {SEQ_PAR_SIZES}, B=1 S={SEQ_PAR_SEQ} a DP "
+            f"member, {r0[part].get('layers', SEQ_PAR_FP32_LAYERS)} layers, "
+            f"{r0[part]['n_steps']} step(s): step kind "
+            f"{r0[part].get('step_kind', 'gspmd')}, settings {r0[part]['settings']}")
+        held(f"({part}) {what}",
+             lambda part=part: sp_check_train(part, [r[part] for r in recs], card))
+    phase_done("seq-par: (a) qwen2 seq_shard, (b) qwen3 context_parallel, (c) FSDP x TP")
+
+    held("(d) qwen3-1.7b prefill_32k seq_shard",
+         lambda: sp_check_prefill(torch, recs, tokens, card))
+    held("(e) deepseek MoE layer, moe_groups", lambda: sp_check_moe(recs, card))
+    phase_done("seq-par: (d) prefill_32k seq_shard, (e) MoE groups")
+    if failed:
+        raise AssertionError(f"[seq-par] failed: {'; '.join(failed)}")
 
 
 def main() -> None:
@@ -3892,10 +4352,25 @@ def main() -> None:
                  ("main-train-gspmd-bf16", 1, qwen3.n_heads // 2,
                   qwen3.n_kv_heads // 2, S_MAIN, qwen3.resolved_head_dim,
                   "bfloat16"),
-                 # [serve-mesh] (a): a model member's 4 query heads of
-                 # qwen3's prefill_32k share, the kv repeated per head
+                 # [serve-mesh] (a) and [seq-par] (d): a model member's 4
+                 # query heads of qwen3's prefill_32k share, the kv
+                 # repeated per head
                  ("main-serve-mesh-prefill", 1, qwen3.n_heads // 4,
-                  qwen3.n_heads // 4, 32768, qwen3.resolved_head_dim, "bfloat16")))
+                  qwen3.n_heads // 4, 32768, qwen3.resolved_head_dim, "bfloat16"),
+                 # [seq-par] (a): a model member's 7 heads of qwen2 on the
+                 # gathered 4096-long sequence, bf16 and the fp32 hold's
+                 *((f"main-seq-par-a-{dt}", 1, qwen.n_heads // 2, qwen.n_kv_heads // 2,
+                    SEQ_PAR_SEQ, qwen.resolved_head_dim, dt)
+                   for dt in ("bfloat16", "float32")),
+                 # (b): every head of qwen3 on the whole gathered sequence
+                 # (the context-parallel cell's blocks are whole)
+                 *((f"main-seq-par-b-{dt}", 1, qwen3.n_heads, qwen3.n_kv_heads,
+                    SEQ_PAR_SEQ, qwen3.resolved_head_dim, dt)
+                   for dt in ("bfloat16", "float32")),
+                 # (c): a model member's 8 heads of qwen3, fp32
+                 ("main-seq-par-c-float32", 1, qwen3.n_heads // 2,
+                  qwen3.n_kv_heads // 2, SEQ_PAR_SEQ, qwen3.resolved_head_dim,
+                  "float32")))
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
@@ -4015,16 +4490,14 @@ def main() -> None:
     phase_done("train3: 8 ranks (2,2,2,1), top-k, mid int8, all-to-all, ring")
 
     # ---- training beyond dense fp32: bf16, experts, RWKV6, Jamba ----------
-    family_phases(torch, gen, dev, card, phase_done)
-
-    # ---- tensor parallelism and the GSPMD step: 4 ranks on the card -------
-    tp_phases(torch, card, recs, phase_done)
+    family = family_phases(torch, gen, dev, card, phase_done)
 
     # ---- the cells: the dry-run, one DP member's share of four cells ------
-    cells_phase(torch, gen, dev, counters, card, phase_done)
+    cells_phase(torch, gen, dev, counters, card, phase_done, family["cells-train"])
 
-    # ---- serving over a mesh: four cells' shares and the DecodeServer -----
-    serve_mesh_phase(torch, card, phase_done)
+    # ---- 4 ranks on the card: tensor parallelism, the GSPMD step, serving --
+    # ---- over a mesh, the sequence split and the context-parallel cell ------
+    four_rank_phases(torch, card, recs, phase_done)
 
     # ---- kernels line, result ----------------------------------------------
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

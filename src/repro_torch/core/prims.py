@@ -297,8 +297,8 @@ def all_gather_stacked(x: torch.Tensor, axis_name: str,
 #
 # What GSPMD inserts for the JAX package's auto-sharded model, written out
 # as autograd Functions over the ops above (the Megatron "f" and "g"
-# operators, and FSDP's gather-on-use).  Each is the identity when the
-# axis has one member.  ``TP_CALLS`` counts the collectives they run, a
+# operators, FSDP's gather-on-use, and the sequence split's scatter and
+# cut).  Each is the identity when the axis has one member.  ``TP_CALLS`` counts the collectives they run, a
 # recomputed layer's again: the sums in the forward and in the backward,
 # the gathers and the reduce-scatters.
 
@@ -352,6 +352,36 @@ class _GatherSliceGrad(torch.autograd.Function):
     def backward(ctx, g):
         start = axis_rank(ctx.axis) * ctx.n
         return g.narrow(ctx.dim, start, ctx.n), None, None
+
+
+class _ScatterGatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        TP_CALLS["reduce_scatter"] += 1
+        return reduce_scatter_tiled(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        TP_CALLS["gather"] += 1
+        return all_gather_tiled(g, ctx.axis, ctx.dim), None, None
+
+
+class _SliceGatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = axis_size(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {n} members of {axis!r}")
+        blk = x.shape[dim] // n
+        return x.narrow(dim, axis_rank(axis) * blk, blk).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        TP_CALLS["gather"] += 1
+        return all_gather_tiled(g, ctx.axis, ctx.dim), None, None
 
 
 class _PsumPsumGrad(torch.autograd.Function):
@@ -417,3 +447,28 @@ def gather_replicated(x: torch.Tensor, axis: Optional[str],
     if axis is None or axis_size(axis) == 1:
         return x
     return _GatherSliceGrad.apply(x, axis, dim)
+
+
+def scatter_sum(x: torch.Tensor, axis: Optional[str], dim: int) -> torch.Tensor:
+    """The sum over ``axis`` of the members' parts, each member keeping its
+    block along ``dim`` (a tiled reduce-scatter): the output of a
+    row-parallel product onto a sequence-split residual stream (the
+    Megatron-SP scatter point).  Each member's loss reads its block only,
+    so the backward gathers the members' block gradients: every part's
+    gradient is the whole of them."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    return _ScatterGatherGrad.apply(x, axis, dim)
+
+
+def split_replicated(x: torch.Tensor, axis: Optional[str],
+                     dim: int) -> torch.Tensor:
+    """This member's block along ``dim`` of a tensor that every member of
+    ``axis`` computed alike (the embedding lookup of whole tables, or the
+    output of a sublayer run whole on the gathered sequence, entering a
+    sequence-split residual stream).  The backward gathers the members'
+    block gradients, so that each member holds the whole gradient of the
+    replicated tensor, as before the split."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    return _SliceGatherGrad.apply(x, axis, dim)

@@ -12,11 +12,18 @@ given the bound mesh of one member, of the cell's sizes, it cuts the model
 for that member (a serving cell too: its prefill and decode then take the
 member's rows and cache blocks).
 
-The sequence-parallel settings (``seq_shard``, ``context_parallel``) and
-MoE dispatch groups under the GSPMD step raise ``NotImplementedError``,
-naming ROADMAP.md queue 1, item 8 (``transformer.check_supported``,
-``build_cell`` itself for the context-parallel cell, and
-``train_loop.check_gspmd``).
+The reference's flags: ``seq_shard`` splits the residual stream's
+sequence over the model axis (``ModelSettings.seq_axis``) in the DFabric
+and GSPMD training steps and in prefill, with ``batch_axes`` the DP axes
+where the batch is global (the GSPMD step, serving); ``context_parallel``
+builds the context-parallel training cell (step kind ``gspmd_cp``): the
+blocks whole on every model member (``tp_scope="embed_only"``), the
+sequence split over it, the fp32 moments split further by
+``train_loop.zero_moment_specs``, the GSPMD step without FSDP;
+``moe_groups`` > 1 gives the MoE layers dispatch groups, under the GSPMD
+step over the global batch (``layers.apply_moe``).  A sequence split of
+other than dense decoder layers raises ``NotImplementedError`` naming
+ROADMAP.md queue 1, item 8 (``transformer.check_supported``).
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ from repro_torch.optim import grad_sync
 from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
 from repro_torch.runtime.train_loop import (check_gspmd, make_dfabric_train_step,
                                             make_gspmd_train_step,
-                                            make_sync_plan, mesh_info)
+                                            make_sync_plan, mesh_info,
+                                            zero_moment_specs)
 from repro_torch.utils.trees import tree_from_paths, tree_paths
 
 # archs whose optimizer state / params cannot be replicated within a pod —
@@ -113,7 +121,7 @@ class Cell:
     sizes: Dict[str, int]
     model: Model  # on the meta device
     mode: str  # train | prefill | decode
-    step_kind: str  # dfabric | gspmd | serve
+    step_kind: str  # dfabric | gspmd | gspmd_cp | serve
     args: Tuple  # trees of StandIn, one per argument of the step
     donate: Tuple[int, ...] = ()
     microbatches: int = 1
@@ -190,7 +198,7 @@ def build_cell(arch_name: str, shape_name: str, sizes: Dict[str, int], *,
         st = dataclasses.replace(st, moe_groups=moe_groups)
     if loss_chunk:
         st = dataclasses.replace(st, loss_chunk=loss_chunk)
-    model = build_model(arch, st, device="meta")  # raises for seq_shard
+    model = build_model(arch, st, device="meta")  # raises where not ported
     fsdp = arch.name in FSDP_ARCHS
     mi = mesh_info(sizes, fsdp=fsdp)
     pshapes = model.param_shapes()
@@ -205,10 +213,20 @@ def build_cell(arch_name: str, shape_name: str, sizes: Dict[str, int], *,
         lr_fn = cosine_schedule(3e-4, 100, 10000)
         if context_parallel:
             # the reference's context-parallel cell: sequence-sharded
-            # activations, blocks replicated over the TP axis, ZeRO moments
-            raise NotImplementedError(
-                "context_parallel: the sequence-parallel settings are not "
-                "ported yet (ROADMAP.md queue 1, item 8)")
+            # activations, blocks replicated over the TP axis, ZeRO moments,
+            # the GSPMD step without FSDP
+            st = dataclasses.replace(st, seq_axis="model", batch_axes=tuple(
+                a for a in ("pod", "data") if a in sizes))
+            model = build_model(arch, st, device="meta")
+            mi_cp = mesh_info(sizes, fsdp=False)
+            mi_cp.tp_scope = "embed_only"
+            pspecs = model.param_specs(mi_cp)
+            mspecs = zero_moment_specs(tree_paths(pshapes), tree_paths(pspecs),
+                                       sizes)
+            return cell("train", "gspmd_cp",
+                        _gspmd_args(model, shape, mi_cp, pspecs, mspecs),
+                        _gspmd_binder(opt_cfg, lr_fn, mb, fsdp=False, mi=mi_cp,
+                                      zero_opt=True), mb=mb)
         if fsdp:
             check_gspmd(arch, st)
             pspecs = model.param_specs(mi)
@@ -283,22 +301,23 @@ def build_cell(arch_name: str, shape_name: str, sizes: Dict[str, int], *,
                 bind_decode, donate=(1,))
 
 
-def _gspmd_args(model: Model, shape: ShapeConfig, mi, pspecs):
+def _gspmd_args(model: Model, shape: ShapeConfig, mi, pspecs, mspecs=None):
     """(params, opt state, batch, step) of a GSPMD cell: fp32 moments laid
-    out as the parameters."""
+    out as the parameters, or by ``mspecs`` ({path: spec}) where given."""
     pshapes = model.param_shapes()
-    ps = tree_paths(pspecs)
-    moments = tree_from_paths({k: StandIn(tuple(v.shape), "float32", tuple(ps[k]))
+    ms = mspecs or tree_paths(pspecs)
+    moments = tree_from_paths({k: StandIn(tuple(v.shape), "float32", tuple(ms[k]))
                                for k, v in tree_paths(pshapes).items()})
     opt = {"m": moments, "v": moments, "step": _scalar()}
     return (_stand_ins(pshapes, pspecs), opt, _batch_args(model, shape, mi),
             _scalar())
 
 
-def _gspmd_binder(opt_cfg, lr_fn, mb):
+def _gspmd_binder(opt_cfg, lr_fn, mb, fsdp=True, mi=None, zero_opt=False):
     def bind(model: Model, mesh: prims.Mesh) -> Bound:
         step, init, _ = make_gspmd_train_step(
-            model, mesh, opt_cfg, lr_fn, fsdp=True, microbatches=mb)
+            model, mesh, opt_cfg, lr_fn, fsdp=fsdp, microbatches=mb, mi=mi,
+            zero_opt=zero_opt)
         return Bound(model, step, init)
     return bind
 

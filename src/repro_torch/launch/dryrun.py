@@ -43,6 +43,21 @@ softmax over the members of that axis (``layers.attend_decode``): one max
 and two sums a layer a step, all-reduces of its (B, H_local) and (B,
 H_local, hd) fp32 values (H_local: the query heads a model member holds).
 
+Under a sequence split (``seq_shard``, ``context_parallel``; training and
+prefill) each sum of a split sublayer becomes a gather of the sequence
+before it and a reduce-scatter after it, and in the backward a
+reduce-scatter and a gather: the bytes of a ring all-reduce of the same
+(b, S, d), as before.  A whole attention sublayer (the context-parallel
+cell's blocks, or heads that do not split) gathers its input, and the
+backward gathers its output's gradient; a vocab-split embedding
+reduce-scatters its lookup and the backward gathers the gradient, a
+whole one's gradient is gathered; the stream is gathered before the final
+norm.  The leaves a member uses on its rows of the sequence only (the
+norms, and a whole MLP) have their gradients summed over the model axis
+once a microbatch.  The GSPMD step with split moments (the
+context-parallel cell's ``zero_opt``) gathers each leaf's updated parts
+over the axes that split them further, once a step.
+
 Usage::
 
     python -m repro_torch.launch.dryrun --arch all --shape all --mesh both --out DIR
@@ -55,7 +70,7 @@ import math
 import os
 import time
 import traceback
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs.base import SHAPES, get_arch, list_archs, shape_applicable
 from repro_torch.core.cost_model import CostModel, dtype_itemsize
@@ -127,8 +142,29 @@ def _tp_split_sublayers(cell: Cell) -> int:
     return n
 
 
+def _sp_whole(cell: Cell) -> Tuple[int, int]:
+    """(whole attention sublayers over every layer, the bytes a member
+    holds of the whole MLPs' and the norms' leaves) of a dense decoder
+    under a sequence split: what every model member runs on the gathered
+    sequence, and the leaves it uses on its own rows only."""
+    specs = tree_paths(cell.args[0])
+    sizes = cell.sizes
+
+    def split(path: str) -> bool:
+        return "model" in entry_axes(specs[path].spec[2])
+
+    base = "blocks/l0"
+    attn = 0 if split(f"{base}/attn/wq") else n_groups(cell.arch)
+    rows_only = [k for k in specs if k.startswith((f"{base}/ln1/", f"{base}/ln2/"))]
+    if not split(f"{base}/mlp/wi"):
+        rows_only += [k for k in specs if k.startswith(f"{base}/mlp/")]
+    return attn, sum(specs[k].member_bytes(sizes) for k in rows_only)
+
+
 def tp_bytes(cell: Cell, rows: int) -> float:
-    """The analytic TP activation sums' wire bytes a member a step."""
+    """The analytic TP activation sums' wire bytes a member a step; under a
+    sequence split (``seq_axis``, training and prefill) its gathers,
+    reduce-scatters and gradient sums."""
     ntp = cell.sizes.get("model", 1)
     if ntp == 1:
         return 0.0
@@ -140,21 +176,47 @@ def tp_bytes(cell: Cell, rows: int) -> float:
     embed = int("model" in entry_axes(specs["embed"].spec[0]))
     head = specs["embed" if arch.tie_embeddings else "lm_head"]
     vocab = int("model" in entry_axes(head.spec[0 if arch.tie_embeddings else 1]))
-    if cell.mode == "train":
-        fwd = 2 if st.remat == "full" else 1
-        sums = layers * (fwd + 1) + embed
-    else:
-        sums = layers + embed
+    train = cell.mode == "train"
+    # the forward passes (a recompute under remat "full") and the backward
+    passes = (3 if st.remat == "full" else 2) if train else 1
     # microbatches split the rows, not the sums' total
-    return sums * _ring(act, ntp, 2.0) + vocab * _ring(3 * rows * S * 4, ntp, 2.0)
+    out = vocab * _ring(3 * rows * S * 4, ntp, 2.0)
+    unit, half = _ring(act, ntp, 2.0), _ring(act, ntp)
+    if st.seq_axis is None or cell.mode == "decode":
+        return out + (layers * passes + embed) * unit
+    # a split sublayer: the gather in and the reduce-scatter out of each
+    # forward, the reduce-scatter and the gather of the backward (the bytes
+    # of a sum each); a whole attention: its gather, the backward's gather
+    # of its output's gradient; the embedding: a vocab-split lookup's
+    # reduce-scatter and the backward's gather, a whole one's gather; the
+    # gather before the final norm; in training the sums of the gradients
+    # of the leaves used on a member's rows, a microbatch
+    whole_attn, rows_only = _sp_whole(cell)
+    out += layers * passes * unit + whole_attn * passes * half + half
+    out += (embed + train) * half
+    if train:
+        out += cell.microbatches * _ring(rows_only, ntp, 2.0)
+    return out
 
 
 def fsdp_bytes(cell: Cell) -> Dict[str, float]:
     """{axis: wire bytes a member} of a GSPMD cell's FSDP gathers and
-    reduce-scatters over ``data`` and its gradient sums over the DP axes a
-    leaf's spec does not name; a serving cell's FSDP gathers."""
+    reduce-scatters over ``data``, its gradient sums over the DP axes a
+    leaf's spec does not name, and where the moments split a leaf further
+    than its block (``zero_moment_specs``) the gathers of the updated
+    parts; a serving cell's FSDP gathers."""
     sizes, out = cell.sizes, {}
     params = tree_paths(cell.args[0])
+    if cell.mode == "train":
+        moments = tree_paths(cell.args[1]["m"])
+        for k, leaf in params.items():
+            size = leaf.member_bytes(sizes)
+            extra = [a for e, p in zip(moments[k].spec, leaf.spec + (None,) * 8)
+                     for a in entry_axes(e) if a not in entry_axes(p)
+                     and sizes.get(a, 1) > 1]
+            for a in extra:  # the parts gathered back, each an axis
+                out[a] = out.get(a, 0.0) + _ring(size, sizes[a])
+                size //= sizes[a]
     uses = 1
     if cell.mode == "train":
         uses = cell.microbatches * (2 if cell.model.settings.remat == "full" else 1)

@@ -84,18 +84,28 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                 vocab_axis: Optional[str] = None) -> torch.Tensor:
+                 vocab_axis: Optional[str] = None,
+                 seq_axis: Optional[str] = None) -> torch.Tensor:
     """``table[tokens]``; with ``vocab_axis`` the table is this member's
     rows of the vocab, the lookup reads only those (the others give
     zeros, and their gradient is zero) and the members' rows are summed:
-    every token's row comes from the one member that holds it."""
+    every token's row comes from the one member that holds it.  With
+    ``seq_axis`` (the same axis as a split vocab) each member keeps its
+    rows of the sequence (dim 1 of ``tokens``): the sum is a
+    reduce-scatter (``prims.scatter_sum``), and a whole table's lookup is
+    cut (``prims.split_replicated``)."""
     if vocab_axis is None or prims.axis_size(vocab_axis) == 1:
-        return table[tokens]
+        return prims.split_replicated(table[tokens], seq_axis, 1)
     n = table.shape[0]
     local = tokens - prims.axis_rank(vocab_axis) * n
     inside = (local >= 0) & (local < n)
     rows = torch.where(inside[..., None], table[local.clamp(0, n - 1)], 0.0)
-    return prims.psum_replicated(rows, vocab_axis)
+    if seq_axis is None:
+        return prims.psum_replicated(rows, vocab_axis)
+    if seq_axis != vocab_axis:
+        raise ValueError(f"the sequence splits over {seq_axis!r}, the vocab "
+                         f"over {vocab_axis!r}: one axis is ported")
+    return prims.scatter_sum(rows, vocab_axis, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -423,12 +433,29 @@ def apply_mlp(arch: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp_tp(arch: ArchConfig, p: Params, x: torch.Tensor,
-                 ff_axis: Optional[str]) -> torch.Tensor:
+                 ff_axis: Optional[str],
+                 seq_axis: Optional[str] = None) -> torch.Tensor:
     """:func:`apply_mlp` on this member's d_ff columns of ``wi``/``wg``
     and rows of ``wo`` (column- then row-parallel), the members' outputs
-    summed over ``ff_axis``; with no axis, the whole MLP."""
-    return prims.psum_replicated(
-        apply_mlp(arch, p, prims.to_parallel(x, ff_axis)), ff_axis)
+    summed over ``ff_axis``; with no axis, the whole MLP.
+
+    With ``seq_axis`` (sequence parallelism; ``x`` holds this member's
+    rows of the sequence, dim 1): a split MLP (``ff_axis`` the same axis)
+    reads the gathered sequence (``gather_on_use``) and its outputs are
+    summed and scattered back (``scatter_sum``); a whole MLP runs on the
+    member's rows alone, each weight entering through ``to_parallel`` so
+    that its gradient sums the members' rows."""
+    if seq_axis is None:
+        return prims.psum_replicated(
+            apply_mlp(arch, p, prims.to_parallel(x, ff_axis)), ff_axis)
+    if ff_axis is None:
+        return apply_mlp(arch, {k: prims.to_parallel(w, seq_axis)
+                                for k, w in p.items()}, x)
+    if ff_axis != seq_axis:
+        raise ValueError(f"the sequence splits over {seq_axis!r}, d_ff over "
+                         f"{ff_axis!r}: one axis is ported")
+    return prims.scatter_sum(
+        apply_mlp(arch, p, prims.gather_on_use(x, seq_axis, 1)), seq_axis, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +584,10 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     ``groups`` > 1 splits the tokens into independent dispatch groups
     (routing, cumsum and capacity per group; the aux loss is the mean of
     the groups'), run as one batched group dim where the JAX package
-    vmaps.
+    vmaps.  The groups are contiguous runs of the batch's token order
+    (``groups`` of them where they divide its count, else one); with
+    ``token_axes`` of the global batch, so a group may hold several
+    members' rows, lie inside one member's, or straddle two members.
 
     ``dispatch_spec``: (dp, tp), the JAX package's placement of the
     dispatched (G, E, C, d) buffers: groups over ``dp``, experts over
@@ -570,13 +600,14 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     ``tp`` the leaves must hold every expert.  ``shared_axis`` names the
     axis that splits the shared experts' d_ff (as a dense MLP's), if any.
 
-    ``token_axes``: DP axes whose members' rows form one batch, routed as
-    one dispatch group (the GSPMD step's: the JAX package's ``jax.jit``
-    sees the global batch there, ``groups`` 1): the capacity is the whole
-    batch's, a slot's place in its expert's slab counts the slots that
-    earlier members (in row order) send to that expert, and the aux loss
-    is the whole batch's (:func:`_moe_dispatch`).  Each member still
-    gathers and computes its own rows' slots only.
+    ``token_axes``: DP axes whose members' rows form one batch, in
+    member order (the GSPMD step's: the JAX package's ``jax.jit`` sees the
+    global batch there), split into its dispatch groups: each group's
+    capacity is the group's, a slot's place in its expert's slab counts
+    the slots that earlier tokens of its group, on this member or earlier
+    ones, send to that expert, and the aux loss is each group's over its
+    tokens (:func:`_moe_dispatch`).  Each member still gathers and
+    computes its own rows' slots only.
 
     ``dispatch_schedule``: the planner's ``kind="all_to_all"`` schedule for
     this layer's dispatch (:func:`moe_dispatch_schedule`).  It is executed:
@@ -601,13 +632,16 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    G = groups if (groups > 1 and T % groups == 0) else 1
     token_axes = tuple(a for a in token_axes if prims.axis_size(a) > 1)
-    if token_axes and (G > 1 or dispatch_schedule is not None):
+    T_all = T * math.prod(prims.axis_size(a) for a in token_axes)
+    G = groups if (groups > 1 and T_all % groups == 0) else 1
+    if token_axes and dispatch_schedule is not None:
         raise NotImplementedError(
-            "dispatch groups or a planned dispatch schedule over the rows of "
-            "several DP members (the GSPMD step) are not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
+            "a planned dispatch schedule over the rows of several DP members "
+            "(the GSPMD step) is not ported yet (ROADMAP.md queue 1, item 8)")
+    # the member's tokens in runs of c that each lie in one group: its
+    # whole groups, or its part of one (c = T / G and T without token_axes)
+    c = math.gcd(T, T_all // G)
     sched_capacity = None
     if dispatch_schedule is not None:
         if dispatch_schedule.kind != "all_to_all":
@@ -647,11 +681,11 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
                     f"elements, this layer dispatches {want} "
                     f"(G={G}, E={moe.num_experts}, C={C}, d={d}, "
                     f"members={n}) — rebuild with moe_dispatch_schedule()")
-    y, aux = _moe_dispatch(arch, p, xt.reshape(G, T // G, d),
+    y, aux = _moe_dispatch(arch, p, xt.reshape(T // c, c, d),
                            capacity=sched_capacity,
                            dispatch_schedule=dispatch_schedule,
                            expert_axis=expert_axis if n_ex > 1 else None,
-                           token_axes=token_axes)
+                           token_axes=token_axes, groups=G)
     y = y.reshape(T, d)
     if moe.num_shared_experts:  # d_ff read from the leaves
         y = y + apply_mlp_tp(arch, p["shared"], xt, shared_axis)
@@ -706,10 +740,10 @@ def _slab_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
 def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
                   capacity: Optional[int] = None, dispatch_schedule=None,
                   expert_axis: Optional[str] = None,
-                  token_axes: Tuple[str, ...] = ()
+                  token_axes: Tuple[str, ...] = (), groups: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k dispatch on grouped (G, Tl, d) token slabs;
-    returns (y (G, Tl, d), aux (G,)).
+    returns (y (G, Tl, d), aux (groups,)).
 
     Every group routes on its own: an fp32 router (x cast up), softmax,
     top-k with ties to the lowest index, gates renormalised over the k and
@@ -738,17 +772,22 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     of every member's experts'; the router and the aux loss, computed
     alike on every member, are not summed.
 
-    With ``token_axes`` (one group, G = 1) the rows of every member of
-    those axes are one batch, in row order (the axes slowest first): C is
-    that batch's capacity; a slot's place in its expert's slab is its
-    place among this member's slots plus the slots earlier members route
-    to that expert (one sum of the (n, E) counts over the axes), and a
-    slot drops at a place >= C; this member's kept slots fill its slab at
-    their places among its own slots, so the slab is C deep still.  The
-    aux loss is E * sum(me * ce) of the batch's means: the members'
-    router sums (whose backward is a sum too, so that each member's
-    router probabilities get the gradient of every member's use of the
-    batch aux) and top-1 counts summed over the axes."""
+    With ``token_axes`` the rows of every member of those axes are one
+    batch, in row order (the axes slowest first), cut into ``groups``
+    contiguous dispatch groups, and the G slabs of ``xg`` are this
+    member's runs of tokens, each inside one group (the batch's chunks
+    ``rank G .. rank G + G - 1``, member-major): C is a group's capacity;
+    a slot's place in its expert's slab is its place among its run's
+    slots plus the slots that the group's earlier runs, here or on
+    earlier members, route to that expert (one sum of the (n, G, E)
+    counts over the axes, then a running sum over the runs of each
+    group), and a slot drops at a place >= C; each run's kept slots fill
+    its slab at their places among its own slots, so the slab is C deep
+    still.  Each group's aux loss is E * sum(me * ce) of that group's
+    means: the runs' router sums summed over the axes (whose backward is
+    a sum too, so that each member's router probabilities get the
+    gradient of every member's use of the group's aux) and their top-1
+    counts likewise.  Without ``token_axes`` the G slabs are the groups."""
     moe = arch.moe
     G, Tl, d = xg.shape
     E, k = moe.num_experts, moe.top_k
@@ -766,27 +805,37 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     n_tok, rank = 1, 0  # members whose rows are one batch; this one's place
     for a in token_axes:
         n_tok, rank = n_tok * prims.axis_size(a), rank * prims.axis_size(a) + prims.axis_rank(a)
+    Q = n_tok * G  # the batch's runs, member-major; each group holds runs_g
+    runs_g = Q // groups if token_axes else 1
+    Tg = Tl * runs_g  # tokens a group
     if token_axes:
-        T_all = Tl * n_tok
-        me = prims.psum_shared(probs.sum(dim=1), token_axes) / T_all  # (G, E)
-        ce = prims.psum(top1.sum(dim=1), token_axes) / T_all
+        gid = (rank * G + torch.arange(G, device=dev)) // runs_g  # each run's group
+
+        def by_group(t):  # (G, E) of the runs -> (groups, E)
+            return t.new_zeros((groups,) + t.shape[1:]).index_add(0, gid, t)
+
+        me = prims.psum_shared(by_group(probs.sum(dim=1)), token_axes) / Tg
+        ce = prims.psum(by_group(top1.sum(dim=1)), token_axes) / Tg
     else:
         me = probs.mean(dim=1)  # (G, E)
         ce = top1.mean(dim=1)
     aux = E * (me * ce).sum(dim=-1)
 
     C = capacity if capacity is not None \
-        else moe_capacity(Tl * n_tok, k, E, moe.capacity_factor)
+        else moe_capacity(Tg, k, E, moe.capacity_factor)
 
     flat_e = topk_idx.reshape(G, Tl * k)
     flat_g = prims.to_parallel(gate_vals.reshape(G, Tl * k), expert_axis)
     tok_id = torch.arange(Tl, device=dev).repeat_interleave(k).expand(G, -1)
     pos = _slab_positions(flat_e, E)  # (G, Tl*k), among this member's slots
     place = pos
-    if token_axes:  # plus the slots of the members before this one
+    if token_axes:  # plus the slots of the group's earlier runs
         counts = torch.zeros((n_tok, G, E), dtype=torch.long, device=dev)
         counts[rank].scatter_add_(1, flat_e, torch.ones_like(flat_e))
-        before = prims.psum(counts, token_axes)[:rank].sum(dim=0)  # (G, E)
+        counts = prims.psum(counts, token_axes).reshape(Q, E)
+        earlier = counts.cumsum(dim=0) - counts  # every earlier run's
+        first = torch.arange(Q, device=dev) // runs_g * runs_g  # its group's
+        before = (earlier - earlier[first])[rank * G:(rank + 1) * G]  # (G, E)
         place = pos + torch.gather(before, 1, flat_e)
     if DROP_LOG is not None:
         DROP_LOG.append((place >= C).sum(dim=1))

@@ -44,6 +44,19 @@ sequence splits over a DP axis (a batch that does not divide the DP
 members) takes decode attention's softmax in two stages over it
 (``layers.attend_decode``).
 
+The sequence split (``ModelSettings.seq_axis``, the reference's
+Megatron-SP constraints; dense decoder layers, in training and prefill):
+between the sublayers each model member holds its rows of the sequence,
+(B, S/n, d).  The embedding is reduce-scattered onto them (or cut, where
+the vocab is whole); each attention and MLP reads the gathered sequence
+and its output is reduce-scattered back (a sublayer run whole on every
+member, as the context-parallel cell's blocks are, gathers its input
+alike and keeps its rows of the output); the norms, and a whole MLP, see
+a member's rows only, so their gradients are summed over the axis; the
+stream is gathered again before the final norm, whose consumer every
+member computes alike (``_sublayer_in``, ``_sublayer_out``, ``_on_rows``,
+``_sp_axis``).
+
 Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
 meet an fp32 compute dtype, promoted as jnp promotes them.  fp32
 parameters with a bf16 compute dtype have no reference (the JAX forward
@@ -98,9 +111,11 @@ class ModelSettings:
     loss_chunk: int = 2048
     # MoE dispatch token groups: routing, cumsum and capacity per group
     moe_groups: int = 1
-    # the JAX package's sequence-parallel settings (the residual stream's
-    # sequence over ``seq_axis``, its batch over ``batch_axes``): not
-    # ported yet, they raise when set
+    # the JAX package's sequence-parallel settings: the residual stream's
+    # sequence split over ``seq_axis`` (the model axis) between the
+    # sublayers of a dense decoder, in training and prefill; ``batch_axes``
+    # names the DP axes its rows split over, which a member's rows already
+    # are (checked against the step: ``_sp_axis``)
     seq_axis: Optional[str] = None
     batch_axes: Optional[Tuple[str, ...]] = None
     # k/v repeated per query head before the attention core (``L.attend``)
@@ -122,10 +137,15 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port does not run yet."""
-    if st.seq_axis is not None or st.batch_axes is not None:
-        raise NotImplementedError(
-            "the sequence-parallel settings (seq_axis, batch_axes) are not "
-            "ported yet (ROADMAP.md queue 1, item 8)")
+    if st.seq_axis is not None:
+        other = ("MoE" if arch.moe is not None else "RWKV6" if arch.attn_free
+                 else "Mamba" if arch.is_hybrid
+                 else "encoder-decoder" if arch.is_encdec else None)
+        if other:
+            raise NotImplementedError(
+                f"sequence parallelism (seq_axis) for {arch.name}: the "
+                f"{other} layers' sequence split is not ported yet, only the "
+                f"dense decoder layers' (ROADMAP.md queue 1, item 8)")
     if st.pdt() != st.cdt() and (st.pdt(), st.cdt()) != (torch.bfloat16,
                                                           torch.float32):
         raise NotImplementedError(
@@ -264,6 +284,41 @@ def _member_heads(p: Params, specs: Optional[Params], parent: str
     return pa, heads, heads is not None and kv is None
 
 
+def _sublayer_in(h: torch.Tensor, split: Optional[str],
+                 sp: Optional[str]) -> torch.Tensor:
+    """The normed stream as a sublayer reads it.  Without a sequence split
+    the replicated stream enters a sublayer split over ``split`` (heads or
+    d_ff) through ``to_parallel``.  Under ``sp`` the member's rows of the
+    sequence are gathered (the Megatron-SP gather point): for a split
+    sublayer, whose members' gradients of the gathered input are partial,
+    by ``gather_on_use`` (a reduce-scatter backward); for a whole one,
+    which every member runs alike, by ``gather_replicated``."""
+    if sp is None:
+        return prims.to_parallel(h, split)
+    return (prims.gather_on_use(h, sp, 1) if split
+            else prims.gather_replicated(h, sp, 1))
+
+
+def _sublayer_out(out: torch.Tensor, split: Optional[str],
+                  sp: Optional[str]) -> torch.Tensor:
+    """A sublayer's output onto the residual stream: the members' partial
+    outputs of a split sublayer summed (``psum_replicated``), under ``sp``
+    summed and scattered onto the members' rows of the sequence
+    (``scatter_sum``, the SP scatter point); a whole sublayer's output,
+    alike on every member, cut to the member's rows (``split_replicated``)."""
+    if sp is None:
+        return prims.psum_replicated(out, split)
+    return (prims.scatter_sum(out, sp, 1) if split
+            else prims.split_replicated(out, sp, 1))
+
+
+def _on_rows(p: Params, sp: Optional[str]) -> Params:
+    """Replicated leaves (the norms) used on the member's rows of the
+    sequence: their gradients are partial, summed over ``sp`` by
+    ``to_parallel``."""
+    return p if sp is None else _tree_map(lambda t: prims.to_parallel(t, sp), p)
+
+
 def _own_kv(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, heads: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole kv heads under a split of the query heads: the kv head of
@@ -360,7 +415,8 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                  cache: Optional[Params] = None, pos: Optional[int] = None,
                  specs: Optional[Params] = None, token_axes: Tuple[str, ...] = (),
                  enc_out: Optional[torch.Tensor] = None,
-                 seq_axis: Optional[str] = None, xseq_axis: Optional[str] = None
+                 seq_axis: Optional[str] = None, xseq_axis: Optional[str] = None,
+                 sp_axis: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Params]:
     """Prefill (``cache`` None) or one decode step at ``pos`` (the new kv,
     or the new recurrent states, are written into ``cache`` in place).
@@ -373,13 +429,18 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
     layer with cross attention reads in prefill and training;
     ``seq_axis``, ``xseq_axis``: the axes that split the decode cache's
     sequence (an attention layer's k/v) and its frames (a cross
-    attention's ``xk``/``xv``), each as its own leaf's spec does, or None."""
+    attention's ``xk``/``xv``), each as its own leaf's spec does, or None;
+    ``sp_axis``: the axis over which ``x`` holds this member's rows of the
+    sequence (a dense layer in training or prefill, ``_sp_axis``): each
+    sublayer reads the gathered sequence and its output is scattered back
+    (``_sublayer_in``, ``_sublayer_out``), the prefill cache holding the
+    whole sequence."""
     kind = layer_kind(arch, layer_id)
     decode = cache is not None
     if kind == "rwkv":
         x, cache = _apply_rwkv_layer(arch, p, x, st, cache, specs)
         return x, None, cache
-    h = L.apply_norm(arch, p["ln1"], x)
+    h = L.apply_norm(arch, _on_rows(p["ln1"], sp_axis), x)
     if kind == "mamba":
         state = cache or {}
         out, (conv, ssm) = SSM.apply_mamba(
@@ -394,7 +455,7 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
     else:
         # this member's heads (all of them when ``heads`` is None)
         pa, heads, whole_kv = _member_heads(p, specs, "attn")
-        q, k, v = L.attention_qkv(arch, pa, prims.to_parallel(h, heads),
+        q, k, v = L.attention_qkv(arch, pa, _sublayer_in(h, heads, sp_axis),
                                   positions)
         if cache is None:
             cache = {"k": k, "v": v}  # whole kv heads stay whole in the cache
@@ -411,14 +472,14 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                 kc, vc = _own_kv_heads(arch, q, kc, vc, heads)
             lens = torch.full((x.shape[0],), pos + 1, device=x.device)
             o = L.attend_decode(q, kc, vc, lens, seq_axis)
-        out = prims.psum_replicated(L.attention_out(pa, o), heads)
+        out = _sublayer_out(L.attention_out(pa, o), heads, sp_axis)
     x = x + out
     if "xattn" in p:
         x, xk, xv = _cross_attention(arch, p, x, enc_out, st,
                                      cache if decode else None, specs, xseq_axis)
         if not decode:
             cache = dict(cache, xk=xk, xv=xv)
-    h = L.apply_norm(arch, p["ln2"], x)
+    h = L.apply_norm(arch, _on_rows(p["ln2"], sp_axis), x)
     aux = None
     if "moe" in p:
         experts = _axis(specs, "moe", "we_in", 0)
@@ -430,7 +491,8 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                                token_axes=token_axes)
         x = x + out
     else:
-        x = x + L.apply_mlp_tp(arch, p["mlp"], h, _axis(specs, "mlp", "wi", 1))
+        x = x + L.apply_mlp_tp(arch, p["mlp"], h, _axis(specs, "mlp", "wi", 1),
+                               seq_axis=sp_axis)
     return x, aux, cache
 
 
@@ -525,15 +587,45 @@ def _positions_table(params: Params, layout=None) -> torch.Tensor:
 
 
 def _embed(params: Params, tokens: torch.Tensor, st: ModelSettings,
-           layout=None) -> torch.Tensor:
+           layout=None, sp: Optional[str] = None) -> torch.Tensor:
     """The tokens' embeddings in the compute dtype: under a layout from
     this member's vocab rows (``L.embed_lookup``), its FSDP blocks
-    gathered."""
+    gathered; under ``sp`` the member's rows of the sequence."""
     if layout is None:
         return params["embed"][tokens].to(st.cdt())
     espec = layout.tree["embed"]
     return L.embed_lookup(_gather_fsdp(params["embed"], espec, layout.fsdp),
-                          tokens, espec[0]).to(st.cdt())
+                          tokens, espec[0], seq_axis=sp).to(st.cdt())
+
+
+def _sp_axis(st: ModelSettings, layout, seq_len: int,
+             row_axes: Tuple[str, ...]) -> Optional[str]:
+    """The axis over which the residual stream holds each member's rows of
+    the sequence: ``st.seq_axis`` where the layout splits it, else None.
+    ``st.batch_axes`` must name DP axes (``pod``, ``host``, ``data``) that
+    are among ``row_axes`` (the axes the caller split the batch's rows
+    over) or have one member here: the reference constrains the batch
+    there, which the rows already are."""
+    if layout is None:
+        return None
+    if st.batch_axes:
+        bad = [a for a in st.batch_axes if a not in prims.MESH_AXES[:-1]
+               or (layout.split(a) and a not in row_axes)]
+        if bad:
+            raise ValueError(
+                f"batch_axes {tuple(st.batch_axes)}: {bad} do not split this "
+                f"step's rows (they split over {tuple(row_axes) or 'no axis'} "
+                f"on {layout.sizes})")
+    axis = st.seq_axis
+    if axis is None or not layout.split(axis):
+        return None
+    if axis != layout.tp:
+        raise ValueError(f"seq_axis {axis!r}: the sequence splits over the "
+                         f"model axis {layout.tp!r} only")
+    if seq_len % layout.sizes[axis]:
+        raise ValueError(f"seq {seq_len} does not split over the "
+                         f"{layout.sizes[axis]} members of {axis!r}")
+    return axis
 
 
 def _layer_params(params: Params, off: int, gi: int, specs, fsdp) -> Params:
@@ -556,9 +648,13 @@ def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     ``layout`` the leaves are this member's blocks, each layer's FSDP
     blocks gathered on use, and the cache holds this member's heads and
     channels (all kv heads where they stay whole); ``token_axes``: the DP
-    axes over which the members' rows (``tokens``) form the batch."""
+    axes over which the members' rows (``tokens``) form the batch.  Under
+    ``st.seq_axis`` (``_sp_axis``) the residual stream holds the member's
+    rows of the sequence between the sublayers, gathered before the final
+    norm; the cache holds the whole sequence."""
     B, Sq = tokens.shape
-    x = _embed(params, tokens, st, layout)
+    sp = _sp_axis(st, layout, Sq, token_axes)
+    x = _embed(params, tokens, st, layout, sp)
     if arch.positional == "learned":
         x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
@@ -572,9 +668,9 @@ def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
             lp = _layer_params(params, off, gi, specs[off], fsdp)
             x, _, c = _apply_layer(arch, lp, x, positions, st, off,
                                    specs=specs[off], token_axes=token_axes,
-                                   enc_out=enc_out)
+                                   enc_out=enc_out, sp_axis=sp)
             per_group.append(c)
-    x = L.apply_norm(arch, params["final_norm"], x)
+    x = L.apply_norm(arch, params["final_norm"], prims.gather_replicated(x, sp, 1))
     return x, {f"l{off}": {name: torch.stack([c[name] for c in cs])
                            for name in cs[0]}
                for off, cs in enumerate(caches)}
@@ -613,8 +709,9 @@ def logits_from_hidden(arch: ArchConfig, params: Params, x: torch.Tensor,
 
 def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port cannot train yet: what it cannot run
-    (``check_supported``: fp32 parameters with a bf16 compute dtype, the
-    sequence-parallel settings), or an unknown remat policy."""
+    (``check_supported``: fp32 parameters with a bf16 compute dtype, a
+    sequence split of other than dense layers), or an unknown remat
+    policy."""
     check_supported(arch, st)
     if st.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {st.remat!r} (none | full | dots)")
@@ -684,14 +781,19 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     scanned group, and each encoder layer).  With a ``layout`` the leaves
     are this member's blocks; each layer's FSDP blocks are gathered inside
     the recomputed function, so that a remat gathers them again in the
-    backward.  An encoder-decoder needs ``frames``."""
+    backward.  An encoder-decoder needs ``frames``.  Under ``st.seq_axis``
+    (``_sp_axis``: the rows split over the layout's loss axes, those of the
+    GSPMD step) the residual stream holds the member's rows of the
+    sequence between the sublayers and is gathered before the final norm,
+    whose consumer, the loss, every member computes alike."""
     check_trainable(arch, st)
     B, Sq = tokens.shape
     fsdp = layout.fsdp if layout is not None else None
     if fsdp is not None:
         check_fsdp(arch)
     token_axes = layout.loss_axes if layout is not None else ()
-    x = _embed(params, tokens, st, layout)
+    sp = _sp_axis(st, layout, Sq, token_axes)
+    x = _embed(params, tokens, st, layout, sp)
     if arch.positional == "learned":
         x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
@@ -708,12 +810,14 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
                 lp_ = _gather_fsdp(lp, specs[off], fsdp)
                 return _apply_layer(arch, lp_, x_, positions, st, off,
                                     specs=specs[off], token_axes=token_axes,
-                                    enc_out=enc_)[:2]
+                                    enc_out=enc_, sp_axis=sp)[:2]
 
             x, a = _remat(st, layer, x, enc_out)
             if a is not None:
                 aux = aux + a
-    return L.apply_norm(arch, params["final_norm"], x), aux  # never split
+    # final_norm is never split; its input is the whole sequence
+    x = prims.gather_replicated(x, sp, 1)
+    return L.apply_norm(arch, params["final_norm"], x), aux
 
 
 def _ce_chunk(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):

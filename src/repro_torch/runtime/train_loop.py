@@ -32,9 +32,14 @@ other buckets) is re-cut leaf by leaf (``grad_sync.resection_state``).
 
 Every decoder family trains under both steps, with or without a model
 axis, and the encoder-decoder (whisper) under the DFabric step, its
-frames cut by DP member as the tokens are.  Not ported yet (they raise,
-naming ROADMAP.md): MoE dispatch groups (``moe_groups`` > 1) and the
-encoder-decoder under the GSPMD step.
+frames cut by DP member as the tokens are; MoE dispatch groups
+(``moe_groups`` > 1) under both.  The dense decoders train with their
+residual stream's sequence split over the model axis
+(``ModelSettings.seq_axis``) in both steps, and in the GSPMD step with
+their blocks whole on every model member (the context-parallel cell:
+``make_gspmd_train_step(mi=...)`` with ``tp_scope="embed_only"``).  Not
+ported yet (it raises, naming ROADMAP.md): the encoder-decoder under the
+GSPMD step.
 """
 from __future__ import annotations
 
@@ -274,27 +279,26 @@ def zero_moment_specs(pshapes, pspecs, sizes: Dict[str, int]):
 
 
 def check_gspmd(arch, st) -> None:
-    """The GSPMD step routes a MoE layer's tokens as one batch over the DP
-    members (``layers.apply_moe``'s ``token_axes``); dispatch groups over
-    that batch are not ported yet, nor the encoder-decoder's FSDP
-    gathers (``transformer.check_fsdp``)."""
+    """What the GSPMD step cannot run yet: the encoder-decoder's FSDP
+    gathers (``transformer.check_fsdp``).  A MoE layer routes the global
+    batch's tokens, in its dispatch groups, over the DP members
+    (``layers.apply_moe``'s ``token_axes``)."""
     check_fsdp(arch)
-    if arch.moe is not None and st.moe_groups > 1:
-        raise NotImplementedError(
-            f"the GSPMD step (mode='gspmd') for {arch.name} with moe_groups "
-            f"{st.moe_groups}: dispatch groups over the rows of several DP "
-            f"members are not ported yet (ROADMAP.md queue 1, item 8)")
 
 
 def make_gspmd_train_step(model: Model, mesh: prims.Mesh,
                           opt_cfg: AdamWConfig, lr_fn: Callable, *,
                           fsdp: bool = True, microbatches: int = 1,
-                          zero_opt: bool = False):
+                          zero_opt: bool = False,
+                          mi: Optional[MeshInfo] = None):
     """Returns (step_fn(params, opt_state, batch, step_idx) -> (params,
     opt_state, metrics), init_opt_fn, moment specs {path: spec}).
 
     The model is cut for FSDP over ``data`` (with ``fsdp``) and TP over
-    ``model``; ``batch`` holds this member's rows (the DP axes
+    ``model``, or by the rules of ``mi`` where given (the reference's
+    argument: the context-parallel cell's ``tp_scope="embed_only"``, whose
+    blocks are whole on every model member while the sequence splits over
+    it, ``ModelSettings.seq_axis``); ``batch`` holds this member's rows (the DP axes
     ``pod``/``host``/``data``, slowest major).  Each member's loss is its
     rows' share of the batch mean (the token count summed over the DP
     axes), so the members' gradients add up to the global batch's: the
@@ -307,7 +311,7 @@ def make_gspmd_train_step(model: Model, mesh: prims.Mesh,
     its block and the parts are gathered)."""
     check_trainable(model.arch, model.settings)
     check_gspmd(model.arch, model.settings)
-    mi = mesh_info(mesh.sizes, fsdp=fsdp)
+    mi = mi or mesh_info(mesh.sizes, fsdp=fsdp)
     dp_axes = dp_axes_of(mesh.sizes)
     model.shard(mi, mesh.sizes, mesh.coords, loss_axes=dp_axes)
     pspecs = dict(model.layout.specs)

@@ -41,8 +41,8 @@ MESHES = {"single": make_production_mesh(multi_pod=False),
 CELLS = [(a, s) for a in list_archs() for s in SHAPES
          if shape_applicable(get_arch(a), SHAPES[s])[0]]
 # (arch, shape, mesh, build_cell's keyword arguments): cells the JAX
-# package builds with the sequence-parallel settings or MoE dispatch
-# groups under its GSPMD step, which the port refuses (item 8)
+# package builds with the sequence-parallel settings, the context-parallel
+# cell and MoE dispatch groups under its GSPMD step (ROADMAP item 8)
 FLAGGED = [("qwen2-0.5b", "train_4k", "test", dict(seq_shard=True)),
            ("qwen3-1.7b", "prefill_32k", "multi", dict(seq_shard=True)),
            ("nemotron-4-340b", "train_4k", "test", dict(seq_shard=True)),
@@ -87,23 +87,28 @@ def path_of(path):
 
 
 out = {"cells": {}, "flagged": {}, "caches": {}, "costs": {}}
+
+
+def record(cell, arch, mesh):
+    leaves = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(cell.args)[0]:
+        shard = leaf.sharding.shard_shape(leaf.shape)
+        leaves.append([path_of(path), list(leaf.shape), str(leaf.dtype),
+                       spec_of(leaf),
+                       math.prod(shard) * np.dtype(leaf.dtype).itemsize])
+    st = cell.model.settings
+    dp_total = mesh_info(mesh, fsdp=arch in FSDP_ARCHS).dp_total
+    return {"mode": cell.mode, "step_kind": cell.step_kind,
+            "donate": list(cell.donate), "leaves": leaves,
+            "settings": {f: getattr(st, f) for f in inp["fields"] if hasattr(st, f)},
+            "microbatches": cell_microbatches(get_arch(arch), cell.shape, dp_total)}
+
+
 for mname, mesh in meshes.items():
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     for arch, shape in inp["cells"]:
         cell = build_cell(arch, shape, mesh)
-        leaves = []
-        for path, leaf in jax.tree_util.tree_flatten_with_path(cell.args)[0]:
-            shard = leaf.sharding.shard_shape(leaf.shape)
-            leaves.append([path_of(path), list(leaf.shape), str(leaf.dtype),
-                           spec_of(leaf),
-                           math.prod(shard) * np.dtype(leaf.dtype).itemsize])
-        st = cell.model.settings
-        dp_total = mesh_info(mesh, fsdp=arch in FSDP_ARCHS).dp_total
-        out["cells"][f"{mname}|{arch}|{shape}"] = {
-            "mode": cell.mode, "step_kind": cell.step_kind,
-            "donate": list(cell.donate), "leaves": leaves,
-            "settings": {f: getattr(st, f) for f in inp["fields"] if hasattr(st, f)},
-            "microbatches": cell_microbatches(get_arch(arch), cell.shape, dp_total)}
+        out["cells"][f"{mname}|{arch}|{shape}"] = record(cell, arch, mesh)
         if mname == "multi" and [arch, shape] in inp["costs"]:
             mc = model_cost(cell.model, cell.shape, cell.mode,
                             n_chips=int(mesh.devices.size))
@@ -113,7 +118,8 @@ for mname, mesh in meshes.items():
                                           "active_params")}
 for arch, shape, mname, kw in inp["flagged"]:
     cell = build_cell(arch, shape, meshes[mname], **kw)
-    out["flagged"][f"{mname}|{arch}|{shape}|{json.dumps(kw)}"] = cell.step_kind
+    out["flagged"][f"{mname}|{arch}|{shape}|{json.dumps(kw)}"] = record(
+        cell, arch, meshes[mname])
 for mname in ("multi", "test"):
     mesh = meshes[mname]
     mi = mesh_info(mesh)
@@ -300,6 +306,62 @@ def test_collective_bytes_of_a_dense_dfabric_cell_by_hand():
         assert got[axis] == pytest.approx(want[axis], rel=1e-12), axis
 
 
+def test_collective_bytes_of_a_sequence_split_cell_by_hand():
+    """qwen2-0.5b train_4k with ``seq_shard`` on (2, 16, 16), counted by
+    hand: the sync's bytes are the plain cell's; over model, the split
+    MLP's sums become a gather and a reduce-scatter a forward (and in the
+    recompute) and a reduce-scatter and a gather in the backward, the
+    bytes of the all-reduces they replace; the whole attention (14 heads)
+    gathers its input in the forward and the recompute, and the backward
+    gathers its output's gradient, (15 / 16) of the (8, 4096, 896) bf16
+    activations each; the embedding's reduce-scatter and the backward's
+    gather; the gather before the final norm; and ln1's and ln2's
+    gradients summed over model, which a member computes on its rows."""
+    a = get_arch("qwen2-0.5b")
+    d, L = a.d_model, a.n_layers
+    rows = SHAPES["train_4k"].global_batch // 32
+    act = rows * 4096 * d * 2
+    unit, half = _ring(act, 16, 2.0), _ring(act, 16)
+    want_model = (L * 3 * unit + L * 3 * half + half + 2 * half
+                  + _ring(2 * L * d * 2, 16, 2.0)
+                  + _ring(3 * rows * 4096 * 4, 16, 2.0))
+    plain = dryrun.run_cell("qwen2-0.5b", "train_4k", multi_pod=True)
+    rec = dryrun.run_cell("qwen2-0.5b", "train_4k", multi_pod=True, seq_shard=True)
+    got, base = (r["collectives"]["bytes_per_member"] for r in (rec, plain))
+    assert rec["step_kind"] == "dfabric" and got.keys() == base.keys()
+    for axis in ("data", "pod"):
+        assert got[axis] == base[axis]
+    assert got["model"] == pytest.approx(want_model, rel=1e-12)
+
+
+def test_collective_bytes_of_the_context_parallel_cell_by_hand():
+    """qwen2-0.5b train_4k's context-parallel cell on (2, 16, 16), its
+    model axis counted by hand: the blocks whole on every model member, so
+    each attention gathers its input in the forward and the recompute and
+    the backward gathers its output's gradient; the embedding's
+    reduce-scatter and gather, the gather before the final norm; the
+    gradients of the leaves used on a member's rows (ln1, ln2 and the
+    MLP) summed over model.  The pod tier sums every leaf's block (bf16)
+    over the two pods."""
+    a = get_arch("qwen2-0.5b")
+    hd, d, f, L, V = a.resolved_head_dim, a.d_model, a.d_ff, a.n_layers, a.vocab
+    rows = SHAPES["train_4k"].global_batch // 32
+    half = _ring(rows * 4096 * d * 2, 16)
+    want_model = (L * 3 * half + half + 2 * half
+                  + _ring(2 * L * (2 * d + 3 * d * f), 16, 2.0)
+                  + _ring(3 * rows * 4096 * 4, 16, 2.0))
+    attn = (d * a.n_heads * hd + a.n_heads * hd * d
+            + 2 * d * a.n_kv_heads * hd + (a.n_heads + 2 * a.n_kv_heads) * hd)
+    X = 2 * (L * (attn + 2 * d + 3 * d * f) + d + V * d // 16)
+    rec = dryrun.run_cell("qwen2-0.5b", "train_4k", multi_pod=True,
+                          context_parallel=True)
+    got = rec["collectives"]["bytes_per_member"]
+    assert rec["step_kind"] == "gspmd_cp" and rec["microbatches_used"] == 1
+    assert got["model"] == pytest.approx(want_model, rel=1e-12)
+    assert got["pod"] == pytest.approx(_ring(X, 2, 2.0), rel=1e-12)
+    assert got["data"] > _ring(X, 16, 2.0)  # and the moments' parts gathered
+
+
 def test_collective_bytes_of_an_fsdp_cell_by_hand():
     """nemotron-4-340b train_4k on (data, model) = (16, 16), the GSPMD step
     in 8 microbatches, counted by hand from the config.  FSDP splits every
@@ -377,14 +439,37 @@ def test_collective_bytes_of_a_sequence_split_decode_cell_by_hand():
 @pytest.mark.parametrize("arch,shape,mname,kw", FLAGGED,
                          ids=[f"{a}-{s}-{m}-{next(iter(k))}" for a, s, m, k in FLAGGED])
 def test_flags_of_item_8_raise(ref, arch, shape, mname, kw):
-    """Where the JAX package builds the cell, the port raises naming
-    ROADMAP.md queue 1, item 8; the dry-run records the refusal."""
-    assert ref["flagged"][f"{mname}|{arch}|{shape}|{json.dumps(kw)}"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        build_cell(arch, shape, MESHES[mname], **kw)
-    if mname == "multi":
-        rec = dryrun.run_cell(arch, shape, multi_pod=True, **kw)
-        assert not rec["ok"] and "item 8" in rec["error"]
+    """(The name is the refusal's, which these cells were until the
+    sequence split, the context-parallel cell and MoE dispatch groups under
+    the GSPMD step were ported.)  The port builds each cell the JAX package
+    builds with these flags (on its mesh): mode, step kind, every stand-in's path,
+    global shape, dtype and spec (the context-parallel cell's fp32 moments
+    under ``zero_moment_specs`` included), the bytes of one member's block
+    of each, the settings (``seq_axis``, ``batch_axes``, ``moe_groups``)
+    and the microbatches equal the reference's; the dry-run records the
+    same flags' cell on the production mesh (the single-pod one for a test
+    mesh's cell) ``ok``, with the model axis's traffic among its
+    collectives."""
+    want = ref["flagged"][f"{mname}|{arch}|{shape}|{json.dumps(kw)}"]
+    cell = build_cell(arch, shape, MESHES[mname], **kw)
+    assert (cell.mode, cell.step_kind, list(cell.donate)) == (
+        want["mode"], want["step_kind"], want["donate"])
+    assert _port_leaves(cell) == sorted(want["leaves"])
+    st = cell.model.settings
+    assert {f: getattr(st, f) for f in want["settings"]} == {
+        f: tuple(v) if isinstance(v, list) else v
+        for f, v in want["settings"].items()}
+    assert cell.microbatches == want["microbatches"]
+    if "context_parallel" in kw:
+        assert cell.step_kind == "gspmd_cp"
+        moments = tree_paths(cell.args[1]["m"])
+        assert any(m.spec != tree_paths(cell.args[0])[k].spec
+                   for k, m in moments.items())
+    # on its production mesh, or the single-pod one for a test-mesh cell
+    rec = dryrun.run_cell(arch, shape, multi_pod=mname == "multi", **kw)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["step_kind"] == want["step_kind"]
+    assert rec["collectives"]["bytes_per_member"]["model"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -93,8 +93,8 @@ def test_jamba_with_experts_raises():
     it to JAX) and trained (tests/test_torch_train_families.py): MoE on
     the odd offsets of its 8-layer group, and a finite loss with a
     gradient for every leaf.  Training it raises only where nothing is
-    ported: MoE dispatch groups under the GSPMD step (a model axis and
-    the GSPMD step are ported)."""
+    ported: a sequence split of its layers (a model axis, the GSPMD step
+    and MoE dispatch groups under it are ported)."""
     import dataclasses
     from repro_torch.models.transformer import check_trainable
     from repro_torch.runtime.train_loop import check_gspmd
@@ -111,8 +111,10 @@ def test_jamba_with_experts_raises():
     grads = torch.autograd.grad(loss, leaves)
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     check_gspmd(model.arch, model.settings)
+    check_gspmd(model.arch, dataclasses.replace(model.settings, moe_groups=2))
     with pytest.raises(NotImplementedError, match="not ported"):
-        check_gspmd(model.arch, dataclasses.replace(model.settings, moe_groups=2))
+        check_trainable(model.arch, dataclasses.replace(model.settings,
+                                                        seq_axis="model"))
 
 
 def test_full_width_param_count():

@@ -1079,3 +1079,94 @@ def test_split_decode_attention_matches_the_whole_on_card(cuda_device, tmp_path,
                 p.kill()
     for rank, (err, scale, finite) in out.items():
         assert finite and err <= 1e-6 * max(scale, 1.0), (rank, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd", [(7, 1, 64), (16, 8, 128)])
+def test_kernel_on_the_gathered_sequence_on_card(cuda_device, H, KV, hd):
+    """K1 at ``chip_smoke.py`` ``[seq-par]``'s shapes, S=4096 gathered
+    from the members' rows: (a) a model member's 7 of qwen2-0.5b's heads
+    and its kv head, (b) every head of qwen3-1.7b (the context-parallel
+    cell's whole blocks), bf16 in the model's layout, against the plain
+    version at the bf16 tolerance."""
+    from repro_torch.models import layers as L
+    B, S = 1, 4096
+    q = _randn(50, B, S, H, hd, dtype=torch.bfloat16, device=cuda_device)
+    k = _randn(51, B, S, KV, hd, dtype=torch.bfloat16, device=cuda_device)
+    v = _randn(52, B, S, KV, hd, dtype=torch.bfloat16, device=cuda_device)
+    before = kernel.LAUNCHES
+    out = L.attend(q, k, v, causal=True, impl="kernel")
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    G = H // KV
+    exp = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True).transpose(1, 2)
+    assert exp.shape == (B, S, H, hd) and G * KV == H
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
+
+
+def _seq_split_rank(rank, store, queue):
+    """One of two ranks sharing the card over gloo, the members of a
+    ``model`` axis: ``prims.scatter_sum`` and ``prims.split_replicated``
+    on CUDA tensors along the sequence dim, forward and backward, against
+    the whole tensors computed on this rank."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.core import prims
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=2, rank=rank)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        # both members' parts and the gradients of their rows, drawn alike
+        parts = torch.randn((2, 2, 512, 64), generator=gen, device=dev)
+        grads = torch.randn((2, 2, 256, 64), generator=gen, device=dev)
+        out = {}
+        with prims.bind(prims.Mesh({"model": 2})):
+            x = parts[rank].clone().requires_grad_(True)
+            y = prims.scatter_sum(x, "model", 1)
+            (g,) = torch.autograd.grad(y, x, grads[rank])
+            out["scatter"] = (y - parts.sum(0)[:, rank * 256:(rank + 1) * 256]).abs().max().item()
+            out["scatter_grad"] = (g - torch.cat([grads[0], grads[1]], 1)).abs().max().item()
+            x = parts[0].clone().requires_grad_(True)  # alike on both
+            y = prims.split_replicated(x, "model", 1)
+            (g,) = torch.autograd.grad(y, x, grads[rank])
+            out["split"] = (y - parts[0][:, rank * 256:(rank + 1) * 256]).abs().max().item()
+            out["split_grad"] = (g - torch.cat([grads[0], grads[1]], 1)).abs().max().item()
+            out["device"] = (y.device.type, g.device.type)
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+@pytest.mark.cuda
+def test_sequence_split_functions_on_card(cuda_device, tmp_path):
+    """The sequence split's autograd Functions on two ranks sharing the
+    card over gloo, CUDA tensors: ``scatter_sum`` keeps each member's rows
+    of the members' sum and gathers the rows' gradients in the backward;
+    ``split_replicated`` keeps the member's rows of a tensor both hold
+    alike and gathers likewise.  fp32 sums of two terms: within 1e-6."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_seq_split_rank,
+                         args=(r, str(tmp_path / "store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(2):
+            rank, res, err = queue.get(timeout=300)
+            assert err is None, err
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    for rank, res in out.items():
+        assert res.pop("device") == ("cuda", "cuda"), rank
+        assert all(v <= 1e-6 for v in res.values()), (rank, res)

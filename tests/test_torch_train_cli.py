@@ -4,6 +4,7 @@ axis and in the GSPMD step, its mesh rules (the JAX CLI's), and what it
 refuses."""
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -115,17 +116,40 @@ def test_cli_trains_tp_and_gspmd_on_cpu(tmp_path, mode, arch, mesh):
     # MoE dispatch groups over the GSPMD step's whole batch
     (dict(mode="gspmd"), {"pod": 2, "data": 1, "model": 1}, "deepseek-moe-16b",
      dict(moe_groups=2)),
-    # the sequence-parallel settings
+    # a sequence split of RWKV6 layers
     (dict(), {"pod": 1, "data": 2, "model": 2}, "rwkv6-1.6b", dict(seq_axis="model")),
-    # refused before the checkpoint manager makes or sweeps its directory
-    (dict(mode="gspmd", ckpt_every=2, ckpt_dir="/nonexistent"),
+    # with checkpoints (the directory: tmp_path's)
+    (dict(mode="gspmd", ckpt_every=2, ckpt_dir="ckpt"),
      {"pod": 1, "data": 2, "model": 2}, "jamba-1.5-large-398b", dict(moe_groups=2)),
 ])
-def test_trainer_refuses_what_is_not_ported(cfg, sizes, arch, settings):
-    st = ModelSettings(param_dtype="float32", compute_dtype="float32")
-    model = build_model(get_smoke_arch(arch), st, device="meta")
-    # settings the build itself would refuse, set after it
-    model.settings = dataclasses.replace(st, **settings)
-    mesh = types.SimpleNamespace(sizes=sizes)  # refused before any collective
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        Trainer(model, mesh, ShapeConfig("t", 32, 8, "train"), TrainerConfig(**cfg))
+def test_trainer_refuses_what_is_not_ported(tmp_path, cfg, sizes, arch, settings):
+    """(The name is the refusals', of which the RWKV6 sequence split is
+    left.)  MoE dispatch groups under the GSPMD step train: the
+    ``Trainer`` of deepseek's smoke on (2, 1, 1) and of jamba's with its
+    experts on (1, 2, 2), checkpointed at step 2, gives finite losses, the
+    same on every member (tests/test_torch_seq_parallel.py holds them to
+    the JAX ``Trainer``).  A sequence split of RWKV6 layers is refused
+    before any collective, naming ROADMAP.md queue 1, item 8."""
+    from torch_harness import rank_tp_trainer, spawn_ranks
+    if "seq_axis" in settings:
+        st = ModelSettings(param_dtype="float32", compute_dtype="float32")
+        model = build_model(get_smoke_arch(arch), st, device="meta")
+        # settings the build itself would refuse, set after it
+        model.settings = dataclasses.replace(st, **settings)
+        mesh = types.SimpleNamespace(sizes=sizes)  # refused before any collective
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
+            Trainer(model, mesh, ShapeConfig("t", 32, 8, "train"),
+                    TrainerConfig(**cfg))
+        return
+    if "ckpt_dir" in cfg:
+        cfg = dict(cfg, ckpt_dir=str(tmp_path / cfg["ckpt_dir"]))
+    run = dict(arch=arch, sizes=sizes, cfg=cfg, settings=settings,
+               train=dict(steps=2))
+    recs = [r[0] for r in spawn_ranks(math.prod(sizes.values()), rank_tp_trainer,
+                                      dict(weights={}, runs=[run]))]
+    losses = recs[0]["losses"]
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+    assert all(r["losses"] == losses for r in recs)
+    if "ckpt_dir" in cfg:
+        from repro_torch.checkpoint import CheckpointManager
+        assert CheckpointManager(cfg["ckpt_dir"], read_only=True).latest_step() == 2

@@ -87,10 +87,12 @@ def test_untrainable_raise():
     """What the port trains: every family, remat none/full/dots, tri
     attention, fp32/fp32, bf16/bf16 and bf16/fp32, under a model axis or
     not, in the GSPMD step too but for the encoder-decoder, with k/v
-    repeated per query head (``gqa_repeat``) or not.  What still
-    raises, naming ROADMAP.md: the encoder-decoder, the sequence-parallel
-    settings and MoE dispatch groups under the GSPMD step (item 8), and
-    fp32 parameters with a bf16 compute dtype (no reference)."""
+    repeated per query head (``gqa_repeat``) or not, MoE dispatch groups
+    under the GSPMD step, the dense decoders with their sequence split
+    (``seq_axis``, ``batch_axes``).  What still raises, naming ROADMAP.md:
+    the encoder-decoder under the GSPMD step and a sequence split of
+    other than dense layers (item 8), and fp32 parameters with a bf16
+    compute dtype (no reference)."""
     from repro_torch.configs.base import EncoderConfig
     from repro_torch.runtime.train_loop import check_gspmd
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
@@ -110,14 +112,16 @@ def test_untrainable_raise():
     for name in (ARCH, "rwkv6-1.6b", "jamba-1.5-large-398b", "deepseek-moe-16b"):
         check_gspmd(get_smoke_arch(name), st)
     for name in ("jamba-1.5-large-398b", "deepseek-moe-16b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 8"):
-            check_gspmd(get_smoke_arch(name), dataclasses.replace(st, moe_groups=2))
+        check_gspmd(get_smoke_arch(name), dataclasses.replace(st, moe_groups=2))
     check_trainable(get_arch(ARCH), dataclasses.replace(st, gqa_repeat=True))
     for sp in (dict(seq_axis="model"), dict(batch_axes=("data",))):
+        check_trainable(get_arch(ARCH), dataclasses.replace(st, **sp))
+    for name in ("deepseek-moe-16b", "rwkv6-1.6b", "jamba-1.5-large-398b",
+                 "whisper-medium"):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue 1, item 8"):
-            check_trainable(get_arch(ARCH), dataclasses.replace(st, **sp))
+            check_trainable(get_smoke_arch(name),
+                            dataclasses.replace(st, seq_axis="model"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_trainable(get_arch(ARCH), dataclasses.replace(
             st, compute_dtype="bfloat16"))

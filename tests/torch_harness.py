@@ -1031,12 +1031,15 @@ def rank_second_cut(rank, payload):
 
 def tp_grads(rank, payload):
     """The port's loss and gradients on this rank with the model cut for
-    the mesh ``payload["sizes"]`` (TP over ``model``; FSDP over ``data``
-    when ``payload["fsdp"]``, the loss then the batch mean summed over the
-    DP members), from ``payload["weights"]`` of ``payload["arch"]``'s
-    smoke config, on this member's rows of ``payload["batch"]``.  Returns
-    (the loss, summed over the DP axes under FSDP; {path: this member's
-    gradient block, summed over the DP axes its spec does not name}; the
+    the mesh ``payload["sizes"]`` (TP over ``model``, or with
+    ``payload["tp_scope"]`` "embed_only" the embedding and head only;
+    FSDP over ``data`` when ``payload["fsdp"]``; with that or
+    ``payload["gspmd"]`` the loss the batch mean summed over the DP
+    members), from ``payload["weights"]`` of ``payload["arch"]``'s smoke
+    config and ``payload["settings"]`` (``ModelSettings`` fields), on this
+    member's rows of ``payload["batch"]``.  Returns (the loss, summed over
+    the DP axes in the GSPMD case; {path: this member's gradient block,
+    there summed over the DP axes its spec does not name}; the
     coords; the layout's specs; the (token, k) slots each MoE layer of the
     forward dropped on this member, a list)."""
     from repro_torch.configs import get_smoke_arch
@@ -1050,11 +1053,14 @@ def tp_grads(rank, payload):
     torch.manual_seed(0)
     st = ModelSettings(param_dtype="float32", compute_dtype="float32",
                        remat=payload.get("remat", "none"),
-                       loss_chunk=payload.get("loss_chunk", 2048), max_seq=MAX_SEQ)
+                       loss_chunk=payload.get("loss_chunk", 2048), max_seq=MAX_SEQ,
+                       **payload.get("settings", {}))
     model = build_model(get_smoke_arch(payload["arch"]), st, device="cpu")
     dp = dp_axes_of(sizes)
-    model.shard(mesh_info(sizes, fsdp=fsdp), sizes, mesh.coords,
-                loss_axes=dp if fsdp else ())
+    mi = mesh_info(sizes, fsdp=fsdp)
+    mi.tp_scope = payload.get("tp_scope", "full")
+    gspmd = fsdp or payload.get("gspmd", False)  # the loss: the batch mean
+    model.shard(mi, sizes, mesh.coords, loss_axes=dp if gspmd else ())
     load_jax_params(model, payload["weights"])
     batch = {k: torch.from_numpy(v)
              for k, v in local_rows(payload["batch"], mesh).items()}
@@ -1069,7 +1075,7 @@ def tp_grads(rank, payload):
         L.DROP_LOG = None
         grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
         specs = model.layout.specs
-        if fsdp:
+        if gspmd:
             loss = prims.psum(loss.detach(), dp)
             grads = {k: prims.psum(g, tuple(a for a in dp
                                             if a not in spec_axes(specs[k])))
@@ -1207,10 +1213,10 @@ def rank_tp_trainer(rank, payload):
     """A sequence of the port's ``Trainer`` runs on this rank
     (``payload["runs"]``: each {arch, sizes, cfg: TrainerConfig fields
     beside ``TRAIN``, optionally train: fields of ``TRAIN`` to override,
-    copy_to: a dir, or a list of them, member 0 copies the checkpoint dir
-    to after the run}),
+    settings: ``ModelSettings`` fields, copy_to: a dir, or a list of them,
+    member 0 copies the checkpoint dir to after the run}),
     each on a new model of its arch's smoke config (experts included)
-    loaded from ``payload["weights"][arch]`` (a run with ``ckpt_dir``
+    loaded from ``payload["weights"][arch]`` where given (a run with ``ckpt_dir``
     restores the newest checkpoint there first).  Every mesh has the
     world's ranks.  Returns one record a run: losses, this member's
     parameter blocks, its optimizer-state blocks (flat), its coords, the
@@ -1226,9 +1232,11 @@ def rank_tp_trainer(rank, payload):
         sizes = run["sizes"]
         st = ModelSettings(param_dtype="float32", compute_dtype="float32",
                            remat=run.get("remat", "none"),
-                           loss_chunk=TRAIN_LOSS_CHUNK, max_seq=MAX_SEQ)
+                           loss_chunk=TRAIN_LOSS_CHUNK, max_seq=MAX_SEQ,
+                           **run.get("settings", {}))
         model = build_model(get_smoke_arch(run["arch"]), st, device="cpu")
-        load_jax_params(model, payload["weights"][run["arch"]])
+        if run["arch"] in payload["weights"]:  # else the model's own draw
+            load_jax_params(model, payload["weights"][run["arch"]])
         shape = ShapeConfig("t", TRAIN_SHAPE["seq_len"],
                             TRAIN_SHAPE["global_batch"], "train")
         mesh = prims.Mesh(sizes)
@@ -1468,6 +1476,112 @@ def rank_gspmd_zero_opt(rank, payload):
                     for k, v in tree_paths(params).items()})
     return out[0], out[1], {k: tuple(v.shape)
                             for k, v in tree_paths(opt["m"]).items()}
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism, the context-parallel step and MoE dispatch groups
+# (test_torch_seq_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: the context-parallel step's steps, and its schedule's (both packages)
+CP_STEPS = 2
+
+
+def rank_seq_parallel(rank, payload):
+    """Each case of ``payload["cases"]`` on this rank, in order, by its
+    ``kind``: "grads" (:func:`tp_grads`), "trainer" (one run of
+    :func:`rank_tp_trainer`), "cp" (:func:`cp_steps`) or "prefill"
+    (:func:`sp_prefill`); ``payload["weights"]``: {arch: flat JAX tree}."""
+    out = []
+    for case in payload["cases"]:
+        kind = case["kind"]
+        if kind == "grads":
+            out.append(tp_grads(rank, case))
+        elif kind == "trainer":
+            out.append(rank_tp_trainer(rank, dict(weights=payload["weights"],
+                                                  runs=[case]))[0])
+        elif kind == "cp":
+            out.append(cp_steps(rank, case, payload["weights"][case["arch"]]))
+        else:
+            out.append(sp_prefill(rank, case, payload["weights"][case["arch"]]))
+    return out
+
+
+def _sp_model(case, weights, **settings):
+    """``case["arch"]``'s smoke model (experts included) in fp32 with
+    ``case["settings"]`` and ``settings``, from ``weights``."""
+    from repro_torch.configs import get_smoke_arch
+    st = ModelSettings(param_dtype="float32", compute_dtype="float32",
+                       max_seq=MAX_SEQ, **settings, **case.get("settings", {}))
+    model = build_model(get_smoke_arch(case["arch"]), st, device="cpu")
+    load_jax_params(model, weights)
+    return model
+
+
+def cp_steps(rank, case, weights):
+    """``CP_STEPS`` steps of the context-parallel cell's step on this rank:
+    ``make_gspmd_train_step(mi=...)`` with the blocks whole on every model
+    member (``tp_scope="embed_only"``), no FSDP, the moments split by
+    ``zero_moment_specs`` (``zero_opt``), on the mesh ``case["sizes"]``,
+    each step on this member's rows of the data pipeline's global batch.
+    Returns a record as :func:`rank_tp_trainer`'s."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.runtime.train_loop import (local_rows, make_gspmd_train_step,
+                                                mesh_info)
+    from repro_torch.utils.trees import tree_paths
+    sizes = case["sizes"]
+    mesh = prims.Mesh(sizes)
+    model = _sp_model(case, weights, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    mi = mesh_info(sizes)
+    mi.tp_scope = "embed_only"
+    step_fn, init_opt, mspecs = make_gspmd_train_step(
+        model, mesh, AdamWConfig(),
+        cosine_schedule(TRAIN["lr"], TRAIN["warmup"], CP_STEPS),
+        fsdp=False, mi=mi, zero_opt=True)
+    model.requires_grad_(True)
+    params, opt = model.params(), init_opt()
+    pipe = TokenPipeline(model.arch, ShapeConfig("t", TRAIN_SHAPE["seq_len"],
+                                                 TRAIN_SHAPE["global_batch"], "train"),
+                         DataConfig(seed=TRAIN["seed"]))
+    losses = []
+    for step in range(CP_STEPS):
+        batch = {k: torch.from_numpy(v)
+                 for k, v in local_rows(pipe.batch_at(step), mesh).items()}
+        params, opt, metrics = step_fn(params, opt, batch, step)
+        losses.append(float(metrics["loss"]))
+    return dict(
+        losses=losses,
+        params={k: v.detach().numpy().copy() for k, v in tree_paths(params).items()},
+        state={f"{key}/{k}": t.numpy().copy() for key in ("m", "v")
+               for k, t in tree_paths(opt[key]).items()},
+        coords=tuple(sorted(mesh.coords.items())), specs=dict(model.layout.specs),
+        state_specs={f"{key}/{k}": sp for key in ("m", "v")
+                     for k, sp in mspecs.items()})
+
+
+def sp_prefill(rank, case, weights):
+    """``Model.prefill`` on this rank of the mesh ``case["sizes"]``, the
+    model cut by ``mesh_info`` (TP over model) with ``case["settings"]``,
+    on this member's rows of ``case["tokens"]``.  Returns (the logits, the
+    cache's blocks {path: array}, the coords)."""
+    from repro_torch.core import prims
+    from repro_torch.runtime.train_loop import dp_rank, mesh_info
+    from repro_torch.utils.trees import tree_paths
+    sizes = case["sizes"]
+    mesh = prims.Mesh(sizes)
+    model = _sp_model(case, weights, remat="none")
+    model.shard(mesh_info(sizes), sizes, mesh.coords)
+    tokens = case["tokens"]
+    b = tokens.shape[0] // model.layout.dp_total
+    rows = torch.from_numpy(tokens[dp_rank(mesh) * b:(dp_rank(mesh) + 1) * b])
+    with prims.bind(mesh):
+        logits, cache = model.prefill(rows, batch=tokens.shape[0])
+    return (logits.numpy().copy(),
+            {k: v.numpy().copy() for k, v in tree_paths(cache).items()},
+            tuple(sorted(mesh.coords.items())))
 
 
 # ---------------------------------------------------------------------------
