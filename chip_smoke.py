@@ -19,14 +19,14 @@ checks) and ``DecodeServer`` answering 16 requests:
     experts, every width published: ``configs.one_card_arch``), with the
     selective-scan kernel (K4) in its 7 Mamba layers of every prefill and
     decode step and K1 in its attention layer's prefill;
-  * deepseek-moe-16b whole (28 layers, 64 routed experts top-6 and 2
-    shared in each, 16.88 B parameters), with K1 in every prefill layer,
+  * deepseek-moe-16b at 14 of its 28 layers (64 routed experts top-6 and
+    2 shared in each; 16.88 B parameters whole), with K1 in every prefill layer,
     the (token, k) slots each MoE layer drops at that shape, and its fp32
     router checked; its fp32 checks on a 2-layer model;
   * qwen3-1.7b (qk-norm), with K1 in every prefill layer;
-  * stablelm-12b (LayerNorm, head_dim 160), with K1 in every prefill
-    layer; its fp32 checks on a 4-layer model;
-  * nemotron-4-340b cut to 4 layers (every width published), with K1 at
+  * stablelm-12b at 20 of its 40 layers (LayerNorm, head_dim 160), with
+    K1 in every prefill layer; its fp32 checks on a 4-layer model;
+  * nemotron-4-340b cut to 2 layers (every width published), with K1 at
     head_dim 192 in every prefill layer, LayerNorm and squared ReLU; its
     fp32 checks on a 1-layer model, after the bf16 model is freed;
   * whisper-medium whole (``[whisper]``: 24 encoder and 24 decoder
@@ -55,7 +55,7 @@ Then ``[train3]``: 8 ranks share the card over gloo, mesh (pod, host,
 data, model) = (2, 2, 2, 1), full-width qwen2-0.5b in fp32, B=1 S=512 a
 rank: (a) the CLI with ``--codec topk`` for 1 step (24 K1 launches a rank
 a step, no K2); (b) ``make_sync_plan(..., mid_codec="int8")`` on
-``three_tier_fabric(2, 2, 2)`` and ``make_dfabric_train_step`` for 1 step (2 until the sequence split's phase came)
+``three_tier_fabric(2, 2, 2)`` and ``make_dfabric_train_step`` for 1 step
 (K2 on every mid-coded leg and int8 slow chunk, as many launches as the
 plan says); parameters bit-equal over the 8 ranks after every step; (c)
 ``dfabric_all_to_all`` of one deepseek-moe-16b dispatch buffer (64 x 960 x
@@ -85,18 +85,18 @@ recurrence); ``[train-jamba]`` one full-width Mamba
 layer of the jamba cut, forward and backward through K4's autograd wrapper
 against the plain path's gradients in fp32 and bf16, then the jamba smoke
 model with its experts, 1 step, K4 and K1 in the forward and recompute;
-``[train-whisper]`` whisper-medium at every width, cut to 6 of its 24
+``[train-whisper]`` whisper-medium at every width, cut to 4 of its 24
 encoder and 24 decoder layers, in fp32, ``remat="full"``, B=2 S=448 a
 rank with its frames from the data pipeline, 2 steps, K1's fp32 body in
-every decoder layer's forward and recompute (12 a rank a step), step 0's
+every decoder layer's forward and recompute (8 a rank a step), step 0's
 loss held to the masked step's at 1e-4 relative, an fp32 checkpoint at
 step 2 restored bit for bit.
 
 Last, tensor parallelism and the GSPMD step, four ranks sharing the card
 over gloo, each holding its block of every leaf: ``[train-tp]`` the CLI
 with a model axis of 2, full-width qwen2-0.5b in fp32 on (pod, data,
-model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 2
-steps of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
+model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 1
+step of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
 step) and K2 as the local plan counts it, step 0's loss held to
 ``[train]``'s at 1e-4; ``[train-gspmd]`` qwen3-1.7b at every width, cut
 to 4 of its 28 layers, in bf16, ``remat="full"``, FSDP over data x TP
@@ -140,7 +140,7 @@ held to the plain recurrence on its own inputs at ``[K3]``'s tolerance;
 then in fp32 each layer's drift between the K3 and the plain path at 24
 layers, and the logits of the two paths held at 1e-3 at 4 layers) and
 qwen2-0.5b's train_4k (two DP members over gloo on (2, 1, 1), 8 rows x
-4096 a rank in 2 microbatches, bf16, ``remat="full"``, no codec, 1 step (2 until the sequence split's phase came),
+4096 a rank in 2 microbatches, bf16, ``remat="full"``, no codec, 1 step,
 K1 96 a rank a step, parameters bit-equal over the ranks).
 
 Last, ``[serve-mesh]``: serving over a mesh, 4 ranks sharing the card over
@@ -148,8 +148,9 @@ gloo in one spawn, each run one DP member's share of a cell of (pod, data,
 model) = (2, 16, 16) with the cell's settings (``attn_impl="kernel"`` for
 the prefill, ``use_kernel_ssm`` for the recurrences), its model axis cut
 to the 4 ranks: (a) qwen3-1.7b's prefill_32k on (data, model) = (1, 4),
-B=1 S=32768 bf16, K1 on each rank's 4 query heads with the kv repeated
-(``gqa_repeat``), 28 a prefill; (b) its decode_32k, B=4 over a
+B=1 S=32768 bf16 at 8 of its 28 layers, K1 on each rank's 4 query heads
+with the kv repeated (``gqa_repeat``), 8 a prefill; (b) its decode_32k at
+that depth, B=4 over a
 32768-long cache, 4 steps; (c) rwkv6-1.6b's long_500k, 4 steps, K3 on 8
 of 32 heads, 24 a step, every launch against the plain recurrence; (d) the
 jamba block's long_500k on (2, 2) under FSDP over data x TP, B=1, the
@@ -157,7 +158,7 @@ attention cache's 524,288 rows split over data (262,144 a member) and
 its softmax combined over data, K4 on 8192 of 16384 channels, 7 a step,
 1 step; the combine beside the whole ``attend_decode`` on random caches;
 (e) the ``DecodeServer`` over (2, 2), 8 requests on 8 slots (4 a data
-member), 16 new tokens each, every member's outputs equal.  Each run is
+member), 8 new tokens each, every member's outputs equal.  Each run is
 held against the one-member run on the card in fp32 at 4 layers (jamba:
 a Mamba and its attention layer), at 1e-4 (rwkv6: 1e-3, each layer's
 drift printed first; the server: the tokens equal); the bf16 gap of (a)
@@ -168,24 +169,46 @@ MoE dispatch groups, 4 ranks sharing the card over gloo in one spawn,
 published widths, K1 on the gathered sequence: (a) qwen2-0.5b's train_4k
 cell with ``seq_shard`` (``Cell.bind``: the DFabric step, the residual
 stream's sequence split over model) on (pod, data, model) = (1, 2, 2),
-B=1 S=4096 a DP member, bf16, ``remat="full"``, 2 steps, K1 48 a rank a
+B=1 S=4096 a DP member, bf16, ``remat="full"``, 1 step, K1 48 a rank a
 step at (1,7,4096,64); (b) qwen3-1.7b's train_4k cell with
 ``context_parallel`` (the GSPMD step, every block whole on both model
-members, the fp32 moments under ``zero_moment_specs``) at 8 of its 28
-layers on (1, 2, 2), 2 steps, K1 16 a rank a step at (1,16,4096,128),
-each moment's block against its stand-in's; (c) qwen3-1.7b at 4 layers under FSDP over data x TP over
-model with the nemotron cell's settings (``seq_axis``, ``batch_axes``),
+members, the fp32 moments under ``zero_moment_specs``) at 2 of its 28
+layers on (1, 2, 2), 2 steps, K1 4 a rank a step at (1,16,4096,128),
+each moment's block against its stand-in's; (c) qwen3-1.7b at 2 layers
+under FSDP over data x TP over model with the nemotron cell's settings (``seq_axis``, ``batch_axes``),
 fp32, 1 step; each of (a)-(c) with the blocks two members hold alike
-bit-equal after every step and, in fp32 at 4 layers, step 0's loss within
+bit-equal after every step and, in fp32 at 2 layers, step 0's loss within
 1e-5 and gradient norm within 1e-4 of the same step without the split;
-(d) qwen3-1.7b's prefill_32k cell with ``seq_shard``, one DP member on
-(data, model) = (1, 4), B=1 S=32768 bf16 timed once, K1 28 a rank, the
+(d) qwen3-1.7b's prefill_32k cell with ``seq_shard`` at 4 of its 28
+layers, one DP member on (data, model) = (1, 4), B=1 S=32768 bf16 timed
+once, K1 4 a rank, the
 cache the whole sequence, and in fp32 at 4 layers the logits within
 atol = rtol = 1e-5 of the same prefill without the split; (e) one
 deepseek-moe-16b MoE layer in fp32 in 2 dispatch groups of a 4-row global
 batch over 4 DP members (each group spans two), the members' dropped slots
 summed equal to the whole grouped layer's and each member's output within
-1e-5 of its largest value.
+1e-5 of its largest value.  Then the sequence split of the other
+families, K1, K3 and K4 on the gathered sequence: (f) deepseek-moe-16b's
+train_4k cell with ``seq_shard`` at 2 of its 28 layers and (g)
+rwkv6-1.6b's at 4 of 24 (S=1024), the DFabric step on (1, 2, 2), bf16, 1
+step, each with its fp32 hold at 2 layers ((f): the dropped slots equal
+without the split, layer by layer); (h) the jamba smoke with its experts
+under the GSPMD step with the split, 2 steps, then one full-width Mamba
+layer over model = 2 with the split (B=1 S=2048, each member's rows),
+its assembled gradients through K4 against the plain layer's; (i)
+whisper-medium at 4 + 4 of its 24 + 24 layers under the GSPMD step (FSDP
+x TP) with the split, bf16, B=2 S=448 a DP member over its frames, 2
+steps, its checkpoint restored bit for bit, and in fp32 at 2 + 2 layers
+step 0's loss within 1e-5 of the DFabric step without the split; (j)
+rwkv6-1.6b's prefill_32k cell with ``seq_shard`` on (1, 4), every layer,
+K3 24 a rank, and the jamba block's prefill at S=8192 on (1, 4), K4 7 and
+K1 1 a rank, each in fp32 (rwkv6 at 4 layers over 8192 tokens, jamba a
+Mamba layer and the attention layer) against the prefill without the
+split (each recurrence's drift printed, the recurrent states in the
+cache the whole sequence's); and one deepseek MoE layer with its experts
+over model and each DP member's row routed with the batch's, through a
+planned dispatch schedule (chunks 2, lane offset 1), bit-equal to the
+unscheduled layer.
 
 The ranks start once for each set of phases that share a world: the
 ``FAMILY_RUNS`` and ``[cells]``' train_4k share (2 ranks), and
@@ -225,6 +248,9 @@ SEED = 0
 SFU_EXPS_PER_CLOCK = 16 * 132
 BOOST_HZ = 1.98e9
 B_MAIN, S_MAIN = 4, 2048  # the prefill shape of every path
+#: the layers the MoE slice's decoders are served at, cut for the card's
+#: time (PERF.md section 4 lists the cuts)
+SERVE_LAYERS = {"deepseek-moe-16b": 14, "stablelm-12b": 20, "nemotron-4-340b": 2}
 # each kernel's CUDA entry points (a regex), as ptxas names their
 # instantiations, and the name of their integer template parameter; K1 has
 # two bodies, the bf16 one on the tensor cores and the fp32 one on the CUDA
@@ -622,6 +648,13 @@ def check_wkv6(torch, gen, dev, arch):
         # fp32 compute (its main path), and bf16
         ("main-train-member", 1, H // 2, S_member, hd, "float32"),
         ("member-bf16", 1, H // 2, S_member, hd, "bfloat16"),
+        # [seq-par] (g): a model member's 16 heads over the gathered
+        # sequence, and its fp32 hold's; (j): 8 heads at model = 4 over the
+        # gathered 32768 of the prefill_32k cell, bf16 and the fp32 hold's
+        ("main-seq-par-g", 1, H // 2, SEQ_PAR_TRAIN["g"].seq, hd, "bfloat16"),
+        ("main-seq-par-g-fp32", 1, H // 2, SEQ_PAR_TRAIN["g"].fp32_seq, hd, "float32"),
+        ("main-seq-par-j", 1, H // 4, 32768, hd, "bfloat16"),
+        ("main-seq-par-j-fp32", 1, H // 4, SEQ_PAR_RWKV_FP32_SEQ, hd, "float32"),
         ("ragged-S40", 2, H, 40, hd, "float32"),
         ("ragged-S100", 2, H, 100, hd, "bfloat16"),
         ("ragged-S333", 2, H, 333, hd, "float32"),
@@ -643,7 +676,10 @@ def check_wkv6(torch, gen, dev, arch):
         s0 = torch.randn(B, Hc, d, d, generator=gen, device=dev) * 0.1
         y, sT = wkv_kernel.wkv6_fwd(r, k, v, w, u, s0)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ey, es = wkv6_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        check_ms = (time.perf_counter() - t0) * 1e3
         err = max((y - ey).abs().max().item(), (sT - es).abs().max().item())
         # tests/test_kernels.py::test_wkv6's tolerance, scaled by the output
         atol = 2e-5 * (ey.abs().max().item() + 1.0)
@@ -652,10 +688,14 @@ def check_wkv6(torch, gen, dev, arch):
                                        msg=lambda m: f"{name}: {m}")
         kernel_ms = time_ms(lambda: wkv_kernel.wkv6_fwd(r, k, v, w, u, s0),
                             iters=20)
-        long = S >= 1000  # 0.2-0.3 s a call, warm from the check: timed once
-        plain_ms = time_ms(lambda: wkv6_ref(r, k, v, w, u, s0),
-                           **(dict(iters=1, warmup=0, repeats=1) if long
-                              else dict(iters=3, warmup=1)))
+        # the plain recurrence is a loop over S: from S=1000 on (0.1-0.3 s a
+        # call) timed once, warm from the check; past S=4096 (1-3.5 s a
+        # call) the check's own call, cold
+        cold = S > 4096
+        plain_ms = check_ms if cold else time_ms(
+            lambda: wkv6_ref(r, k, v, w, u, s0),
+            **(dict(iters=1, warmup=0, repeats=1) if S >= 1000
+               else dict(iters=3, warmup=1)))
         bound_ms, bound_by = wkv6_bound_ms(B, Hc, S, d, dt_name)
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
@@ -663,7 +703,7 @@ def check_wkv6(torch, gen, dev, arch):
         cfg = wkv_kernel.launch_config(B, Hc, S, d, dt)
         log(f"[K3] {name:12s} (B,H,S,hd)=({B},{Hc},{S},{d}) strided r/k/v "
             f"{dt_name}: max_err={err:.3e} (atol {atol:.2e}, rtol 1e-4) "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f}{' (cold)' if cold else ''} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) "
             f"ratio_to_bound={kernel_ms / bound_ms:.2f} | {cfg.rows}x{cfg.cols} "
             f"nj={cfg.nj} tile={cfg.tile} stages={cfg.stages} "
@@ -690,7 +730,16 @@ def check_mamba_scan(torch, gen, dev, arch):
         ("main-train-B1", 1, S_MAIN, di, m.d_state, "bfloat16"),
         ("main-train-smoke", 2, 512, 128, 4, "bfloat16"),
         # [train-tp-hybrid] (d): a model member's 8192 channels of that layer
+        # ([seq-par] (h) over the gathered sequence too), and in fp32
         ("main-train-member", 1, S_MAIN, di // 2, m.d_state, "bfloat16"),
+        ("main-seq-par-h-fp32", 1, S_MAIN, di // 2, m.d_state, "float32"),
+        # [seq-par] (h): the jamba smoke's 64 of 128 channels, 2 rows of 512;
+        # (j): the block's prefill, 4096 channels at model = 4 over the
+        # gathered 8192, bf16 and the fp32 hold's
+        ("main-seq-par-h-smoke", 2, 512, 64, 4, "bfloat16"),
+        ("main-seq-par-j", 1, SEQ_PAR_JAMBA_PREFILL_SEQ, di // 4, m.d_state, "bfloat16"),
+        ("main-seq-par-j-fp32", 1, SEQ_PAR_JAMBA_PREFILL_SEQ, di // 4, m.d_state,
+         "float32"),
         ("decode-S1", 8, 1, di, m.d_state, "bfloat16"),
         # [serve-mesh] (d): a decode step of one row on a member's channels
         ("main-serve-mesh-long", 1, 1, di // 2, m.d_state, "bfloat16"),
@@ -721,16 +770,22 @@ def check_mamba_scan(torch, gen, dev, arch):
         args = (u, delta, A, Bc, Cc, D, h0)
         y, hT = ms_kernel.mamba_scan_fwd(*args)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ey, eh = mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        check_ms = (time.perf_counter() - t0) * 1e3
         err = max((y - ey).abs().max().item(), (hT - eh).abs().max().item())
         for got, exp in ((y, ey), (hT, eh)):  # tests/test_kernels.py's tolerance
             torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4,
                                        msg=lambda msg: f"{name}: {msg}")
         kernel_ms = time_ms(lambda: ms_kernel.mamba_scan_fwd(*args), iters=20)
-        long = S >= 1000  # 0.25-0.35 s a call, warm from the check: timed once
-        plain_ms = time_ms(lambda: mamba_scan_ref(*args),
-                           **(dict(iters=1, warmup=0, repeats=1) if long
-                              else dict(iters=3, warmup=1)))
+        # from S=1000 on (0.2-0.4 s a call) timed once, warm from the check;
+        # past S=4096 (1-1.4 s a call) the check's own call, cold
+        cold = S > 4096
+        plain_ms = check_ms if cold else time_ms(
+            lambda: mamba_scan_ref(*args),
+            **(dict(iters=1, warmup=0, repeats=1) if S >= 1000
+               else dict(iters=3, warmup=1)))
         bound_ms, bound_by, sfu_ms = mamba_scan_bound_ms(B, S, d, ds, dt_name)
         results[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
@@ -738,7 +793,7 @@ def check_mamba_scan(torch, gen, dev, arch):
         cfg = ms_kernel.launch_config(B, S, d, ds, dt)
         line = (f"[K4] {name:12s} (B,S,di,ds)=({B},{S},{d},{ds}) strided B/C "
                 f"{dt_name}: max_err={err:.3e} (atol=rtol=1e-4) "
-                f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f}{' (cold)' if cold else ''} "
                 f"bound_ms={bound_ms:.4f} ({bound_by}) "
                 f"ratio_to_bound={kernel_ms / bound_ms:.2f} "
                 f"sfu_floor_ms={sfu_ms:.4f} (at 1.98 GHz)")
@@ -1364,9 +1419,9 @@ class FamilyRun(NamedTuple):
 
 
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
-# the runs' steps went from 3 to 2 when whisper's phases came, and to 1
-# when the cells' phase came, but for the int8 bf16 runs and whisper's,
-# which keep 2 so that error feedback and the moments cross a step; each
+# 1 step a run for the card's time, but for the int8 bf16 runs and
+# whisper's, which keep 2 so that error feedback and the moments cross a
+# step; each
 # checkpoint is written after its run's last step
 FAMILY_RUNS = {
     "train-bf16-a": FamilyRun("qwen2-0.5b", dict(BF16, remat="full", attn_impl="kernel"),
@@ -1376,23 +1431,22 @@ FAMILY_RUNS = {
                                    remat="full", attn_impl="kernel"), 2, 2048, 2, 2),
     "train-moe": FamilyRun("deepseek-moe-16b",
                            dict(BF16, remat="full", attn_impl="kernel"), 1, 2048, 1, None),
-    # rwkv6-1.6b at 2 of its 24 layers (cut to 4 when the GSPMD phases
-    # came, to 2 when whisper's did), S=1024 (2048 until [serve-mesh]
-    # came: the backward recomputes the plain recurrence step by step)
+    # rwkv6-1.6b at 2 of its 24 layers, S=1024: the backward recomputes
+    # the plain recurrence step by step
     "train-rwkv": FamilyRun("rwkv6-1.6b", dict(BF16, remat="full", use_kernel_ssm=True),
                             1, 1024, 1, None, depth=2),
     "train-jamba": FamilyRun("jamba-1.5-large-398b-smoke",
                              dict(BF16, remat="full", attn_impl="kernel",
                                   use_kernel_ssm=True), 2, 512, 1, None),
-    # whisper-medium at every width, 6 of its 24 + 24 layers (whole until
-    # [serve-mesh] came), fp32, K1's fp32 body in each decoder layer's
+    # whisper-medium at every width, 4 of its 24 + 24 layers (for the
+    # card's time), fp32, K1's fp32 body in each decoder layer's
     # forward and recompute, the encoder and the cross attention masked;
     # remat: without it each rank would keep every encoder layer's fp32
     # score chunks over 1500 frames
     "train-whisper": FamilyRun("whisper-medium",
                                dict(param_dtype="float32", compute_dtype="float32",
                                     remat="full", attn_impl="kernel"),
-                               2, None, 2, 2, depth=6, masked_step0=True),
+                               2, None, 2, 2, depth=4, masked_step0=True),
 }
 FAMILY_SIZES = {"pod": 2, "data": 1, "model": 1}
 
@@ -1761,23 +1815,23 @@ def family_phases(torch, gen, dev, card, phase_done):
 
 #: ``[train-tp]``: the CLI's run with a model axis of 2, full-width
 #: qwen2-0.5b in fp32, mesh (pod, data, model) = (2, 1, 2), the int8 slow
-#: tier, ZeRO-1, B=2 S=2048 a DP member (``[train]``'s global batch)
+#: tier, ZeRO-1, B=2 S=2048 a DP member (``[train]``'s global batch), 1
+#: step
 TP_ARGV = ["--arch", "qwen2-0.5b", "--mesh", "2,1,2", "--codec", "int8",
-           "--steps", "2", "--batch", "4", "--seq", "2048",
+           "--steps", "1", "--batch", "4", "--seq", "2048",
            "--backend", "gloo", "--device", "cuda"]
 TP_RANKS, TP_TOKENS = 4, 4 * 2048
 GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
 #: the GSPMD step's runs, FSDP over data x TP over model on (1, 2, 2), B=1 a
 #: DP member (rows: the global batch's), at every published width:
 #: ``[train-gspmd]`` qwen3-1.7b cut to 4 of its 28 layers (at 28 the script
-#: took 1170 s of its 1200 s limit on an H100 host; 14 until whisper's
-#: phases came), in bf16, ``remat="full"``, S=2048, 2 steps (3 until the
-#: cells' phase came), a checkpoint at step 2; ``[train-gspmd-rwkv]`` rwkv6-1.6b cut to 4 of its 24 layers
-#: (whole until whisper's phases came: 106-136 s), bf16 parameters with
+#: took 1170 s of its 1200 s limit on an H100 host), in bf16,
+#: ``remat="full"``, S=2048, 2 steps, a checkpoint at step 2;
+#: ``[train-gspmd-rwkv]`` rwkv6-1.6b cut to 4 of its 24 layers (at 24:
+#: 106-136 s), bf16 parameters with
 #: fp32 compute (in bf16 compute the unsharded step's own gradient norm is
-#: 1.9x its fp32 one), K3 on each member's 16 heads, S=512 (cut from 2048,
-#: then 1024 until whisper's phases came: the plain recurrence's backward
-#: is a Python loop over the sequence), 2
+#: 1.9x its fp32 one), K3 on each member's 16 heads, S=512 (the plain
+#: recurrence's backward is a Python loop over the sequence), 2
 #: steps, ``remat="none"`` (four peaks leave more than 10 GB of the card
 #: free).  ``gnorm_tol``: step 0's gradient norms (``grad_norms``) held to
 #: the unsharded step's, relative: the whole model's, and ``tail``, the
@@ -2133,8 +2187,9 @@ def four_rank_phases(torch, card, train_recs, phase_done):
     if free < need:
         raise RuntimeError(f"{free} bytes free under {ckpt_dir}; [train-gspmd] needs {need}")
     out_dir = os.path.join(HERE, "build", "mamba_cut")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
+    for path in (out_dir, SEQ_PAR_DIR):
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
     refs = {}
     for tag, run in GSPMD_RUNS.items():
         gc.collect()
@@ -2159,7 +2214,8 @@ def four_rank_phases(torch, card, train_recs, phase_done):
 
     tp = [r["train-tp"] for r in recs]
     log(f"[train-tp] qwen2-0.5b fp32 (pod, data, model) = (2, 1, 2), int8 slow tier, "
-        f"ZeRO-1, B=2 S=2048 a DP member, 2 steps through the CLI's run_rank; "
+        f"ZeRO-1, B=2 S=2048 a DP member, {len(tp[0]['steps'])} step(s) through the "
+        f"CLI's run_rank; "
         f"{tp[0]['plan_k2']} int8 slow chunks a rank a step (the plan on local "
         f"shapes) | {card}")
     check_tp_steps("train-tp", tp, card, TP_TOKENS,
@@ -2228,7 +2284,7 @@ def gspmd_check(card, tag, recs, ref, want):
 
 #: ``[train-tp-hybrid]`` (a)-(c): {part: (arch, mesh sizes, mode)}, the smoke
 #: configs with their experts (``get_smoke_arch``) on four ranks, B=2 S=512
-#: a DP member, 1 step (3 until whisper's phases came, 2 until the cells'),
+#: a DP member, 1 step,
 #: bf16,
 #: ``remat="full"``, K1, K3 and K4 in the forward
 #: and the recompute, the int8 slow tier in the DFabric step
@@ -2278,11 +2334,13 @@ def layer_specs(arch, parent, leaves, sizes, fsdp=None):
     return {k: specs[f"{parent}/{k}"] for k in leaves}
 
 
-def mamba_member_grads(torch, mesh, out_dir):
+def mamba_member_grads(torch, mesh, out_dir, sp=None):
     """(d) on this rank: its block of the Mamba layer of ``MAMBA_CUT`` (its
     DP member's dtype) over ``model``, forward with K4 on its 8192
     channels and backward; the input's and its blocks' gradients saved
-    under ``out_dir`` for the parent.  Returns K4's launches and the
+    under ``out_dir`` for the parent.  With ``sp`` (``[seq-par]`` (h)) the
+    input and the output cotangent are this member's rows of the
+    sequence, which the layer gathers.  Returns K4's launches and the
     seconds."""
     from repro_torch.core import prims
     from repro_torch.kernels.mamba_scan import kernel as ms_kernel
@@ -2294,17 +2352,22 @@ def mamba_member_grads(torch, mesh, out_dir):
     local = {k: sharding.local_block(t, specs[k], mesh.coords, mesh.sizes)
              .contiguous().requires_grad_(True) for k, t in p.items()}
     del p
+    if sp is not None:
+        n = x.shape[1] // mesh.sizes[sp]
+        x, gy = (t.narrow(1, mesh.coords[sp] * n, n).contiguous() for t in (x, gy))
     x.requires_grad_(True)
     torch.cuda.synchronize()
     before, t0 = ms_kernel.LAUNCHES, time.perf_counter()
     with prims.bind(mesh):
-        y, _ = SSM.apply_mamba(arch, local, x, use_kernel=True, axis="model")
+        y, _ = SSM.apply_mamba(arch, local, x, use_kernel=True, axis="model", sp=sp)
         grads = torch.autograd.grad(y, [x] + list(local.values()), gy)
     torch.cuda.synchronize()
     out = dict(dtype=dt_name, launches=ms_kernel.LAUNCHES - before,
-               s=time.perf_counter() - t0, channels=local["A_log"].shape[0])
+               s=time.perf_counter() - t0, channels=local["A_log"].shape[0],
+               rows=x.shape[1])
     torch.save({k: g.cpu() for k, g in zip(["x"] + list(local), grads)},
-               os.path.join(out_dir, f"{dt_name}_{mesh.coords['model']}.pt"))
+               os.path.join(out_dir, f"{'sp_' if sp else ''}{dt_name}_"
+                                     f"{mesh.coords['model']}.pt"))
     return out
 
 
@@ -2387,64 +2450,75 @@ def hybrid_runs(torch, out_dir):
     return out
 
 
-def check_mamba_cut(torch, recs, out_dir, card):
+def check_mamba_cut(torch, recs, out_dir, card, sp=False):
     """(d) in this process: the unsharded Mamba layer of each ``MAMBA_CUT``
     dtype with K4, its input's and parameters' gradients against the two
     members' put together (``sharding.assemble``: ``w_in`` from the
-    members' channels of both halves)."""
+    members' channels of both halves).  With ``sp`` (``[seq-par]`` (h):
+    the members' layer under the sequence split, the input's gradient
+    their rows, joined) against the unsharded layer through the plain
+    scan."""
     from repro_torch.kernels.mamba_scan import kernel as ms_kernel
     from repro_torch.models import sharding
     from repro_torch.models import ssm as SSM
     sizes = {"model": 2}
+    tag, key = ("[seq-par] (h)", "mamba") if sp else ("[train-tp-hybrid] (d)", "d")
     for data, (dt_name, seed, tol) in MAMBA_CUT.items():
-        members = [r["d"] for r in recs if r["coords"]["data"] == data]
+        members = [r[key] for r in recs if r["coords"]["data"] == data]
         arch, p, x, gy = mamba_layer(torch, dt_name, seed)
         x.requires_grad_(True)
         for t in p.values():
             t.requires_grad_(True)
         torch.cuda.synchronize()
         before, t0 = ms_kernel.LAUNCHES, time.perf_counter()
-        y, _ = SSM.apply_mamba(arch, p, x, use_kernel=True)
+        y, _ = SSM.apply_mamba(arch, p, x, use_kernel=not sp)
         ref = dict(zip(["x"] + list(p), torch.autograd.grad(y, [x] + list(p.values()), gy)))
         torch.cuda.synchronize()
         ref_s, launched = time.perf_counter() - t0, ms_kernel.LAUNCHES - before
         specs = layer_specs(arch, "mamba", p, sizes)
         del y, p
-        blocks = [torch.load(os.path.join(out_dir, f"{dt_name}_{m}.pt")) for m in (0, 1)]
-        if not torch.equal(blocks[0]["x"], blocks[1]["x"]):
-            raise AssertionError(f"[train-tp-hybrid] (d) {dt_name}: the members' input "
-                                 f"gradients differ")
+        blocks = [torch.load(os.path.join(out_dir, f"{'sp_' if sp else ''}{dt_name}_{m}.pt"))
+                  for m in (0, 1)]
+        if sp:
+            gx = torch.cat([blocks[0]["x"], blocks[1]["x"]], 1)
+        elif torch.equal(blocks[0]["x"], blocks[1]["x"]):
+            gx = blocks[0]["x"]
+        else:
+            raise AssertionError(f"{tag} {dt_name}: the members' input gradients differ")
         worst, worst_rel, past = 0.0, 0.0, 0
         for k, want in ref.items():
-            got = blocks[0]["x"] if k == "x" else sharding.assemble(
+            got = gx if k == "x" else sharding.assemble(
                 {(("model", m),): blocks[m][k] for m in (0, 1)}, specs[k],
                 want.shape, sizes, lambda ps, d: torch.cat(ps, d))
             got, want = got.to(want.device).float(), want.float()
             diff = (got - want).abs()
             atol = tol if dt_name == "float32" else tol * want.abs().max().item()
             torch.testing.assert_close(got, want, rtol=tol, atol=atol,
-                                       msg=lambda m: f"[train-tp-hybrid] (d) {dt_name} d{k}: {m}")
+                                       msg=lambda m: f"{tag} {dt_name} d{k}: {m}")
             rel = ((got - want).double().norm() / want.double().norm()).item()
             if dt_name != "float32" and not rel <= BF16_LEAF_REL:
-                raise AssertionError(f"[train-tp-hybrid] (d) {dt_name} d{k}: relative "
-                                     f"error {rel:.3e}")
+                raise AssertionError(f"{tag} {dt_name} d{k}: relative error {rel:.3e}")
             worst, worst_rel = max(worst, diff.max().item()), max(worst_rel, rel)
             past += int((diff > tol + tol * want.abs()).sum())
             del got, diff
         scope = "" if dt_name == "float32" else " of each leaf's largest value"
-        log(f"[train-tp-hybrid] (d) one Mamba layer of the jamba cut at full width "
+        split = (f", the sequence split: {members[0]['rows']} rows a member, gathered"
+                 if sp else "")
+        log(f"{tag} one Mamba layer of the jamba cut at full width "
             f"(d_model {arch.d_model}, d_inner {arch.mamba.expand * arch.d_model}, "
-            f"d_state {arch.mamba.d_state}) {dt_name} B=1 S={S_MAIN} over model = 2: "
+            f"d_state {arch.mamba.d_state}) {dt_name} B=1 S={S_MAIN} over model = 2"
+            f"{split}: "
             f"{members[0]['channels']} channels a member, K4 launches a member "
             f"{[m['launches'] for m in members]}, forward + backward "
             f"{', '.join(format(m['s'], '.3f') for m in members)} s a member; unsharded "
-            f"with K4 ({launched} launch) {ref_s:.3f} s in this process; the input's and "
+            f"{'through the plain scan' if sp else 'with K4'} ({launched} K4 launch) "
+            f"{ref_s:.3f} s in this process; the input's and "
             f"{len(ref) - 1} parameter gradients put together within rtol {tol}, atol "
             f"{tol}{scope} "
             f"(max abs diff {worst:.3e}; {past} elements past atol = rtol = {tol}; worst "
             f"leaf relative error {worst_rel:.2e}) | {card}")
-        if launched != 1 or any(m["launches"] != 1 for m in members):
-            raise AssertionError("[train-tp-hybrid] (d): K4 did not run once a member")
+        if launched != (0 if sp else 1) or any(m["launches"] != 1 for m in members):
+            raise AssertionError(f"{tag}: K4 did not run once a member")
         del ref, blocks, x, gy
         torch.cuda.empty_cache()
 
@@ -3286,6 +3360,8 @@ SERVE_MESH_FSDP = {"data": 2, "model": 2}
 SERVE_MESH_RANKS = 4
 #: decode steps of (b) and (c) (16 in the cells; cut for time)
 SERVE_MESH_STEPS = 4
+#: (a) and (b)'s depth: 8 of qwen3's 28 layers, for the card's time
+SERVE_MESH_QWEN3_LAYERS = 8
 #: (d)'s decode steps in bf16 and in fp32 (16 in the cell): every step
 #: gathers the member's FSDP blocks of the whole block (4.5 GB a rank in
 #: bf16) over gloo, which copies them through host memory, 9.65 s a step
@@ -3295,9 +3371,9 @@ SERVE_MESH_JAMBA_STEPS = (1, 1)
 #: jamba a Mamba layer and the attention layer (attn_every 2), every width
 SERVE_MESH_FP32_LAYERS = 4
 SERVE_MESH_JAMBA_FP32 = dict(n_layers=2, attn_every=2)
-#: (e): 8 requests (one for each slot) of 16 new tokens (16 of 32 in the
+#: (e): 8 requests (one for each slot) of 8 new tokens (16 of 32 in the
 #: earlier phases' servers; cut for time: a step is ~0.25 s over gloo)
-SERVE_MESH_SERVER = dict(requests=8, slots=8, max_seq=256, max_new=16)
+SERVE_MESH_SERVER = dict(requests=8, slots=8, max_seq=256, max_new=8)
 
 
 def sm_inputs():
@@ -3313,24 +3389,26 @@ def sm_inputs():
     return {"a": draw(qv, (1, 32768)), "b": draw(qv, (4, SERVE_MESH_STEPS)),
             "c": draw(rv, (1, SERVE_MESH_STEPS)), "d": draw(rv, (1, SERVE_MESH_STEPS)),
             "e": [draw(qv, (4,)).int().numpy()
-                  for _ in range(SERVE_MESH_SERVER["requests"])]}
+                  for _ in range(SERVE_MESH_SERVER["requests"])],
+            "j": draw(rv, (1, 32768))}
 
 
-def sm_model(torch, mesh, arch, st, fsdp=False, in_turns=False):
+def sm_model(torch, mesh, arch, st, fsdp=False, turns=1):
     """The model built from the seed on the card and cut for this member of
-    ``mesh`` (FSDP over data when ``fsdp``); ``in_turns``: the ranks build
-    one after another, so that one uncut model at a time is on the card."""
+    ``mesh`` (FSDP over data when ``fsdp``); ``turns`` > 1: the ranks build
+    in that many turns, one after another, so that a turn's uncut models
+    at a time are on the card."""
     import torch.distributed as dist
     from repro_torch.models import build_model
     from repro_torch.runtime.train_loop import mesh_info
     model = None
-    for turn in range(dist.get_world_size() if in_turns else 1):
-        if not in_turns or turn == dist.get_rank():
+    for turn in range(turns):
+        if dist.get_rank() % turns == turn:
             model = build_model(arch, st, device="cuda", seed=SEED)
             model.shard(mesh_info(mesh.sizes, fsdp=fsdp), mesh.sizes, mesh.coords)
             gc.collect()
             torch.cuda.empty_cache()
-        if in_turns:
+        if turns > 1:
             dist.barrier()
     return model
 
@@ -3371,7 +3449,7 @@ def sm_qwen3(torch, mesh, kernels, inputs):
     from repro_torch.launch.cells import build_cell
     pre = build_cell("qwen3-1.7b", "prefill_32k", CELL_MESH, attn_impl="kernel")
     dec = build_cell("qwen3-1.7b", "decode_32k", CELL_MESH)
-    arch, st = pre.arch, pre.model.settings
+    arch, st = pre.arch.replace(n_layers=SERVE_MESH_QWEN3_LAYERS), pre.model.settings
     rec = {"a": {}, "b": {}}
     toks = inputs["a"].cuda()
     rows = toks.shape[0]
@@ -3473,21 +3551,26 @@ def sm_rwkv(torch, mesh, kernels, inputs):
 
 
 def sm_recorded(fn):
-    """``fn()`` with every call of the recurrence (K3's wrapper, in layer
-    order) recorded: (its result, [(r, y) of each call, fp32 numpy])."""
+    """``fn()`` with every call of a recurrence (K3's or K4's wrapper, in
+    layer order) recorded: (its result, [(its input r or u, y) of each
+    call, fp32 numpy])."""
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
-    real, seen = wkv_ops.wkv6, []
+    real, seen = (wkv_ops.wkv6, ms_ops.mamba_scan), []
 
-    def call(r, k, v, w, u, state=None):
-        y, sT = real(r, k, v, w, u, state=state)
-        seen.append((r.detach().float().cpu().numpy(), y.detach().float().cpu().numpy()))
-        return y, sT
+    def recorded(f):
+        def call(x, *args, **kw):
+            y, sT = f(x, *args, **kw)
+            seen.append((x.detach().float().cpu().numpy(),
+                         y.detach().float().cpu().numpy()))
+            return y, sT
+        return call
 
-    wkv_ops.wkv6 = call
+    wkv_ops.wkv6, ms_ops.mamba_scan = recorded(real[0]), recorded(real[1])
     try:
         return fn(), seen
     finally:
-        wkv_ops.wkv6 = real
+        wkv_ops.wkv6, ms_ops.mamba_scan = real
 
 
 def sm_drift(recs, ref_seen, n_layers):
@@ -3567,7 +3650,7 @@ def sm_jamba(torch, mesh, kernels, inputs):
     toks = inputs["d"].cuda()
     rec = {}
     torch.cuda.reset_peak_memory_stats()
-    model = sm_model(torch, mesh, arch, st, fsdp=True, in_turns=True)
+    model = sm_model(torch, mesh, arch, st, fsdp=True, turns=SERVE_MESH_RANKS)
     rec["params_gb"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
     with prims.bind(mesh):
         cache = model.init_cache(rows, S)
@@ -3584,7 +3667,7 @@ def sm_jamba(torch, mesh, kernels, inputs):
         torch.cuda.empty_cache()
         rec["combine"] = sm_combine(torch, arch, S)
         model = sm_model(torch, mesh, arch.replace(**SERVE_MESH_JAMBA_FP32),
-                         sm_fp32(st), fsdp=True, in_turns=True)
+                         sm_fp32(st), fsdp=True, turns=SERVE_MESH_RANKS)
         rec["fp32"] = sm_steps(torch, model, model.init_cache(rows, S),
                                toks[:, :fp32_steps], S - fp32_steps, rows, S)
     del model
@@ -3670,7 +3753,7 @@ def sm_check_qwen3(torch, recs, inputs, card):
     from repro_torch.configs import get_arch
     from repro_torch.launch.cells import build_cell
     zero = {k: 0 for k in kernel_modules()}
-    qwen3 = get_arch("qwen3-1.7b")
+    qwen3 = get_arch("qwen3-1.7b").replace(n_layers=SERVE_MESH_QWEN3_LAYERS)
     pre = build_cell("qwen3-1.7b", "prefill_32k", CELL_MESH, attn_impl="kernel")
     dec = build_cell("qwen3-1.7b", "decode_32k", CELL_MESH)
     r0 = recs[0]
@@ -3882,35 +3965,71 @@ def serve_mesh_phase(torch, card, phase_done, recs, inputs):
 #: train_4k cells' length) a DP member, 2 steps
 SEQ_PAR_SIZES = {"pod": 1, "data": 2, "model": 2}
 SEQ_PAR_STEPS, SEQ_PAR_SEQ = 2, 4096
-#: (d) one DP member of CELL_MESH with its model axis cut to the 4 ranks;
-#: (e) 4 DP members of one deepseek MoE layer in 2 dispatch groups
+#: (d) one DP member of CELL_MESH with its model axis cut to the 4 ranks,
+#: at 4 of qwen3's 28 layers (at 28: 43.4 s of the phase); (e) 4 DP
+#: members of one deepseek MoE layer in 2 dispatch groups
 SEQ_PAR_PREFILL = {"data": 1, "model": 4}
+SEQ_PAR_PREFILL_LAYERS = 4
 SEQ_PAR_MOE, SEQ_PAR_MOE_GROUPS = {"data": 4}, 2
 #: the fp32 holds' depth: with and without the sequence split, one step
 #: (a)-(c) or one prefill (d) on the same inputs
-SEQ_PAR_FP32_LAYERS = 4
-#: (a) and (b): {part: (arch, the cell's flag, depth: None for every
-#: layer)}; (b) runs 8 of qwen3's 28 layers (at 28 its two steps and their
-#: checks took 59-83 s of the phase: each step sums and gathers the whole
-#: replicated blocks over gloo)
-SEQ_PAR_TRAIN = {"a": ("qwen2-0.5b", "seq_shard", None),
-                 "b": ("qwen3-1.7b", "context_parallel", 8)}
+SEQ_PAR_FP32_LAYERS = 2
 
 
-def sp_steps(torch, kernels, mesh, model, run, state, steps, agree=True):
+class SpRun(NamedTuple):
+    """A train_4k cell of ``[seq-par]`` bound by ``Cell.bind`` on
+    SEQ_PAR_SIZES with its flag: its arch, flag, depth (None: every
+    layer), sequence a DP member (B=1), steps, and its fp32 hold's depth
+    and sequence."""
+    arch: str
+    flag: str
+    depth: Optional[int]
+    seq: int
+    steps: int
+    fp32_layers: int
+    fp32_seq: int
+
+
+#: (a), (b), (f) and (g).  (a) runs 1 step; (b) 2 of qwen3's 28 layers
+#: (at 28 its two steps and their checks took 59-83 s of the phase: each
+#: step sums and gathers the whole replicated blocks over gloo), 2 steps, so that its ZeRO moments cross a step; (f) 2 of deepseek's 28
+#: (a third adds about 9.4 GB a DP member at 16 bytes a parameter, nothing
+#: sharded over data); (g) 4 of rwkv6's 24 at S=1024, its fp32 hold at 2
+#: layers and S=256 (the backward is the plain recurrence, step by step)
+SEQ_PAR_TRAIN = {
+    "a": SpRun("qwen2-0.5b", "seq_shard", None, SEQ_PAR_SEQ, 1,
+               SEQ_PAR_FP32_LAYERS, SEQ_PAR_SEQ),
+    "b": SpRun("qwen3-1.7b", "context_parallel", 2, SEQ_PAR_SEQ, SEQ_PAR_STEPS,
+               SEQ_PAR_FP32_LAYERS, SEQ_PAR_SEQ),
+    "f": SpRun("deepseek-moe-16b", "seq_shard", 2, SEQ_PAR_SEQ, 1, 2, SEQ_PAR_SEQ),
+    "g": SpRun("rwkv6-1.6b", "seq_shard", 4, 1024, 1, 2, 256)}
+
+
+def depth_cut(arch, layers):
+    """``arch`` at ``layers`` layers (an encoder-decoder's encoder too)."""
+    arch = arch.replace(n_layers=layers)
+    if arch.is_encdec:
+        arch = arch.replace(encoder=dataclasses.replace(arch.encoder, n_layers=layers))
+    return arch
+
+
+def sp_steps(torch, kernels, mesh, model, run, state, steps, agree=True,
+             seq=SEQ_PAR_SEQ, rows=1):
     """``steps`` steps of ``run(params, state, batch, step)`` (a bound cell
-    or a step factory's) on this DP member's B=1 S=SEQ_PAR_SEQ, drawn from
+    or a step factory's) on this DP member's ``rows`` x ``seq``, drawn from
     a seed a DP member (the same rows on its model members, and in every
     call): each step's loss, gradient norm, time, launches (every count
     set to 0 just before the step), the collectives of the model's
-    TP/FSDP/sequence-split Functions (``prims.TP_CALLS``), whether the
-    blocks two members hold alike agree bit for bit (with ``agree``), and
-    the peak memory."""
+    TP/FSDP/sequence-split Functions (``prims.TP_CALLS``), the (token, k)
+    slots each MoE layer's dispatch dropped (forward, then recompute),
+    whether the blocks two members hold alike agree bit for bit (with
+    ``agree``), and the peak memory."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import prims
+    from repro_torch.models import layers as L
     from repro_torch.runtime.train_loop import dp_rank
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + dp_rank(mesh))
-    share = ShapeConfig("seq-par", SEQ_PAR_SEQ, 1, "train")
+    share = ShapeConfig("seq-par", seq, rows, "train")
     model.requires_grad_(True)
     params, out = model.params(), []
     torch.cuda.reset_peak_memory_stats()
@@ -3920,17 +4039,22 @@ def sp_steps(torch, kernels, mesh, model, run, state, steps, agree=True):
         for mod in kernels.values():
             mod.LAUNCHES = 0  # just before the path
         calls = dict(prims.TP_CALLS)
-        t0 = time.perf_counter()
-        params, state, metrics = run(params, state, batch, step)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        L.DROP_LOG = []
+        try:
+            t0 = time.perf_counter()
+            params, state, metrics = run(params, state, batch, step)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            drops = [int(d.sum()) for d in L.DROP_LOG]
+        finally:
+            L.DROP_LOG = None
         launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
         calls = {k: v - calls[k] for k, v in prims.TP_CALLS.items()}
         agree, shared = (blocks_agree(params, model.layout, mesh) if agree
                          else (None, None))
         out.append(dict(step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
-                        dt=dt, launches=launches, calls=calls, agree=agree,
+                        dt=dt, launches=launches, calls=calls, drops=drops, agree=agree,
                         shared=shared, peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         del batch
     return out, state
@@ -3938,44 +4062,48 @@ def sp_steps(torch, kernels, mesh, model, run, state, steps, agree=True):
 
 def sp_factory(model, mesh, kind):
     """(step, init) of the step factory ``kind`` uses for ``model`` on
-    ``mesh``: the DFabric step (a), the context-parallel cell's GSPMD step
-    (b), the GSPMD step with FSDP (c)."""
+    ``mesh``: the DFabric step (a, f, g), the context-parallel cell's GSPMD
+    step (b), the GSPMD step with FSDP (c, i)."""
     from repro_torch.core.topology import topology_from_mesh_sizes
     from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
     from repro_torch.runtime.train_loop import (make_dfabric_train_step,
                                                 make_gspmd_train_step,
                                                 make_sync_plan, mesh_info)
     lr = cosine_schedule(3e-4, 100, 10000)
-    if kind == "a":
+    if kind in ("a", "f", "g"):
         plan, ss = make_sync_plan(model, mesh.sizes, topology_from_mesh_sizes(mesh.sizes))
         return make_dfabric_train_step(model, mesh, plan, ss, AdamWConfig(), lr)
-    mi = mesh_info(mesh.sizes, fsdp=kind == "c")
+    mi = mesh_info(mesh.sizes, fsdp=kind in ("c", "i"))
     if kind == "b":
         mi.tp_scope = "embed_only"
     step, init, _ = make_gspmd_train_step(model, mesh, AdamWConfig(), lr,
-                                          fsdp=kind == "c", mi=mi, zero_opt=kind == "b")
+                                          fsdp=kind in ("c", "i"), mi=mi,
+                                          zero_opt=kind == "b")
     return step, init
 
 
-def sp_fp32_hold(torch, kernels, mesh, arch, st, kind):
-    """One fp32 step at SEQ_PAR_FP32_LAYERS layers with the sequence split
-    and one without, on the same rows: (the split step's record, [(loss,
-    grad_norm) of each])."""
+def sp_fp32_hold(torch, kernels, mesh, arch, st, kind, layers=SEQ_PAR_FP32_LAYERS,
+                 seq=SEQ_PAR_SEQ, rows=1, nosplit_kind=None):
+    """One fp32 step at ``layers`` layers with the sequence split (the step
+    factory of ``kind``) and one without (of ``nosplit_kind``, ``kind`` by
+    default), on the same rows: (the split step's record, [(loss,
+    grad_norm, collectives, dropped slots) of each])."""
     from repro_torch.models import build_model
     out, first = [], None
     for split in (True, False):
         fields = dict(param_dtype="float32", compute_dtype="float32")
         if not split:
             fields.update(seq_axis=None, batch_axes=None)
-        model = build_model(arch.replace(n_layers=SEQ_PAR_FP32_LAYERS),
+        model = build_model(depth_cut(arch, layers),
                             dataclasses.replace(st, **fields), device="cuda", seed=SEED)
-        step, init = sp_factory(model, mesh, kind)
+        step, init = sp_factory(model, mesh, kind if split else nosplit_kind or kind)
         # the blocks are compared in the split step (c) records
         steps, _ = sp_steps(torch, kernels, mesh, model, step, init(), 1,
-                            agree=split and kind == "c")
+                            agree=split and kind == "c", seq=seq, rows=rows)
         if split:
             first = steps
-        out.append((steps[0]["loss"], steps[0]["grad_norm"], steps[0]["calls"]))
+        out.append((steps[0]["loss"], steps[0]["grad_norm"], steps[0]["calls"],
+                    steps[0]["drops"]))
         del model, step, init
         gc.collect()
         torch.cuda.empty_cache()
@@ -3983,23 +4111,37 @@ def sp_fp32_hold(torch, kernels, mesh, arch, st, kind):
 
 
 def sp_train(torch, kernels, mesh, part):
-    """(a) or (b): the train_4k cell of SEQ_PAR_TRAIN[part] with its flag,
-    at its depth, bound to this rank's mesh (``Cell.bind``), SEQ_PAR_STEPS
-    steps; the context-parallel cell's moments' blocks against its
-    stand-ins' specs (``zero_moment_specs``); then the fp32 hold."""
-    from repro_torch.launch.cells import build_cell
+    """(a), (b), (f) or (g): the train_4k cell of SEQ_PAR_TRAIN[part] with
+    its flag, at its depth, bound to this rank's mesh (``Cell.bind``; a
+    DFabric cell cut in depth through the step factory, with the cell's
+    settings), its steps; the context-parallel cell's moments' blocks
+    against its stand-ins' specs (``zero_moment_specs``); then the fp32
+    hold."""
+    from repro_torch.launch.cells import Bound, build_cell
+    from repro_torch.models import build_model
     from repro_torch.models.sharding import local_shape
     from repro_torch.utils.trees import tree_paths
-    name, flag, depth = SEQ_PAR_TRAIN[part]
-    cell = build_cell(name, "train_4k", SEQ_PAR_SIZES, attn_impl="kernel", **{flag: True})
-    if depth:
-        cell.arch = cell.arch.replace(n_layers=depth)
-    bound = cell.bind(mesh, device="cuda", seed=SEED)
-    state = bound.init()
+    run = SEQ_PAR_TRAIN[part]
+    cell = build_cell(run.arch, "train_4k", SEQ_PAR_SIZES, attn_impl="kernel",
+                      **{run.flag: True})
+    if cell.arch.rwkv is not None:  # the cell's settings, K3 in the forward
+        cell.model.settings = dataclasses.replace(cell.model.settings,
+                                                  use_kernel_ssm=True)
+    if run.depth:
+        cell.arch = cell.arch.replace(n_layers=run.depth)
     st = cell.model.settings
+    if run.depth and cell.step_kind == "dfabric":
+        # the cell's sync plan is the whole model's: the cut model, with
+        # the cell's settings, gets its own from the DFabric step factory
+        model = build_model(cell.arch, st, device="cuda", seed=SEED)
+        bound = Bound(model, *sp_factory(model, mesh, part))
+    else:
+        bound = cell.bind(mesh, device="cuda", seed=SEED)
+    state = bound.init()
     rec = dict(step_kind=cell.step_kind, microbatches=cell.microbatches,
-               settings=dataclasses.asdict(st), n_steps=SEQ_PAR_STEPS,
-               layers=cell.arch.n_layers,
+               settings=dataclasses.asdict(st), n_steps=run.steps, seq=run.seq,
+               layers=cell.arch.n_layers, fp32_layers=run.fp32_layers,
+               fp32_seq=run.fp32_seq,
                expected={k: n * cell.microbatches
                          for k, n in expected_launches(cell.arch, st).items()},
                mem_after_init_gb=torch.cuda.memory_allocated() / 1e9)
@@ -4013,11 +4155,12 @@ def sp_train(torch, kernels, mesh, part):
         rec["moments"] = dict(equal=got == want, leaves=len(want), split=sum(
             math.prod(v) < math.prod(blocks[k]) for k, v in want.items()))
     rec["steps"], state = sp_steps(torch, kernels, mesh, bound.model, bound.run, state,
-                                   SEQ_PAR_STEPS)
+                                   run.steps, seq=run.seq)
     del bound, state
     gc.collect()
     torch.cuda.empty_cache()
-    _, rec["fp32"] = sp_fp32_hold(torch, kernels, mesh, cell.arch, st, part)
+    _, rec["fp32"] = sp_fp32_hold(torch, kernels, mesh, cell.arch, st, part,
+                                  layers=run.fp32_layers, seq=run.fp32_seq)
     return rec
 
 
@@ -4040,9 +4183,10 @@ def sp_fsdp(torch, kernels, mesh):
 
 def sp_prefill(torch, kernels, tokens, nosplit):
     """(d) qwen3-1.7b's prefill_32k cell with ``seq_shard``, one DP member
-    (B=1) on SEQ_PAR_PREFILL: bf16 at every layer, timed once; then fp32
-    at SEQ_PAR_FP32_LAYERS layers, beside ``nosplit``, the same prefill's
-    fp32 logits without the split (``[serve-mesh]`` (a)'s)."""
+    (B=1) on SEQ_PAR_PREFILL: bf16 at SEQ_PAR_PREFILL_LAYERS layers, timed
+    once; then fp32 at SERVE_MESH_FP32_LAYERS layers, beside ``nosplit``,
+    the same prefill's fp32 logits without the split (``[serve-mesh]``
+    (a)'s, at that depth)."""
     import torch.distributed as dist
     from repro_torch.core import prims
     from repro_torch.launch.cells import build_cell
@@ -4052,8 +4196,8 @@ def sp_prefill(torch, kernels, tokens, nosplit):
     arch, st = cell.arch, cell.model.settings
     toks = tokens.cuda()
     torch.cuda.reset_peak_memory_stats()
-    model = sm_model(torch, mesh, arch, st)
-    rec = dict(settings=dataclasses.asdict(st))
+    model = sm_model(torch, mesh, arch.replace(n_layers=SEQ_PAR_PREFILL_LAYERS), st)
+    rec = dict(settings=dataclasses.asdict(st), layers=SEQ_PAR_PREFILL_LAYERS)
     with prims.bind(mesh):
         dist.barrier()
         t0 = time.perf_counter()
@@ -4066,7 +4210,7 @@ def sp_prefill(torch, kernels, tokens, nosplit):
         del model, cache, logits
         gc.collect()
         torch.cuda.empty_cache()
-        model = sm_model(torch, mesh, arch.replace(n_layers=SEQ_PAR_FP32_LAYERS),
+        model = sm_model(torch, mesh, arch.replace(n_layers=SERVE_MESH_FP32_LAYERS),
                          sm_fp32(st))
         rec["fp32"] = [model.prefill(toks, batch=toks.shape[0])[0].cpu().numpy(), nosplit]
         del model
@@ -4109,21 +4253,234 @@ def sp_moe(torch):
                 whole_aux=whole_aux.item())
 
 
+#: (h) the jamba smoke with its experts under the GSPMD step with the
+#: sequence split (``HYBRID_FIELDS``, B=HYBRID_ROWS S=HYBRID_SEQ a DP
+#: member), then one full-width Mamba layer of MAMBA_CUT over model = 2 with
+#: the sequence split, B=1 S=2048
+SEQ_PAR_JAMBA_STEPS = 2
+#: (i) whisper-medium under the GSPMD step (FSDP x TP) with the sequence
+#: split, bf16, ``remat="full"``, K1 in the decoder; its depth (4 of 24 +
+#: 24, for the card's time), rows a DP member, steps, checkpoint step and
+#: fp32 hold's depth
+SEQ_PAR_WHISPER = dict(depth=4, rows=2, steps=2, ckpt=2, fp32_depth=2)
+#: (j) prefill with the sequence split on SEQ_PAR_PREFILL, B=1: rwkv6-1.6b's
+#: prefill_32k cell at every layer, and the jamba block (one_card_arch) at
+#: S=8192; the fp32 holds: rwkv6 at 4 layers over the first 8192 tokens (at
+#: 32768 its two prefills took 10-20 s of the run's 31-53 s), jamba a Mamba
+#: layer and the attention layer (attn_every 2: 11 GB in fp32, built by the
+#: ranks at once; 4 layers, 20 GB, had to be built in turns)
+SEQ_PAR_JAMBA_PREFILL_SEQ = 8192
+SEQ_PAR_RWKV_FP32_SEQ = 8192
+#: the planned MoE dispatch: one deepseek-moe-16b MoE layer in fp32, its
+#: experts over model, each DP member's row of a 2 x 2048 global batch
+#: routed with the batch's; a 4-member all-to-all at chunks 2, lane offset 1
+SEQ_PAR_SCHED = dict(chunks=2, lane_offset=1, members=4)
+
+
+def sp_jamba(torch, mesh, out_dir):
+    """(h) on this rank: the jamba smoke with its experts, the ``Trainer``
+    in GSPMD mode with ``seq_axis``/``batch_axes`` on SEQ_PAR_SIZES
+    (:func:`step_recorder`), then its block of the full-width Mamba layer
+    of MAMBA_CUT (its DP member's dtype) with the sequence split
+    (:func:`mamba_member_grads`)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    rec = {"steps": []}
+    start, on_step = step_recorder(rec)
+    st = ModelSettings(**HYBRID_FIELDS, seq_axis="model", batch_axes=("pod", "data"))
+    trainer = Trainer(build_model(get_smoke_arch("jamba-1.5-large-398b"), st,
+                                  device="cuda", seed=SEED),
+                      mesh, ShapeConfig("custom", HYBRID_SEQ, HYBRID_ROWS * 2, "train"),
+                      TrainerConfig(steps=SEQ_PAR_JAMBA_STEPS, lr=3e-4, warmup=1,
+                                    mode="gspmd"))
+    params, opt, step0 = trainer.init_state()
+    start(trainer)
+    trainer.train(params, opt, step0, on_step=on_step)
+    rec["settings"] = dataclasses.asdict(st)
+    del trainer, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["mamba"] = mamba_member_grads(torch, mesh, out_dir, sp="model")
+    rec["coords"] = mesh.coords
+    return rec
+
+
+def sp_whisper(torch, kernels, mesh, ckpt_dir):
+    """(i) on this rank: whisper-medium at SEQ_PAR_WHISPER's depth, the
+    ``Trainer`` in GSPMD mode (FSDP over data x TP over model) with
+    ``seq_axis``/``batch_axes``, its frames from the data pipeline,
+    recorded by :func:`step_recorder`, a checkpoint at its last step
+    restored into a fresh model; then the fp32 hold at 2 + 2 layers, the
+    GSPMD step with the split against the DFabric step without it."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    w, seq = SEQ_PAR_WHISPER, whisper_seq()
+    arch = family_arch("whisper-medium", w["depth"])[0]
+    st = ModelSettings(**BF16, remat="full", attn_impl="kernel", max_seq=seq,
+                       seq_axis="model", batch_axes=("pod", "data"))
+    rec = {"steps": [], "settings": dataclasses.asdict(st), "seq": seq}
+    start, on_step = step_recorder(rec, ckpt_at=w["ckpt"])
+    shape = ShapeConfig("custom", seq, w["rows"] * 2, "train")
+    cfg = TrainerConfig(steps=w["steps"], lr=3e-4, warmup=1, mode="gspmd",
+                        ckpt_dir=ckpt_dir, ckpt_every=w["ckpt"])
+    trainer = Trainer(build_model(arch, st, device="cuda", seed=SEED), mesh, shape, cfg)
+    params, opt, step0 = trainer.init_state()
+    start(trainer)
+    trainer.train(params, opt, step0, on_step=on_step)
+    rec["specs"] = {k: v for k, v in trainer.model.layout.specs.items()
+                    if k.startswith(("enc_blocks/", "blocks/l0/xattn/"))}
+    del trainer, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = Trainer(build_model(arch, st, device="cuda", seed=SEED + 1), mesh, shape, cfg)
+    params, opt, step = fresh.try_restore()
+    got = state_digests(params, opt)
+    rec["restore"] = dict(step=step, restore_s=fresh.restore_s, leaves=len(got),
+                          equal=sum(got[k] == v for k, v in rec["ckpt_digests"].items()))
+    del fresh, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, rec["fp32"] = sp_fp32_hold(torch, kernels, mesh, arch, st, "i",
+                                  layers=w["fp32_depth"], seq=seq, rows=w["rows"],
+                                  nosplit_kind="a")
+    return rec
+
+
+def sp_prefill_family(torch, kernels, part, toks):
+    """(j) on this rank of SEQ_PAR_PREFILL: rwkv6-1.6b's prefill_32k cell
+    with ``seq_shard`` (``part`` "rwkv") or the jamba block at S=8192
+    ("jamba"), B=1, bf16 at every layer, K3/K4 (and K1) in the forward,
+    timed once; then in fp32 at the hold's depth with the split and
+    without it on the same tokens: the logits, every cache leaf and each
+    recurrence's output a layer."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import one_card_arch
+    from repro_torch.core import prims
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.utils.trees import tree_paths
+    mesh = prims.Mesh(SEQ_PAR_PREFILL)
+    name = "rwkv6-1.6b" if part == "rwkv" else "jamba-1.5-large-398b"
+    cell = build_cell(name, "prefill_32k", CELL_MESH, seq_shard=True, attn_impl="kernel")
+    st = dataclasses.replace(cell.model.settings, use_kernel_ssm=True)
+    if part == "rwkv":
+        arch, hold, turns = cell.arch, dict(n_layers=4), 1
+        hold_toks = toks[:, :SEQ_PAR_RWKV_FP32_SEQ].cuda()
+    else:
+        # 18 GB uncut in bf16: two ranks' at a time
+        arch, hold, turns = (one_card_arch(name)[0], SERVE_MESH_JAMBA_FP32, 2)
+        toks = toks[:, :SEQ_PAR_JAMBA_PREFILL_SEQ]
+        hold_toks = toks.cuda()
+    toks = toks.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    model = sm_model(torch, mesh, arch, st, turns=turns)
+    rec = dict(settings=dataclasses.asdict(st), seq=toks.shape[1], layers=arch.n_layers,
+               hold=dict(hold, seq=hold_toks.shape[1]))
+    with prims.bind(mesh):
+        dist.barrier()
+        t0 = time.perf_counter()
+        (logits, cache), launches = drive_path(
+            kernels, lambda: model.prefill(toks, batch=toks.shape[0]))
+        rec.update(ms=(time.perf_counter() - t0) * 1e3, launches=launches,
+                   shape=tuple(logits.shape), finite=bool(torch.isfinite(logits).all()),
+                   cache={k: tuple(v.shape) for k, v in tree_paths(cache).items()},
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = []
+        for split in (True, False):
+            fields = {} if split else dict(seq_axis=None, batch_axes=None)
+            model = sm_model(torch, mesh, arch.replace(**hold),
+                             dataclasses.replace(sm_fp32(st), **fields))
+            (lg, cache), seen = sm_recorded(
+                lambda: model.prefill(hold_toks, batch=hold_toks.shape[0]))
+            runs.append(((lg.cpu(), tree_paths(cache)), [y for _, y in seen]))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    ((lg, c), ys), ((lg0, c0), ys0) = runs
+    rec["fp32"] = dict(
+        logits=(lg - lg0).abs().max().item(), scale=lg0.abs().max().item(),
+        cache={k: (c[k].float() - c0[k].float()).abs().max().item() for k in c0},
+        shapes_equal=all(c[k].shape == c0[k].shape for k in c0),
+        drift=[float(np.abs(y - y0).max() / max(np.abs(y0).max(), 1e-30))
+               for y, y0 in zip(ys, ys0)],
+        calls=(len(ys), len(ys0)))
+    return rec
+
+
+def sp_sched(torch, mesh):
+    """The planned dispatch on this rank of SEQ_PAR_SIZES: one
+    deepseek-moe-16b MoE layer in fp32 (MOE_CUT_SEED), its experts split
+    over model (32 of 64 a member), this DP member's row of a 2 x 2048
+    global batch routed with the batch's (``token_axes``), once without a
+    schedule and once with SEQ_PAR_SCHED's, planned for the whole batch's
+    dispatch buffer: whether the outputs and aux losses are bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prims, schedule, topology
+    from repro_torch.models import layers as L
+    arch, dev = get_arch("deepseek-moe-16b"), torch.device("cuda")
+    moe, d, sc = arch.moe, arch.d_model, SEQ_PAR_SCHED
+    gen = torch.Generator(device=dev).manual_seed(MOE_CUT_SEED)
+    p = L.init_moe(arch, gen, (), torch.float32, dev)
+    n, r = mesh.sizes["model"], mesh.coords["model"]
+    El = moe.num_experts // n
+    for k in ("we_in", "we_gate", "we_out"):
+        p[k] = p[k][r * El:(r + 1) * El].contiguous()
+    x = (torch.randn((2, S_MAIN, d), generator=gen, device=dev)
+         + 0.5 * torch.randn(d, generator=gen, device=dev))
+    C = L.moe_capacity(2 * S_MAIN, moe.top_k, moe.num_experts, moe.capacity_factor)
+    m = sc["members"]
+    numel = m * (moe.num_experts // m) * C * d
+    fab = topology.as_fabric(topology.TwoTierTopology(
+        num_pods=m, pod_shape=(1,))).with_paths(topology.cxl_shortcut_path())
+    plan = schedule.build_all_to_all(
+        fab, schedule.SyncConfig(chunks=sc["chunks"], path_split=(("cxl", 0.5),)),
+        (m, numel // m), "float32").with_lane_offset(sc["lane_offset"])
+    row = mesh.coords["data"]
+    kw = dict(dispatch_spec=(None, "model"), token_axes=("data",))
+    with prims.bind(mesh), torch.no_grad():
+        y0, a0 = L.apply_moe(arch, p, x[row:row + 1], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y1, a1 = L.apply_moe(arch, p, x[row:row + 1], dispatch_schedule=plan, **kw)
+        torch.cuda.synchronize()
+    return dict(equal=bool(torch.equal(y0, y1)), aux_equal=bool(torch.equal(a0, a1)),
+                s=time.perf_counter() - t0, experts=El, slow_legs=len(plan.slow_legs),
+                issue=[leg.index for leg in plan.slow_legs], capacity=C)
+
+
+#: where (h)'s gradient blocks and (i)'s checkpoint are written
+SEQ_PAR_DIR = os.path.join(HERE, "build", "seq_par")
+
+
 def seq_par_runs(torch, kernels, inputs, sm):
-    """This rank's ``[seq-par]`` runs: (a)-(c) on SEQ_PAR_SIZES, (d) on
-    SEQ_PAR_PREFILL on ``[serve-mesh]`` (a)'s tokens (its fp32 logits,
-    ``sm["a"]["fp32"]``, are the prefill without the split on the same
-    mesh and settings), (e) on SEQ_PAR_MOE, each run's launches counted in
-    this process."""
+    """This rank's ``[seq-par]`` runs: (a)-(c), (f)-(i) and the planned dispatch on SEQ_PAR_SIZES,
+    (d) and (j) on SEQ_PAR_PREFILL, (d) on ``[serve-mesh]`` (a)'s tokens
+    (its fp32 logits, ``sm["a"]["fp32"]``, are the prefill without the
+    split on the same mesh and settings), (e) on SEQ_PAR_MOE, each run's
+    launches counted in this process."""
     from repro_torch.core import prims
     mesh = prims.Mesh(SEQ_PAR_SIZES)
     rec = {"s": {}}
-    for part, fn in (("a", lambda: sp_train(torch, kernels, mesh, "a")),
-                     ("b", lambda: sp_train(torch, kernels, mesh, "b")),
-                     ("c", lambda: sp_fsdp(torch, kernels, mesh)),
-                     ("d", lambda: sp_prefill(torch, kernels, inputs["a"],
-                                              sm["a"]["fp32"])),
-                     ("e", lambda: sp_moe(torch))):
+    runs = (("a", lambda: sp_train(torch, kernels, mesh, "a")),
+            ("b", lambda: sp_train(torch, kernels, mesh, "b")),
+            ("c", lambda: sp_fsdp(torch, kernels, mesh)),
+            ("d", lambda: sp_prefill(torch, kernels, inputs["a"], sm["a"]["fp32"])),
+            ("e", lambda: sp_moe(torch)),
+            ("f", lambda: sp_train(torch, kernels, mesh, "f")),
+            ("g", lambda: sp_train(torch, kernels, mesh, "g")),
+            ("h", lambda: sp_jamba(torch, mesh, SEQ_PAR_DIR)),
+            ("i", lambda: sp_whisper(torch, kernels, mesh,
+                                     os.path.join(SEQ_PAR_DIR, "ckpt_whisper"))),
+            ("j-rwkv", lambda: sp_prefill_family(torch, kernels, "rwkv", inputs["j"])),
+            ("j-jamba", lambda: sp_prefill_family(torch, kernels, "jamba", inputs["j"])),
+            ("sched", lambda: sp_sched(torch, mesh)))
+    for part, fn in runs:
         t0 = time.perf_counter()
         rec[part] = fn()
         rec["s"][part] = time.perf_counter() - t0
@@ -4133,20 +4490,23 @@ def seq_par_runs(torch, kernels, inputs, sm):
 
 
 def sp_check_train(part, recs, card):
-    """(a), (b) or (c): every rank's launches as the code counts them,
-    finite losses the ranks agree on, the blocks two members hold alike
-    bit-equal after every step; the fp32 hold: step 0's loss within 1e-5
-    and its gradient norm within 1e-4 of the step without the split."""
+    """(a), (b), (c), (f) or (g): every rank's launches as the code counts
+    them, finite losses the ranks agree on, the blocks two members hold
+    alike bit-equal after every step; the fp32 hold: step 0's loss within
+    1e-5 and its gradient norm within 1e-4 of the step without the split,
+    and a MoE layer's dropped slots equal to those without it, layer by
+    layer."""
     tag = f"[seq-par] ({part})"
     r0 = recs[0]
     want = dict(r0["expected"], quantize_ef_fwd=0)
-    tokens = 2 * SEQ_PAR_SEQ  # the global batch: B=1 a DP member
+    tokens = 2 * r0.get("seq", SEQ_PAR_SEQ)  # the global batch: B=1 a DP member
     for rank, rec in enumerate(recs):
         for st in rec["steps"]:
             log(f"{tag} rank {rank} step {st['step']}: loss={st['loss']:.6f} "
                 f"grad_norm={st['grad_norm']:.4f} step_s={st['dt']:.3f} "
                 f"tok/s={tokens / st['dt']:.0f} (global batch) launches={st['launches']} "
                 f"(expected {want}) collectives {st['calls']} "
+                f"{'dropped slots a MoE dispatch ' + str(st['drops']) + ' ' if st['drops'] else ''}"
                 f"blocks_bit_equal={st['agree']} ({st['shared']} "
                 f"blocks held by 2+ members) peak_gb={st['peak_gb']:.2f} | {card}")
             if st["launches"] != want:
@@ -4166,16 +4526,23 @@ def sp_check_train(part, recs, card):
                 f"beyond the parameter's block)")
             if not (m["equal"] and m["split"] > 0):
                 raise AssertionError(f"{tag} rank {rank}: moments {m}")
-    (loss, gnorm, calls), (loss0, gnorm0, calls0) = r0["fp32"]
+    (loss, gnorm, calls, drops), (loss0, gnorm0, calls0, drops0) = r0["fp32"]
     rel_l, rel_g = abs(loss - loss0) / abs(loss0), abs(gnorm - gnorm0) / abs(gnorm0)
-    log(f"{tag} fp32 at {SEQ_PAR_FP32_LAYERS} layers, step 0 with the sequence split "
+    log(f"{tag} fp32 at {r0.get('fp32_layers', SEQ_PAR_FP32_LAYERS)} layers, S="
+        f"{r0.get('fp32_seq', SEQ_PAR_SEQ)}, step 0 with the sequence split "
         f"against without it: loss {loss!r} vs {loss0!r} rel {rel_l:.2e} (tol 1e-5); "
         f"grad_norm {gnorm!r} vs {gnorm0!r} rel {rel_g:.2e} (tol 1e-4); the model's "
-        f"collectives a rank {calls} vs {calls0}")
+        f"collectives a rank {calls} vs {calls0}"
+        f"{f'; dropped slots a MoE dispatch {drops} vs {drops0}' if drops0 else ''}")
+    for rank, rec in enumerate(recs):  # each DP member routes its own rows
+        (*_, d), (*_, d0) = rec["fp32"]
+        if d != d0 or (part == "f" and not d0):
+            raise AssertionError(f"{tag} rank {rank}: the split step's drops {d} "
+                                 f"differ from {d0}")
     if not calls["reduce_scatter"] > calls0["reduce_scatter"]:
         raise AssertionError(f"{tag} the split step ran no more reduce-scatters than "
                              f"the step without it")
-    if any(rec["fp32"] != r0["fp32"] for rec in recs):
+    if any([h[:3] for h in rec["fp32"]] != [h[:3] for h in r0["fp32"]] for rec in recs):
         raise AssertionError(f"{tag} the ranks' fp32 holds differ")
     if not (rel_l <= 1e-5 and rel_g <= 1e-4):
         raise AssertionError(f"{tag} the split step is off the step without it")
@@ -4183,14 +4550,14 @@ def sp_check_train(part, recs, card):
 
 def sp_check_prefill(torch, recs, tokens, card):
     """(d): K1 in every layer on every rank, the logits (1, vocab) and
-    finite, the cache the whole sequence; fp32 at SEQ_PAR_FP32_LAYERS
+    finite, the cache the whole sequence; fp32 at SERVE_MESH_FP32_LAYERS
     layers with the split within atol = rtol = 1e-5 of without it."""
     import numpy as np
     from repro_torch.configs import get_arch
     qwen3 = get_arch("qwen3-1.7b")
     d = recs[0]["d"]
     want = {k: 0 for k in kernel_modules()}
-    want["flash_attention_fwd"] = qwen3.n_layers
+    want["flash_attention_fwd"] = d["layers"]
     for rank, rec in enumerate(recs):
         if rec["d"]["launches"] != want or rec["d"]["shape"] != (1, qwen3.vocab) \
                 or not rec["d"]["finite"] or rec["d"]["cache_seq"] != tokens.shape[1]:
@@ -4200,12 +4567,13 @@ def sp_check_prefill(torch, recs, tokens, card):
     err = max(float(np.abs(rec["d"]["fp32"][0] - rec["d"]["fp32"][1]).max())
               for rec in recs)
     S = tokens.shape[1]
-    log(f"[seq-par] (d) qwen3-1.7b prefill_32k seq_shard, one DP member of "
+    log(f"[seq-par] (d) qwen3-1.7b prefill_32k seq_shard at {d['layers']} of "
+        f"{qwen3.n_layers} layers, one DP member of "
         f"{CELL_MESH} cut to {SEQ_PAR_PREFILL}: B=1 S={S} bf16, K1 a rank "
         f"{d['launches']['flash_attention_fwd']} on the gathered sequence; "
         f"prefill_ms={d['ms']:.2f} tok/s={S / d['ms'] * 1e3:.0f} peak_gb a rank="
         f"{[round(r['d']['peak_gb'], 2) for r in recs]}; fp32 logits at "
-        f"{SEQ_PAR_FP32_LAYERS} layers with the split vs without max_abs_diff="
+        f"{SERVE_MESH_FP32_LAYERS} layers with the split vs without max_abs_diff="
         f"{err:.3e} (atol=rtol=1e-5) | {card}")
     for rank, rec in enumerate(recs):
         torch.testing.assert_close(
@@ -4231,6 +4599,117 @@ def sp_check_moe(recs, card):
         raise AssertionError("(e) the members' layer is off the whole layer's")
     if any(abs(r["e"]["aux"] - r["e"]["whole_aux"]) > 1e-6 for r in recs):
         raise AssertionError("(e) the aux loss is off the whole layer's")
+
+
+def sp_check_jamba(torch, recs, card):
+    """(h): the jamba smoke's steps by :func:`check_tp_steps`; the Mamba
+    layer with the sequence split by :func:`check_mamba_cut` against the
+    unsharded layer through the plain scan."""
+    h = [r["h"] for r in recs]
+    log(f"[seq-par] (h) jamba smoke with its experts, GSPMD on {SEQ_PAR_SIZES} with "
+        f"the sequence split, {h[0]['settings']}, B={HYBRID_ROWS} S={HYBRID_SEQ} a DP "
+        f"member, {SEQ_PAR_JAMBA_STEPS} steps | {card}")
+    check_tp_steps("seq-par (h)", h, card, HYBRID_ROWS * 2 * HYBRID_SEQ)
+    check_mamba_cut(torch, h, SEQ_PAR_DIR, card, sp=True)
+
+
+def sp_check_whisper(recs, card):
+    """(i): the steps by :func:`check_tp_steps` (K1 a rank a step as
+    ``expected_launches`` counts it), the encoder's and the cross
+    attention's blocks split over data (FSDP) and model, the checkpoint
+    restored bit for bit on every rank; the fp32 hold at 2 + 2 layers:
+    step 0's loss within 1e-5 of the DFabric step without the split."""
+    w, r0 = SEQ_PAR_WHISPER, recs[0]["i"]
+    log(f"[seq-par] (i) whisper-medium at {w['depth']} + {w['depth']} of its 24 + 24 "
+        f"layers, GSPMD (FSDP over data x TP over model) on {SEQ_PAR_SIZES} with the "
+        f"sequence split, {r0['settings']}, B={w['rows']} S={r0['seq']} a DP member "
+        f"over its frames, {w['steps']} steps, a checkpoint at step {w['ckpt']} | {card}")
+    check_tp_steps("seq-par (i)", [r["i"] for r in recs], card, w["rows"] * 2 * r0["seq"])
+    split = {k: sp for k, sp in r0["specs"].items() if "data" in sp and "model" in sp}
+    if not (any(k.startswith("enc_blocks/") for k in split)
+            and any("/xattn/" in k for k in split)):
+        raise AssertionError(f"(i) the encoder's or the cross attention's blocks are "
+                             f"not split over data and model: {r0['specs']}")
+    for rank, rec in enumerate(r["i"] for r in recs):
+        r = rec["restore"]
+        log(f"[seq-par] (i) rank {rank}: restored step {r['step']} into a fresh model in "
+            f"{r['restore_s']:.2f} s; {r['equal']} of {r['leaves']} blocks (parameters, "
+            f"m, v, step) bit-equal to this rank's at step {w['ckpt']}")
+        if r["step"] != w["ckpt"] or r["equal"] != r["leaves"] \
+                or r["leaves"] != len(rec["ckpt_digests"]):
+            raise AssertionError(f"(i) rank {rank}'s restore differs: {r}")
+    (loss, gnorm, calls, _), (loss0, gnorm0, calls0, _) = r0["fp32"]
+    rel = abs(loss - loss0) / abs(loss0)
+    log(f"[seq-par] (i) fp32 at {w['fp32_depth']} + {w['fp32_depth']} layers, step 0: "
+        f"the GSPMD step with the split {loss!r} against the DFabric step without it "
+        f"{loss0!r}, rel {rel:.2e} (tol 1e-5); grad_norm {gnorm!r} vs {gnorm0!r}; the "
+        f"model's collectives a rank {calls} vs {calls0}")
+    if any(rec["i"]["fp32"][0][0] != loss for rec in recs) or not rel <= 1e-5:
+        raise AssertionError("(i) the split GSPMD step is off the DFabric step")
+
+
+def sp_check_prefill_family(torch, part, recs, card):
+    """(j): K3 (rwkv6: 24 a rank) or K4 and K1 (the jamba block: 7 and 1)
+    launched on every rank, the logits (1, vocab) and finite, the
+    attention cache the whole sequence; fp32 at the hold's depth: each
+    recurrence's drift between the split and the unsplit prefill, layer
+    by layer, then the logits and every cache leaf (the recurrent states
+    the whole sequence's) within 1e-5 (rwkv6: 1e-3) of the unsplit's."""
+    from repro_torch.configs import get_arch, one_card_arch
+    key = f"j-{part}"
+    arch = (get_arch("rwkv6-1.6b") if part == "rwkv"
+            else one_card_arch("jamba-1.5-large-398b")[0])
+    n_attn = 0 if part == "rwkv" else len(arch.attn_layer_ids())
+    want = {k: 0 for k in kernel_modules()}
+    want.update({"wkv6_fwd": arch.n_layers} if part == "rwkv" else
+                {"mamba_scan_fwd": arch.n_layers - n_attn, "flash_attention_fwd": n_attn})
+    tol = 1e-3 if part == "rwkv" else 1e-5
+    j = recs[0][key]
+    S = j["seq"]
+    log(f"[seq-par] (j) {arch.name} prefill with the sequence split on "
+        f"{SEQ_PAR_PREFILL}, B=1 S={S}, {j['layers']} layers, bf16, {j['settings']}: "
+        f"launches a rank {j['launches']} (expected {want}); prefill_ms={j['ms']:.2f} "
+        f"tok/s={S / j['ms'] * 1e3:.0f} peak_gb a rank="
+        f"{[round(r[key]['peak_gb'], 2) for r in recs]}; cache {j['cache']} | {card}")
+    for rank, rec in enumerate(r[key] for r in recs):
+        seqs = [shape[2] for k, shape in rec["cache"].items() if k.endswith("/k")]
+        if rec["launches"] != want or rec["shape"] != (1, arch.vocab) \
+                or not rec["finite"] or any(n != S for n in seqs):
+            raise AssertionError(f"(j) {part} rank {rank}: launches {rec['launches']}, "
+                                 f"logits {rec['shape']} finite {rec['finite']}, "
+                                 f"attention cache rows {seqs}")
+    for rank, rec in enumerate(r[key] for r in recs):
+        f = rec["fp32"]
+        log(f"[seq-par] (j) {part} rank {rank} fp32 at {rec['hold']}: each "
+            f"recurrence's output, the "
+            f"split prefill's relative drift from the unsplit's, first layer to last: "
+            f"{' '.join(f'{x:.2e}' for x in f['drift'])} ({f['calls']} calls); logits "
+            f"max_abs_diff {f['logits']:.3e} of max {f['scale']:.3e}; cache leaves' "
+            f"max_abs_diff {{{', '.join(f'{k}: {v:.2e}' for k, v in f['cache'].items())}}} "
+            f"(atol = rtol = {tol})")
+        if f["calls"][0] != f["calls"][1] or not f["shapes_equal"] \
+                or f["logits"] > tol * (1 + f["scale"]) \
+                or any(v > tol * (1 + f["scale"]) for v in f["cache"].values()):
+            raise AssertionError(f"(j) {part} rank {rank}: the split prefill is off "
+                                 f"the unsplit one: {f}")
+
+
+def sp_check_sched(recs, card):
+    """The planned dispatch with split experts over the GSPMD step's rows:
+    every rank's output and aux loss bit-equal to the unscheduled layer's."""
+    r0 = recs[0]["sched"]
+    log(f"[seq-par] planned dispatch: one deepseek-moe-16b MoE layer fp32, "
+        f"{r0['experts']} of 64 experts a model member, each DP member's row of 2 x "
+        f"{S_MAIN} routed with the batch's (capacity {r0['capacity']}), a "
+        f"{SEQ_PAR_SCHED['members']}-member all-to-all at chunks "
+        f"{SEQ_PAR_SCHED['chunks']}, lane offset {SEQ_PAR_SCHED['lane_offset']} "
+        f"({r0['slow_legs']} slow legs issued in order {r0['issue']}): output bit-equal "
+        f"to the unscheduled layer on the ranks "
+        f"{[r['sched']['equal'] for r in recs]}, aux "
+        f"{[r['sched']['aux_equal'] for r in recs]}; {r0['s'] * 1e3:.1f} ms on rank 0 "
+        f"| {card}")
+    if not all(r["sched"]["equal"] and r["sched"]["aux_equal"] for r in recs):
+        raise AssertionError("the scheduled dispatch is not bit-equal to the unscheduled")
 
 
 def seq_par_phase(torch, card, phase_done, recs, inputs):
@@ -4265,6 +4744,24 @@ def seq_par_phase(torch, card, phase_done, recs, inputs):
          lambda: sp_check_prefill(torch, recs, tokens, card))
     held("(e) deepseek MoE layer, moe_groups", lambda: sp_check_moe(recs, card))
     phase_done("seq-par: (d) prefill_32k seq_shard, (e) MoE groups")
+
+    for part, what in (("f", "deepseek-moe-16b train_4k seq_shard, DFabric"),
+                       ("g", "rwkv6-1.6b train_4k seq_shard, DFabric")):
+        log(f"[seq-par] ({part}) {what} on {SEQ_PAR_SIZES}, B=1 S={r0[part]['seq']} a "
+            f"DP member, {r0[part]['layers']} layers, {r0[part]['n_steps']} step(s): "
+            f"step kind {r0[part]['step_kind']}, settings {r0[part]['settings']}")
+        held(f"({part}) {what}",
+             lambda part=part: sp_check_train(part, [r[part] for r in recs], card))
+    held("(h) jamba smoke and a Mamba layer, GSPMD with the split",
+         lambda: sp_check_jamba(torch, recs, card))
+    held("(i) whisper-medium GSPMD with the split", lambda: sp_check_whisper(recs, card))
+    phase_done("seq-par: (f) deepseek, (g) rwkv6, (h) jamba, (i) whisper with the split")
+    for part in ("rwkv", "jamba"):
+        held(f"(j) {part} prefill with the split",
+             lambda part=part: sp_check_prefill_family(torch, part, recs, card))
+    held("the planned dispatch over split experts", lambda: sp_check_sched(recs, card))
+    shutil.rmtree(SEQ_PAR_DIR, ignore_errors=True)
+    phase_done("seq-par: (j) rwkv6 and jamba prefill with the split, planned dispatch")
     if failed:
         raise AssertionError(f"[seq-par] failed: {'; '.join(failed)}")
 
@@ -4370,7 +4867,23 @@ def main() -> None:
                  # (c): a model member's 8 heads of qwen3, fp32
                  ("main-seq-par-c-float32", 1, qwen3.n_heads // 2,
                   qwen3.n_kv_heads // 2, SEQ_PAR_SEQ, qwen3.resolved_head_dim,
-                  "float32")))
+                  "float32"),
+                 # (f): a model member's 8 heads of deepseek on the gathered
+                 # 4096-long sequence (its fp32 hold's is (c)'s shape); (i):
+                 # whisper's decoder, 8 heads, 2 rows of 448; (j): the jamba
+                 # block's 16 query heads at model = 4, the kv repeated per
+                 # head (the cell's gqa_repeat), S=8192; (h): the jamba
+                 # smoke's 2 heads and its kv head, 2 rows of 512
+                 ("main-seq-par-f", 1, deepseek.n_heads // 2, deepseek.n_kv_heads // 2,
+                  SEQ_PAR_SEQ, deepseek.resolved_head_dim, "bfloat16"),
+                 *((f"main-seq-par-{part}-{dt}", B, a.n_heads // n,
+                    a.n_kv_heads // n if part != "j" else a.n_heads // n, S,
+                    a.resolved_head_dim, dt)
+                   for part, a, B, n, S in (
+                       ("i", whisper, SEQ_PAR_WHISPER["rows"], 2, whisper_seq()),
+                       ("j", jamba, 1, 4, SEQ_PAR_JAMBA_PREFILL_SEQ))
+                   for dt in ("bfloat16", "float32")),
+                 ("main-seq-par-h", HYBRID_ROWS, 2, 1, HYBRID_SEQ, 16, "bfloat16")))
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
@@ -4438,20 +4951,23 @@ def main() -> None:
     phase_done("jamba cut: K4, prefill, serve")
 
     # ---- the decoders of the MoE slice: K1 in every prefill layer ----------
-    # deepseek-moe-16b whole (33.8 GB in bf16); its full-depth fp32 model
-    # (67.5 GB) cannot sit beside it, so the fp32 checks build 2 layers
-    decoder_path(torch, gen, dev, deepseek, counters, fp32_layers=2, full_depth=False)
+    for a in (deepseek, stablelm, nemotron):
+        log(f"[{a.name}] served at {SERVE_LAYERS[a.name]} of its {a.n_layers} layers")
+    # deepseek-moe-16b (33.8 GB in bf16 whole); its fp32 checks build 2 layers
+    decoder_path(torch, gen, dev, deepseek.replace(n_layers=SERVE_LAYERS[deepseek.name]),
+                 counters, fp32_layers=2, full_depth=False)
     phase_done("deepseek-moe-16b: experts, K1 prefill, serve")
     decoder_path(torch, gen, dev, qwen3, counters)
     phase_done("qwen3-1.7b: qk-norm, K1 prefill, serve")
-    # stablelm-12b: 24.3 GB in bf16; its fp32 checks on a 4-layer model
-    decoder_path(torch, gen, dev, stablelm, counters, fp32_layers=4, full_depth=False)
+    # stablelm-12b (24.3 GB in bf16 whole); its fp32 checks on a 4-layer model
+    decoder_path(torch, gen, dev, stablelm.replace(n_layers=SERVE_LAYERS[stablelm.name]),
+                 counters, fp32_layers=4, full_depth=False)
     phase_done("stablelm-12b: K1 at hd 160, prefill, serve")
-    # nemotron-4-340b cut to 4 layers (46.5 GB in bf16); one fp32 layer is
-    # 51.6 GB with its vocab, so its checks run after the bf16 model is freed
+    # nemotron-4-340b cut to one card; one fp32 layer is 51.6 GB with its
+    # vocab, so its checks run after the bf16 model is freed
     log(f"[nemotron] {nemotron.name} cut to one card: {'; '.join(nemotron_cuts)}")
-    decoder_path(torch, gen, dev, nemotron, counters, fp32_layers=1,
-                 full_depth=False, fp32_last=True)
+    decoder_path(torch, gen, dev, nemotron.replace(n_layers=SERVE_LAYERS[nemotron.name]),
+                 counters, fp32_layers=1, full_depth=False, fp32_last=True)
     phase_done("nemotron-4-340b cut: K1 at hd 192, prefill, serve")
     # whisper-medium whole (24 encoder + 24 decoder layers, 1.6 GB in bf16)
     # at its text context, frames (B, 1500, 1024) drawn from the seed

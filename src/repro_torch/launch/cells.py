@@ -21,9 +21,8 @@ blocks whole on every model member (``tp_scope="embed_only"``), the
 sequence split over it, the fp32 moments split further by
 ``train_loop.zero_moment_specs``, the GSPMD step without FSDP;
 ``moe_groups`` > 1 gives the MoE layers dispatch groups, under the GSPMD
-step over the global batch (``layers.apply_moe``).  A sequence split of
-other than dense decoder layers raises ``NotImplementedError`` naming
-ROADMAP.md queue 1, item 8 (``transformer.check_supported``).
+step over the global batch (``layers.apply_moe``).  Every family takes
+the sequence split: dense, MoE, RWKV6, hybrid and encoder-decoder layers.
 """
 from __future__ import annotations
 
@@ -46,7 +45,7 @@ from repro_torch.models.registry import Model, build_model, numpy_dtype_name
 from repro_torch.models.transformer import ModelSettings
 from repro_torch.optim import grad_sync
 from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
-from repro_torch.runtime.train_loop import (check_gspmd, make_dfabric_train_step,
+from repro_torch.runtime.train_loop import (make_dfabric_train_step,
                                             make_gspmd_train_step,
                                             make_sync_plan, mesh_info,
                                             zero_moment_specs)
@@ -228,7 +227,6 @@ def build_cell(arch_name: str, shape_name: str, sizes: Dict[str, int], *,
                         _gspmd_binder(opt_cfg, lr_fn, mb, fsdp=False, mi=mi_cp,
                                       zero_opt=True), mb=mb)
         if fsdp:
-            check_gspmd(arch, st)
             pspecs = model.param_specs(mi)
             return cell("train", "gspmd",
                         _gspmd_args(model, shape, mi, pspecs),

@@ -30,11 +30,21 @@ meta device (``launch.cells``), then record one JSON file a cell under
 The analytic TP count: in a forward pass of a member's rows (b rows x S
 tokens, S = 1 in decode), each sublayer whose weights split over the model
 axis (attention heads, MLP or expert columns, shared experts, RWKV6 time
-and channel mix, Mamba channels, cross attention, encoder layers) sums its
-(b, S, d) output once in the compute dtype; a vocab-split embedding sums
-its lookup once and a vocab-split head reduces three (b, S) fp32 values.
-Training adds one sum of the same size a split sublayer for its input's
-gradient, and ``remat="full"`` runs each layer's forward again.  An
+and channel mix, Mamba channels, cross attention) sums its (b, S, d)
+output once in the compute dtype, each split encoder sublayer its (b,
+n_frames, d) output; a vocab-split embedding sums its lookup once and a
+vocab-split head reduces three (b, S) fp32 values.  Training adds one sum
+of the same size a split sublayer for its input's gradient, and
+``remat="full"`` runs each layer's forward again.  The sums inside those
+sublayers are counted too: Mamba's (b, S, dt_rank + 2 d_state)
+projection a forward and again in the backward; in the backward the
+RWKV6 time mix's four input gradients (three beyond the one) and its
+decay LoRA's (b, S, 64), the MoE gates' (b, S, top_k) fp32, the encoder
+output's (b, n_frames, d) gradient in each split cross attention, and
+once a microbatch the gradients of the time mix's replicated leaves used
+on a member's channels.  The parameter sums of attention's replicated
+leaves (``q_norm``/``k_norm``, kv heads that stay whole) and the gather
+of a model-split ``pos_embed`` are small and not counted.  An
 all-reduce of X bytes over n members moves 2 (n - 1) / n X a member (a
 ring); a gather or reduce-scatter to or from X bytes, (n - 1) / n X.  A
 decode cell whose attention cache is split on its sequence (B = 1: the
@@ -44,19 +54,26 @@ and two sums a layer a step, all-reduces of its (B, H_local) and (B,
 H_local, hd) fp32 values (H_local: the query heads a model member holds).
 
 Under a sequence split (``seq_shard``, ``context_parallel``; training and
-prefill) each sum of a split sublayer becomes a gather of the sequence
-before it and a reduce-scatter after it, and in the backward a
-reduce-scatter and a gather: the bytes of a ring all-reduce of the same
-(b, S, d), as before.  A whole attention sublayer (the context-parallel
-cell's blocks, or heads that do not split) gathers its input, and the
-backward gathers its output's gradient; a vocab-split embedding
-reduce-scatters its lookup and the backward gathers the gradient, a
-whole one's gradient is gathered; the stream is gathered before the final
-norm.  The leaves a member uses on its rows of the sequence only (the
-norms, and a whole MLP) have their gradients summed over the model axis
-once a microbatch.  The GSPMD step with split moments (the
-context-parallel cell's ``zero_opt``) gathers each leaf's updated parts
-over the axes that split them further, once a step.
+prefill) each sum of a split sublayer (attention, cross attention, MLP,
+routed or shared experts, RWKV6 time or channel mix, Mamba) becomes a
+gather of the sequence before it and a reduce-scatter after it, and in
+the backward a gather of its output's gradient and a reduce-scatter of
+its input's: the bytes of a ring all-reduce of the same (b, S, d), as
+before.  The RWKV6 mixes, Mamba and split experts gather their input with
+``gather_replicated`` and sum its gradient inside (``to_parallel``), so
+their backward all-reduces the whole gathered (b, S, d) where the others
+reduce-scatter it: half a sum more each.  A whole sublayer (the
+context-parallel cell's blocks, heads, channels or experts that do not
+split) gathers its input, and the backward gathers its output's
+gradient; a vocab-split embedding reduce-scatters its lookup and the
+backward gathers the gradient, a whole one's gradient is gathered; the
+stream is gathered before the final norm.  The leaves a member uses on
+its rows of the sequence only (the norms, a whole MLP or shared experts,
+RWKV6's channel-mix gate ``wr``) have their gradients summed over the
+model axis once a microbatch, and the gate's (b, S, d) input gradient is
+summed over it once a layer in the backward.  The GSPMD step with split
+moments (the context-parallel cell's ``zero_opt``) gathers each leaf's
+updated parts over the axes that split them further, once a step.
 
 Usage::
 
@@ -112,8 +129,9 @@ def _ring(nbytes: float, n: int, factor: float = 1.0) -> float:
     return factor * (n - 1) / n * nbytes if n > 1 else 0.0
 
 
-def _tp_split_sublayers(cell: Cell) -> int:
-    """Sublayers a forward pass sums over the model axis, over every layer."""
+def _tp_split_sublayers(cell: Cell) -> Tuple[int, int]:
+    """Sublayers a forward pass sums over the model axis, over every
+    layer: (the decoder's, on its tokens; the encoder's, on its frames)."""
     specs = tree_paths(cell.args[0])
     arch, tp = cell.arch, "model"
 
@@ -136,29 +154,103 @@ def _tp_split_sublayers(cell: Cell) -> int:
                    if f"{base}/moe/we_in" in specs else split(f"{base}/mlp/wi", 2))
             parts = [mixer, ffn, split(f"{base}/xattn/wq", 2)]
         n += sum(parts) * n_groups(arch)
+    enc = 0
     if arch.is_encdec and cell.mode != "decode":  # the encoder's layers
-        n += (split("enc_blocks/attn/wq", 2) + split("enc_blocks/mlp/wi", 2)) \
+        enc = (split("enc_blocks/attn/wq", 2) + split("enc_blocks/mlp/wi", 2)) \
             * arch.encoder.n_layers
-    return n
+    return n, enc
 
 
-def _sp_whole(cell: Cell) -> Tuple[int, int]:
-    """(whole attention sublayers over every layer, the bytes a member
-    holds of the whole MLPs' and the norms' leaves) of a dense decoder
-    under a sequence split: what every model member runs on the gathered
-    sequence, and the leaves it uses on its own rows only."""
+def _inner_sums(cell: Cell, itemsize: int) -> Dict[str, float]:
+    """The model axis's sums inside the RWKV6, Mamba, MoE and cross
+    attention sublayers beyond one (b, S, d) sum a pass, over every layer
+    (``itemsize``: the compute dtype's):
+
+      * ``fwd``: bytes a token summed in each forward pass: Mamba's
+        (dt_rank + 2 d_state) projection (``psum_replicated``);
+      * ``bwd``: bytes a token summed in the backward: the RWKV6 time mix's
+        input gradients beyond one (``xr``, ``xk``, ``xv`` and ``xg`` each
+        enter through ``to_parallel``) and its decay LoRA's; Mamba's
+        projection again; the MoE gates (fp32, top_k a token);
+      * ``bwd_frame``: bytes a frame summed in the backward: the encoder
+        output's gradient, which enters each split cross attention through
+        ``to_parallel``;
+      * ``leaves``: bytes of the replicated leaves a member uses on its own
+        channels (the time mix's ``w0``, ``td_w2``, ``ln_scale``,
+        ``ln_bias``), whose gradients are summed over model a microbatch;
+      * ``inner``: the split sublayers that gather a sequence-split input
+        with ``gather_replicated`` and sum its gradient inside
+        (``to_parallel``): the RWKV6 mixes, Mamba and split experts."""
     specs = tree_paths(cell.args[0])
-    sizes = cell.sizes
+    arch, d = cell.arch, cell.arch.d_model
 
-    def split(path: str) -> bool:
-        return "model" in entry_axes(specs[path].spec[2])
+    def split(path: str, dim: int = 2) -> bool:
+        leaf = specs.get(path)
+        return leaf is not None and "model" in entry_axes(leaf.spec[dim])
 
-    base = "blocks/l0"
-    attn = 0 if split(f"{base}/attn/wq") else n_groups(cell.arch)
-    rows_only = [k for k in specs if k.startswith((f"{base}/ln1/", f"{base}/ln2/"))]
-    if not split(f"{base}/mlp/wi"):
-        rows_only += [k for k in specs if k.startswith(f"{base}/mlp/")]
-    return attn, sum(specs[k].member_bytes(sizes) for k in rows_only)
+    out = dict(fwd=0.0, bwd=0.0, bwd_frame=0.0, leaves=0.0, inner=0)
+    for off in range(group_size(arch)):
+        base, ng = f"blocks/l{off}", n_groups(arch)
+        kind = layer_kind(arch, off)
+        if kind == "rwkv":
+            if split(f"{base}/tmix/wr"):
+                lora = specs[f"{base}/tmix/td_w1"].shape[-1]
+                out["bwd"] += ng * (3 * d + lora) * itemsize
+                out["leaves"] += sum(specs[f"{base}/tmix/{k}"].member_bytes(cell.sizes)
+                                     for k in ("w0", "td_w2", "ln_scale", "ln_bias"))
+                out["inner"] += ng
+            out["inner"] += ng * split(f"{base}/cmix/wk")
+        elif kind == "mamba" and split(f"{base}/mamba/w_in"):
+            m = arch.mamba
+            width = (m.resolved_dt_rank(d) + 2 * m.d_state) * itemsize
+            out["fwd"] += ng * width
+            out["bwd"] += ng * width
+            out["inner"] += ng
+        if f"{base}/moe/we_in" in specs and split(f"{base}/moe/we_in", 1):
+            out["bwd"] += ng * arch.moe.top_k * 4
+            out["inner"] += ng
+        if split(f"{base}/xattn/wq"):
+            out["bwd_frame"] += ng * d * itemsize
+    return out
+
+
+def _sp_whole(cell: Cell) -> Tuple[int, int, int]:
+    """Under a sequence split: (the whole sublayers over every layer, which
+    every model member runs on the gathered sequence; the bytes a member
+    holds of the leaves it uses on its own rows only; the RWKV6 layers,
+    whose channel-mix gate takes a member's rows of a gathered input)."""
+    specs = tree_paths(cell.args[0])
+    arch = cell.arch
+
+    def split(path: str, dim: int = 2) -> bool:
+        return "model" in entry_axes(specs[path].spec[dim])
+
+    def under(*parents: str):
+        return [k for k in specs if k.startswith(tuple(f"{p}/" for p in parents))]
+
+    whole, rows_only, rwkv = 0, [], 0
+    for off in range(group_size(arch)):
+        base = f"blocks/l{off}"
+        kind = layer_kind(arch, off)
+        rows_only += under(f"{base}/ln1", f"{base}/ln2", f"{base}/lnx")
+        if kind == "rwkv":
+            parts = [split(f"{base}/tmix/wr"), split(f"{base}/cmix/wk")]
+            rows_only.append(f"{base}/cmix/wr")
+            rwkv += n_groups(arch)
+        else:
+            parts = [split(f"{base}/mamba/w_in" if kind == "mamba"
+                           else f"{base}/attn/wq")]
+            if f"{base}/xattn/wq" in specs:
+                parts.append(split(f"{base}/xattn/wq"))
+            if f"{base}/moe/we_in" in specs:
+                parts.append(split(f"{base}/moe/we_in", 1))
+                if f"{base}/moe/shared/wi" in specs \
+                        and not split(f"{base}/moe/shared/wi"):
+                    rows_only += under(f"{base}/moe/shared")
+            elif not split(f"{base}/mlp/wi"):
+                rows_only += under(f"{base}/mlp")
+        whole += parts.count(False) * n_groups(arch)
+    return whole, sum(specs[k].member_bytes(cell.sizes) for k in rows_only), rwkv
 
 
 def tp_bytes(cell: Cell, rows: int) -> float:
@@ -170,8 +262,11 @@ def tp_bytes(cell: Cell, rows: int) -> float:
         return 0.0
     st, arch = cell.model.settings, cell.arch
     S = 1 if cell.mode == "decode" else cell.shape.seq_len
-    act = rows * S * arch.d_model * dtype_itemsize(st.compute_dtype)
-    layers = _tp_split_sublayers(cell)
+    itemsize = dtype_itemsize(st.compute_dtype)
+    act = rows * S * arch.d_model * itemsize
+    layers, enc_layers = _tp_split_sublayers(cell)
+    inner = _inner_sums(cell, itemsize)
+    frames = rows * arch.encoder.n_frames if arch.is_encdec else 0
     specs = tree_paths(cell.args[0])
     embed = int("model" in entry_axes(specs["embed"].spec[0]))
     head = specs["embed" if arch.tie_embeddings else "lm_head"]
@@ -182,20 +277,31 @@ def tp_bytes(cell: Cell, rows: int) -> float:
     # microbatches split the rows, not the sums' total
     out = vocab * _ring(3 * rows * S * 4, ntp, 2.0)
     unit, half = _ring(act, ntp, 2.0), _ring(act, ntp)
+    # the encoder (never split on its frames) and the sums inside the
+    # RWKV6, Mamba, MoE and cross-attention sublayers
+    out += enc_layers * passes * _ring(frames * arch.d_model * itemsize, ntp, 2.0)
+    out += (passes - 1 if train else 1) * _ring(rows * S * inner["fwd"], ntp, 2.0)
+    if train:
+        out += _ring(rows * S * inner["bwd"] + frames * inner["bwd_frame"], ntp, 2.0)
+        out += cell.microbatches * _ring(inner["leaves"], ntp, 2.0)
     if st.seq_axis is None or cell.mode == "decode":
         return out + (layers * passes + embed) * unit
     # a split sublayer: the gather in and the reduce-scatter out of each
     # forward, the reduce-scatter and the gather of the backward (the bytes
-    # of a sum each); a whole attention: its gather, the backward's gather
-    # of its output's gradient; the embedding: a vocab-split lookup's
-    # reduce-scatter and the backward's gather, a whole one's gather; the
-    # gather before the final norm; in training the sums of the gradients
-    # of the leaves used on a member's rows, a microbatch
-    whole_attn, rows_only = _sp_whole(cell)
-    out += layers * passes * unit + whole_attn * passes * half + half
+    # of a sum each); one that gathers with gather_replicated and sums its
+    # input's gradient inside (``inner``) all-reduces that gradient in
+    # place of the reduce-scatter; a whole sublayer: its gather, the
+    # backward's gather of its output's gradient; the embedding: a
+    # vocab-split lookup's reduce-scatter and the backward's gather, a
+    # whole one's gather; the gather before the final norm; in training
+    # the sums of the gradients of the leaves used on a member's rows, a
+    # microbatch, and of each RWKV6 gate's input
+    whole, rows_only, rwkv = _sp_whole(cell)
+    out += layers * passes * unit + whole * passes * half + half
     out += (embed + train) * half
     if train:
-        out += cell.microbatches * _ring(rows_only, ntp, 2.0)
+        out += cell.microbatches * _ring(rows_only, ntp, 2.0) + rwkv * unit
+        out += inner["inner"] * half
     return out
 
 

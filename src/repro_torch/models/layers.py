@@ -458,6 +458,20 @@ def apply_mlp_tp(arch: ArchConfig, p: Params, x: torch.Tensor,
         apply_mlp(arch, p, prims.gather_on_use(x, seq_axis, 1)), seq_axis, 1)
 
 
+def sublayer_out(out: torch.Tensor, split: Optional[str],
+                 sp: Optional[str]) -> torch.Tensor:
+    """A sublayer's output onto the residual stream: the members' partial
+    outputs of a sublayer split over ``split`` summed
+    (``psum_replicated``), under a sequence split ``sp`` summed and
+    scattered onto the members' rows (``scatter_sum``, the Megatron-SP
+    scatter point); a whole sublayer's output, alike on every member, cut
+    to the member's rows (``split_replicated``)."""
+    if sp is None:
+        return prims.psum_replicated(out, split)
+    return (prims.scatter_sum(out, sp, 1) if split
+            else prims.split_replicated(out, sp, 1))
+
+
 # ---------------------------------------------------------------------------
 # MoE (capacity-based gather/scatter dispatch)
 # ---------------------------------------------------------------------------
@@ -577,7 +591,8 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
               dispatch_spec=None, dispatch_schedule=None,
               shared_axis: Optional[str] = None,
-              token_axes: Tuple[str, ...] = ()
+              token_axes: Tuple[str, ...] = (),
+              seq_axis: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_load_balance_loss).  x: (B, S, d).
 
@@ -609,15 +624,28 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
     tokens (:func:`_moe_dispatch`).  Each member still gathers and
     computes its own rows' slots only.
 
+    ``seq_axis`` (the sequence split): ``x`` holds this member's rows of
+    the sequence (dim 1); they are gathered once (``gather_replicated``:
+    the router's gradient is whole on every member, the experts' path
+    enters through ``to_parallel``), the gathered tokens are routed, at the
+    gathered token count's capacity, and the output is scattered back onto
+    the member's rows (:func:`sublayer_out`); the shared experts take
+    :func:`apply_mlp_tp`'s split path.  The aux loss, taken on the
+    gathered tokens, is the same on every member of the axis.
+
     ``dispatch_schedule``: the planner's ``kind="all_to_all"`` schedule for
-    this layer's dispatch (:func:`moe_dispatch_schedule`).  It is executed:
-    the dispatch buffer walks the plan's slow-leg chunk split, issue order
-    and reassembly (:func:`_execute_dispatch`), bitwise the unscheduled
-    dispatch.  A skew-planned schedule (per-member ``dest_sizes``) carries
-    the capacity ``C_exec``, at which the layer dispatches.  A schedule
-    whose payload does not match the dispatch buffer actually built
-    (capacity drift) raises."""
+    this layer's dispatch (:func:`moe_dispatch_schedule`), planned for the
+    whole batch's (G, E, C, d) buffer.  It is executed: the dispatch buffer
+    walks the plan's slow-leg chunk split, issue order and reassembly
+    (:func:`_execute_dispatch`), bitwise the unscheduled dispatch; with
+    the experts split a member walks its experts' slabs only, and under
+    ``token_axes`` its share of each group's slab.  A skew-planned
+    schedule (per-member ``dest_sizes``) carries the capacity ``C_exec``,
+    at which the layer dispatches.  A schedule whose payload does not
+    match the dispatch buffer (capacity drift) raises."""
     moe = arch.moe
+    x_rows = x
+    x = prims.gather_replicated(x, seq_axis, 1)
     expert_axis = dispatch_spec[1] if dispatch_spec is not None else None
     n_ex = prims.axis_size(expert_axis) if expert_axis is not None else 1
     El = p["we_in"].shape[-3]
@@ -625,20 +653,12 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
         raise ValueError(
             f"{El} experts on each of {n_ex} member(s) of "
             f"{expert_axis or 'no axis'}: the layer has {moe.num_experts}")
-    if n_ex > 1 and dispatch_schedule is not None:
-        raise NotImplementedError(
-            "a planned dispatch schedule with the experts split over a model "
-            "axis is not ported yet (ROADMAP.md queue 1, item 8)")
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     token_axes = tuple(a for a in token_axes if prims.axis_size(a) > 1)
     T_all = T * math.prod(prims.axis_size(a) for a in token_axes)
     G = groups if (groups > 1 and T_all % groups == 0) else 1
-    if token_axes and dispatch_schedule is not None:
-        raise NotImplementedError(
-            "a planned dispatch schedule over the rows of several DP members "
-            "(the GSPMD step) is not ported yet (ROADMAP.md queue 1, item 8)")
     # the member's tokens in runs of c that each lie in one group: its
     # whole groups, or its part of one (c = T / G and T without token_axes)
     c = math.gcd(T, T_all // G)
@@ -671,7 +691,7 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
                     f"slabs — rebuild with moe_dispatch_schedule()")
             sched_capacity = int(c_exec)
         else:
-            C = moe_capacity(T // G, moe.top_k, moe.num_experts,
+            C = moe_capacity(T_all // G, moe.top_k, moe.num_experts,
                              moe.capacity_factor)
             want = n * G * epm * C * d
             if dispatch_schedule.numel != want:
@@ -686,37 +706,49 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor, groups: int = 1,
                            dispatch_schedule=dispatch_schedule,
                            expert_axis=expert_axis if n_ex > 1 else None,
                            token_axes=token_axes, groups=G)
-    y = y.reshape(T, d)
+    y = sublayer_out(y.reshape(B, S, d), expert_axis if n_ex > 1 else None,
+                     seq_axis)
     if moe.num_shared_experts:  # d_ff read from the leaves
-        y = y + apply_mlp_tp(arch, p["shared"], xt, shared_axis)
-    return y.reshape(B, S, d), aux.mean()
+        y = y + apply_mlp_tp(arch, p["shared"], x_rows, shared_axis,
+                             seq_axis=seq_axis)
+    return y, aux.mean()
 
 
-def _execute_dispatch(schedule, xe: torch.Tensor) -> torch.Tensor:
-    """Run the (G, E, C, d) dispatch buffer through ``schedule``'s slow-leg
-    walk: the member-major view split at the plan's chunk boundaries,
-    sub-flows taken in the plan's issue order, then reassembled by chunk
+def _execute_dispatch(schedule, xe: torch.Tensor, e0: int = 0,
+                      E: Optional[int] = None) -> torch.Tensor:
+    """Run the (G, El, C, d) dispatch buffer of experts ``[e0, e0 + El)``
+    of the ``E`` (all of them by default) through ``schedule``'s slow-leg
+    walk: the whole buffer's member-major view (schedule member r's row
+    holding experts ``[r E/n, (r+1) E/n)``) split at the plan's chunk
+    boundaries, sub-flows taken in the plan's issue order, each cut to
+    the part of it this buffer holds, then reassembled by row and chunk
     index, as ``collectives.lower_all_to_all``'s slow stage does.  The walk
     is a pure slice/concat identity, so the output is bitwise ``xe``.
 
     Chunk bounds are proportional (``(j * cols) // chunks``) so a buffer
     that does not divide evenly still reassembles exactly."""
-    G, E, C, d = xe.shape
+    G, El, C, d = xe.shape
+    E = E or El
     n = int(schedule.shape[0])
     slow = schedule.slow_legs
     if n <= 1 or E % n != 0 or not slow:
         return xe
-    # member-major rows: member r's slab = experts [r*epm, (r+1)*epm)
-    buf = xe.permute(1, 0, 2, 3).reshape(n, -1)
-    cols = buf.shape[1]
+    # the whole buffer's member-major rows, flat: expert e's (G, C, d) at
+    # e G C d; this buffer's span [lo, lo + numel) of it
+    flat = xe.permute(1, 0, 2, 3).reshape(-1)
+    lo, cols = e0 * G * C * d, E // n * G * C * d
     k = len(slow)
     bounds = [(j * cols) // k for j in range(k + 1)]
-    outs: list = [None] * k
+    pieces = {}
     for leg in slow:  # issue order; payload slice picked by index
         j = leg.index
-        outs[j] = buf[:, bounds[j]:bounds[j + 1]]
-    buf = torch.cat(outs, dim=1) if k > 1 else outs[0]
-    return buf.reshape(n, E // n, G, C, d).permute(2, 0, 1, 3, 4).reshape(G, E, C, d)
+        for r in range(n):
+            a = max(r * cols + bounds[j], lo)
+            b = min(r * cols + bounds[j + 1], lo + flat.numel())
+            if a < b:
+                pieces[(r, j)] = flat[a - lo:b - lo]
+    flat = torch.cat([pieces[key] for key in sorted(pieces)])
+    return flat.reshape(El, G, C, d).permute(1, 0, 2, 3)
 
 
 def _slab_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
@@ -766,11 +798,11 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     With ``expert_axis`` this member holds experts ``[e0, e0 + El)`` of
     the ``E``: routing, positions and capacity are the whole layer's, the
     gather builds the (G, El, C, d) slabs of those experts only, a slot
-    of another member's expert reads nothing here, and the members'
-    outputs are summed over the axis.  The tokens and the gates enter the
-    experts' part through ``to_parallel``, so their gradients are the sum
-    of every member's experts'; the router and the aux loss, computed
-    alike on every member, are not summed.
+    of another member's expert reads nothing here, and ``y`` is this
+    member's part (:func:`apply_moe` sums the parts).  The tokens and the
+    gates enter the experts' part through ``to_parallel``, so their
+    gradients are the sum of every member's experts'; the router and the
+    aux loss, computed alike on every member, are not summed.
 
     With ``token_axes`` the rows of every member of those axes are one
     batch, in row order (the axes slowest first), cut into ``groups``
@@ -872,7 +904,7 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
     xe = _GatherRows.apply(xf, gidx.reshape(-1), token_slots).reshape(G, El, C, d)
     if dispatch_schedule is not None:
         # the planned walk runs on each group's buffer, as under JAX's vmap
-        xe = torch.cat([_execute_dispatch(dispatch_schedule, xe[g:g + 1])
+        xe = torch.cat([_execute_dispatch(dispatch_schedule, xe[g:g + 1], e0, E)
                         for g in range(G)])
 
     h = _act(arch.activation, einsum("gecd,edf->gecf", xe, p["we_in"]))
@@ -886,7 +918,7 @@ def _moe_dispatch(arch: ArchConfig, p: Params, xg: torch.Tensor,
                              slot_pairs)
     gate = torch.where(kept, flat_g, 0.0).to(ye.dtype)
     y = rows.reshape(G, Tl, k, d).mul(gate.reshape(G, Tl, k, 1)).sum(dim=2)
-    return prims.psum_replicated(y, expert_axis), aux
+    return y, aux
 
 
 class _GatherRows(torch.autograd.Function):

@@ -22,6 +22,17 @@ channel mix is column- then row-parallel with the replicated ``wr`` gate
 applied after the sum; Mamba runs the conv and the scan on its channels of
 ``d_inner`` between the paired ``w_in`` cut and the row-parallel ``w_x``
 and ``w_out``.
+
+The sequence split (``sp``: the axis over which ``x`` holds this member's
+rows of the sequence, the model axis): each mixer gathers the rows
+(``prims.gather_replicated``) before its token shift or conv, which cross
+the members' row boundaries, and runs on the gathered sequence; its
+gradient is already whole on every member there (its inner
+``to_parallel`` sums the members' parts), so the gather's backward keeps
+the member's rows.  The last row-parallel product is reduce-scattered
+onto the member's rows (``layers.sublayer_out``); the channel mix's
+``wr`` gate is taken on the member's rows, where it meets ``v``'s.  The
+shift and conv states returned are the whole sequence's last rows.
 """
 from __future__ import annotations
 
@@ -37,7 +48,7 @@ from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref as _scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
-from repro_torch.models.layers import dense_init, einsum, mm
+from repro_torch.models.layers import dense_init, einsum, mm, sublayer_out
 
 Params = Dict[str, Any]
 
@@ -162,10 +173,13 @@ def wkv6_scan_ref(r, k, v, w, u, state=None):
 def apply_rwkv_time_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
                         shift_state: Optional[torch.Tensor] = None,
                         wkv_state: Optional[torch.Tensor] = None,
-                        use_kernel: bool = False, axis: Optional[str] = None):
+                        use_kernel: bool = False, axis: Optional[str] = None,
+                        sp: Optional[str] = None):
     """Full time-mix block. Returns (out, (new_shift, new_wkv)); new_shift
     is a view of x.  With ``axis`` the recurrence runs on this member's
-    heads (``u`` holds them) and ``wo`` is row-parallel."""
+    heads (``u`` holds them) and ``wo`` is row-parallel; with ``sp`` on
+    the gathered sequence, ``out`` the member's rows."""
+    x = prims.gather_replicated(x, sp, 1)
     B, S, d = x.shape
     if shift_state is None:
         shift_state = torch.zeros((B, d), dtype=x.dtype, device=x.device)
@@ -178,7 +192,7 @@ def apply_rwkv_time_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
         y, new_state = wkv6_scan_ref(r.float(), k.float(), v.float(), w, u,
                                      state=wkv_state)
     y = _wkv_groupnorm(arch, p, y.to(x.dtype), axis)
-    out = prims.psum_replicated(mm(y.to(x.dtype) * g, p["wo"]), axis)
+    out = sublayer_out(mm(y.to(x.dtype) * g, p["wo"]), axis, sp)
     return out, (x[:, -1], new_state)
 
 
@@ -196,10 +210,15 @@ def init_rwkv_channel_mix(arch: ArchConfig, gen: torch.Generator,
 
 def apply_rwkv_channel_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
                            shift_state: Optional[torch.Tensor] = None,
-                           axis: Optional[str] = None):
+                           axis: Optional[str] = None, sp: Optional[str] = None):
     """Channel mix with squared relu, whatever ``arch.activation`` says.
     Returns (out, new_shift); new_shift is a view of x.  With ``axis``
-    ``wk`` is column- and ``wv`` row-parallel, the gate replicated."""
+    ``wk`` is column- and ``wv`` row-parallel, the gate replicated.  With
+    ``sp`` the gate is taken on the member's rows of ``xr`` (entered
+    through ``to_parallel``, as ``wr`` is: their gradients are the members'
+    rows' sum), where it meets the scattered ``v``."""
+    Sl = x.shape[1]
+    x = prims.gather_replicated(x, sp, 1)
     B, S, d = x.shape
     if shift_state is None:
         shift_state = torch.zeros((B, d), dtype=x.dtype, device=x.device)
@@ -208,8 +227,12 @@ def apply_rwkv_channel_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
     xk = x + dx * p["k_maa"]
     xr = x + dx * p["r_maa"]
     h = F.relu(mm(prims.to_parallel(xk, axis), p["wk"]))
-    v = prims.psum_replicated(mm(h * h, p["wv"]), axis)
-    return torch.sigmoid(mm(xr, p["wr"])) * v, x[:, -1]
+    v = sublayer_out(mm(h * h, p["wv"]), axis, sp)
+    wr = p["wr"]
+    if sp is not None:
+        xr = prims.to_parallel(xr, sp).narrow(1, prims.axis_rank(sp) * Sl, Sl)
+        wr = prims.to_parallel(wr, sp)
+    return torch.sigmoid(mm(xr, wr)) * v, x[:, -1]
 
 
 # ===========================================================================
@@ -273,13 +296,17 @@ def mamba_scan_ref(u, delta, A, Bc, Cc, D, state=None):
 def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
                 conv_state: Optional[torch.Tensor] = None,
                 ssm_state: Optional[torch.Tensor] = None,
-                use_kernel: bool = False, axis: Optional[str] = None):
+                use_kernel: bool = False, axis: Optional[str] = None,
+                sp: Optional[str] = None):
     """Full Mamba block over a sequence; with states it is also the decode
     step (S = 1).  Returns (out, (conv_state, ssm_state)); the new conv
     state is a view of this call's activations.  With ``axis`` the layer
     runs on this member's channels of d_inner: ``w_in`` holds them in
     ``xs`` and in ``z`` (its paired cut), ``w_x`` and ``w_out`` are
-    row-parallel, and dt_r, B and C, summed, are used on them."""
+    row-parallel, and dt_r, B and C, summed over the whole sequence, are
+    used on them; with ``sp`` on the gathered sequence, ``out`` the
+    member's rows."""
+    x = prims.gather_replicated(x, sp, 1)
     m = arch.mamba
     dtr = m.resolved_dt_rank(arch.d_model)
 
@@ -311,5 +338,5 @@ def apply_mamba(arch: ArchConfig, p: Params, x: torch.Tensor,
         y, new_ssm = mamba_scan_ref(h, delta, A, Bc, Cc, p["D"],
                                     state=ssm_state)
     y = y.to(x.dtype) * F.silu(z)
-    return (prims.psum_replicated(mm(y, p["w_out"]), axis),
+    return (sublayer_out(mm(y, p["w_out"]), axis, sp),
             (new_conv_state, new_ssm))

@@ -32,8 +32,8 @@ row-parallel MLPs, RWKV6 and Mamba mixers on local heads or channels
 over the axis, the learned positions' d columns gathered
 (``prims.gather_replicated``), the encoder and the cross attention on
 local heads, and each layer's FSDP blocks gathered on use (again in the
-recompute) with their gradients reduce-scattered back (not for the
-encoder-decoder, which the GSPMD step refuses: ``check_fsdp``).  Under
+recompute; the encoder's layers and the cross attention's too) with their
+gradients reduce-scattered back.  Under
 the GSPMD step, and in serving where the batch's rows split over the DP
 members, the MoE layers route the whole batch as one dispatch group, as
 the JAX package's ``jax.jit`` of the global batch does
@@ -45,17 +45,22 @@ members) takes decode attention's softmax in two stages over it
 (``layers.attend_decode``).
 
 The sequence split (``ModelSettings.seq_axis``, the reference's
-Megatron-SP constraints; dense decoder layers, in training and prefill):
-between the sublayers each model member holds its rows of the sequence,
-(B, S/n, d).  The embedding is reduce-scattered onto them (or cut, where
-the vocab is whole); each attention and MLP reads the gathered sequence
-and its output is reduce-scattered back (a sublayer run whole on every
-member, as the context-parallel cell's blocks are, gathers its input
+Megatron-SP constraints; every family, in training and prefill): between
+the sublayers each model member holds its rows of the sequence, (B, S/n,
+d).  The embedding is reduce-scattered onto them (or cut, where the vocab
+is whole), and the learned positions cut alike; each attention, cross
+attention, MLP, MoE layer, RWKV6 mix and Mamba mixer reads the gathered
+sequence and its output is reduce-scattered back (a sublayer run whole on
+every member, as the context-parallel cell's blocks are, gathers its input
 alike and keeps its rows of the output); the norms, and a whole MLP, see
 a member's rows only, so their gradients are summed over the axis; the
 stream is gathered again before the final norm, whose consumer every
-member computes alike (``_sublayer_in``, ``_sublayer_out``, ``_on_rows``,
-``_sp_axis``).
+member computes alike (``_sublayer_in``, ``L.sublayer_out``, ``_on_rows``,
+``_sp_axis``).  A mixer that sums its input's gradient inside
+(``models/ssm.py``), and the MoE layer, whose replicated router and split
+experts both read the tokens, gather with ``gather_replicated``; the
+prefill cache holds the whole sequence, the recurrent states its last
+rows.
 
 Parameters and compute share a dtype (fp32 or bf16), or bf16 parameters
 meet an fp32 compute dtype, promoted as jnp promotes them.  fp32
@@ -113,7 +118,7 @@ class ModelSettings:
     moe_groups: int = 1
     # the JAX package's sequence-parallel settings: the residual stream's
     # sequence split over ``seq_axis`` (the model axis) between the
-    # sublayers of a dense decoder, in training and prefill; ``batch_axes``
+    # sublayers, in training and prefill; ``batch_axes``
     # names the DP axes its rows split over, which a member's rows already
     # are (checked against the step: ``_sp_axis``)
     seq_axis: Optional[str] = None
@@ -136,16 +141,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
-    """Raise for what the port does not run yet."""
-    if st.seq_axis is not None:
-        other = ("MoE" if arch.moe is not None else "RWKV6" if arch.attn_free
-                 else "Mamba" if arch.is_hybrid
-                 else "encoder-decoder" if arch.is_encdec else None)
-        if other:
-            raise NotImplementedError(
-                f"sequence parallelism (seq_axis) for {arch.name}: the "
-                f"{other} layers' sequence split is not ported yet, only the "
-                f"dense decoder layers' (ROADMAP.md queue 1, item 8)")
+    """Raise for what has no reference."""
     if st.pdt() != st.cdt() and (st.pdt(), st.cdt()) != (torch.bfloat16,
                                                           torch.float32):
         raise NotImplementedError(
@@ -156,15 +152,6 @@ def check_supported(arch: ArchConfig, st: ModelSettings) -> None:
             f"embedding promoted by the first fp32 weight), so the port "
             f"runs fp32/fp32, bf16/bf16 and bf16/fp32 (ROADMAP.md queue 1, "
             f"'What has no reference')")
-
-
-def check_fsdp(arch: ArchConfig) -> None:
-    """Raise for a model whose layers the FSDP step cannot gather yet."""
-    if arch.is_encdec:
-        raise NotImplementedError(
-            f"the GSPMD step (FSDP) for {arch.name}: the encoder's and the "
-            f"cross attention's FSDP gathers are not ported yet (ROADMAP.md "
-            f"queue 1, item 8)")
 
 
 def group_size(arch: ArchConfig) -> int:
@@ -299,19 +286,6 @@ def _sublayer_in(h: torch.Tensor, split: Optional[str],
             else prims.gather_replicated(h, sp, 1))
 
 
-def _sublayer_out(out: torch.Tensor, split: Optional[str],
-                  sp: Optional[str]) -> torch.Tensor:
-    """A sublayer's output onto the residual stream: the members' partial
-    outputs of a split sublayer summed (``psum_replicated``), under ``sp``
-    summed and scattered onto the members' rows of the sequence
-    (``scatter_sum``, the SP scatter point); a whole sublayer's output,
-    alike on every member, cut to the member's rows (``split_replicated``)."""
-    if sp is None:
-        return prims.psum_replicated(out, split)
-    return (prims.scatter_sum(out, sp, 1) if split
-            else prims.split_replicated(out, sp, 1))
-
-
 def _on_rows(p: Params, sp: Optional[str]) -> Params:
     """Replicated leaves (the norms) used on the member's rows of the
     sequence: their gradients are partial, summed over ``sp`` by
@@ -360,17 +334,19 @@ def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int,
 def _cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
                      enc_out: Optional[torch.Tensor], st: ModelSettings,
                      cache: Optional[Params], specs: Optional[Params],
-                     xseq_axis: Optional[str] = None
+                     xseq_axis: Optional[str] = None, sp: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decoder layer's cross attention (whisper), non-causal
     ``masked`` attention of the normed stream over the encoder's output:
     its k/v projected from ``enc_out``, or in decode (``cache`` given)
     read from the cache's ``xk``/``xv``; under ``xseq_axis`` those hold
     this member's frames, over which :func:`L.attend_decode` takes the
-    softmax in two stages.  Returns (x, k, v)."""
-    h = L.apply_norm(arch, p["lnx"], x)
+    softmax in two stages.  Under ``sp`` the queries come from the
+    gathered rows and the output is scattered back; the encoder's output
+    is whole.  Returns (x, k, v)."""
+    h = L.apply_norm(arch, _on_rows(p["lnx"], sp), x)
     pa, heads, whole_kv = _member_heads(p, specs, "xattn")
-    q = L.einsum("bsd,dhk->bshk", prims.to_parallel(h, heads), pa["wq"])
+    q = L.einsum("bsd,dhk->bshk", _sublayer_in(h, heads, sp), pa["wq"])
     if "bq" in pa:
         q = q + pa["bq"]
     if cache is not None:
@@ -389,7 +365,7 @@ def _cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
     else:
         o = L.attend(q, k, v, causal=False, impl="masked", q_chunk=st.attn_chunk,
                      kv_chunk=st.attn_chunk)
-    return x + prims.psum_replicated(L.attention_out(pa, o), heads), kx, vx
+    return x + L.sublayer_out(L.attention_out(pa, o), heads, sp), kx, vx
 
 
 def _apply_encoder_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
@@ -431,14 +407,14 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
     sequence (an attention layer's k/v) and its frames (a cross
     attention's ``xk``/``xv``), each as its own leaf's spec does, or None;
     ``sp_axis``: the axis over which ``x`` holds this member's rows of the
-    sequence (a dense layer in training or prefill, ``_sp_axis``): each
-    sublayer reads the gathered sequence and its output is scattered back
-    (``_sublayer_in``, ``_sublayer_out``), the prefill cache holding the
+    sequence (in training or prefill, ``_sp_axis``): each sublayer reads
+    the gathered sequence and its output is scattered back
+    (``_sublayer_in``, ``L.sublayer_out``), the prefill cache holding the
     whole sequence."""
     kind = layer_kind(arch, layer_id)
     decode = cache is not None
     if kind == "rwkv":
-        x, cache = _apply_rwkv_layer(arch, p, x, st, cache, specs)
+        x, cache = _apply_rwkv_layer(arch, p, x, st, cache, specs, sp_axis)
         return x, None, cache
     h = L.apply_norm(arch, _on_rows(p["ln1"], sp_axis), x)
     if kind == "mamba":
@@ -446,7 +422,7 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         out, (conv, ssm) = SSM.apply_mamba(
             arch, p["mamba"], h, conv_state=state.get("conv"),
             ssm_state=state.get("ssm"), use_kernel=st.use_kernel_ssm,
-            axis=_axis(specs, "mamba", "w_in", 1))
+            axis=_axis(specs, "mamba", "w_in", 1), sp=sp_axis)
         if cache is None:  # a copy: the view would keep (B, S, 2 di) alive
             cache = {"conv": conv.clone(), "ssm": ssm}
         else:
@@ -472,11 +448,12 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
                 kc, vc = _own_kv_heads(arch, q, kc, vc, heads)
             lens = torch.full((x.shape[0],), pos + 1, device=x.device)
             o = L.attend_decode(q, kc, vc, lens, seq_axis)
-        out = _sublayer_out(L.attention_out(pa, o), heads, sp_axis)
+        out = L.sublayer_out(L.attention_out(pa, o), heads, sp_axis)
     x = x + out
     if "xattn" in p:
         x, xk, xv = _cross_attention(arch, p, x, enc_out, st,
-                                     cache if decode else None, specs, xseq_axis)
+                                     cache if decode else None, specs, xseq_axis,
+                                     sp_axis)
         if not decode:
             cache = dict(cache, xk=xk, xv=xv)
     h = L.apply_norm(arch, _on_rows(p["ln2"], sp_axis), x)
@@ -488,7 +465,7 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
         out, aux = L.apply_moe(arch, p["moe"], h, groups=st.moe_groups,
                                dispatch_spec=(None, experts) if experts
                                else None, shared_axis=shared,
-                               token_axes=token_axes)
+                               token_axes=token_axes, seq_axis=sp_axis)
         x = x + out
     else:
         x = x + L.apply_mlp_tp(arch, p["mlp"], h, _axis(specs, "mlp", "wi", 1),
@@ -498,13 +475,13 @@ def _apply_layer(arch: ArchConfig, p: Params, x: torch.Tensor, positions,
 
 def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
                       st: ModelSettings, cache: Optional[Params] = None,
-                      specs: Optional[Params] = None
+                      specs: Optional[Params] = None, sp: Optional[str] = None
                       ) -> Tuple[torch.Tensor, Params]:
     """Time mix then channel mix, each from its state in ``cache`` (zeros
     when None).  In decode the new states are copied into ``cache``; the
-    shifts returned by the mixers are views of their inputs.  ``specs``:
-    as in :func:`_apply_layer` (the time mix on this member's heads, the
-    channel mix on its d_ff columns)."""
+    shifts returned by the mixers are views of their inputs.  ``specs``,
+    ``sp``: as in :func:`_apply_layer` (the time mix on this member's
+    heads, the channel mix on its d_ff columns)."""
     state = cache or {}
     heads = _axis(specs, "tmix", "wr", 1)
     if heads != _axis(specs, "tmix", "u", 0):
@@ -512,15 +489,16 @@ def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
             f"{arch.name}: the time mix's projections split over "
             f"{heads!r} but its heads over {_axis(specs, 'tmix', 'u', 0)!r}: "
             f"a split inside a head is not ported (ROADMAP.md queue 1, item 8)")
-    h = L.apply_norm(arch, p["ln1"], x)
+    h = L.apply_norm(arch, _on_rows(p["ln1"], sp), x)
     out, (tshift, wkv) = SSM.apply_rwkv_time_mix(
         arch, p["tmix"], h, shift_state=state.get("tshift"),
-        wkv_state=state.get("wkv"), use_kernel=st.use_kernel_ssm, axis=heads)
+        wkv_state=state.get("wkv"), use_kernel=st.use_kernel_ssm, axis=heads,
+        sp=sp)
     x = x + out
-    h = L.apply_norm(arch, p["ln2"], x)
+    h = L.apply_norm(arch, _on_rows(p["ln2"], sp), x)
     out, cshift = SSM.apply_rwkv_channel_mix(
         arch, p["cmix"], h, shift_state=state.get("cshift"),
-        axis=_axis(specs, "cmix", "wk", 1))
+        axis=_axis(specs, "cmix", "wk", 1), sp=sp)
     x = x + out
     new = {"tshift": tshift, "wkv": wkv, "cshift": cshift}
     if cache is None:
@@ -562,8 +540,8 @@ def encode(arch: ArchConfig, params: Params, frames: torch.Tensor,
     plus the fp32 sinusoidal table, the encoder layers (in training each
     recomputed in the backward as ``st.remat`` says), the final norm.
     With a ``layout`` the leaves are this member's blocks, each layer's
-    FSDP blocks gathered on use (serving; the GSPMD step refuses an
-    encoder-decoder, ``check_fsdp``)."""
+    FSDP blocks gathered on use (inside the recomputed function in
+    training, so that a remat gathers them again in the backward)."""
     x = frames.to(st.cdt())
     x = x + L.sinusoidal_positions(x.shape[1], arch.d_model, x.device).to(x.dtype)
     enc_arch = arch.replace(positional="none")
@@ -584,6 +562,14 @@ def _positions_table(params: Params, layout=None) -> torch.Tensor:
     if layout is not None:
         pe = prims.gather_replicated(pe, layout.tree["pos_embed"][1], 1)
     return pe
+
+
+def _positions(params: Params, seq_len: int, dtype, layout=None,
+               sp: Optional[str] = None) -> torch.Tensor:
+    """The learned positions of the first ``seq_len`` rows, under ``sp``
+    this member's rows of them (``split_replicated``)."""
+    pe = _positions_table(params, layout)[:seq_len].to(dtype)
+    return prims.split_replicated(pe, sp, 0)
 
 
 def _embed(params: Params, tokens: torch.Tensor, st: ModelSettings,
@@ -656,7 +642,7 @@ def forward(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     sp = _sp_axis(st, layout, Sq, token_axes)
     x = _embed(params, tokens, st, layout, sp)
     if arch.positional == "learned":
-        x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
+        x = x + _positions(params, Sq, x.dtype, layout, sp)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
     enc_out = _encoder_output(arch, params, frames, st, layout)
     fsdp = layout.fsdp if layout is not None else None
@@ -709,9 +695,8 @@ def logits_from_hidden(arch: ArchConfig, params: Params, x: torch.Tensor,
 
 def check_trainable(arch: ArchConfig, st: ModelSettings) -> None:
     """Raise for what the port cannot train yet: what it cannot run
-    (``check_supported``: fp32 parameters with a bf16 compute dtype, a
-    sequence split of other than dense layers), or an unknown remat
-    policy."""
+    (``check_supported``: fp32 parameters with a bf16 compute dtype), or
+    an unknown remat policy."""
     check_supported(arch, st)
     if st.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {st.remat!r} (none | full | dots)")
@@ -789,13 +774,11 @@ def forward_train(arch: ArchConfig, params: Params, tokens: torch.Tensor,
     check_trainable(arch, st)
     B, Sq = tokens.shape
     fsdp = layout.fsdp if layout is not None else None
-    if fsdp is not None:
-        check_fsdp(arch)
     token_axes = layout.loss_axes if layout is not None else ()
     sp = _sp_axis(st, layout, Sq, token_axes)
     x = _embed(params, tokens, st, layout, sp)
     if arch.positional == "learned":
-        x = x + _positions_table(params, layout)[:Sq].to(x.dtype)
+        x = x + _positions(params, Sq, x.dtype, layout, sp)
     positions = torch.arange(Sq, device=tokens.device)[None, :].expand(B, Sq)
     enc_out = _encoder_output(arch, params, frames, st, layout, train=True)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)

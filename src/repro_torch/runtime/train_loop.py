@@ -62,7 +62,7 @@ from repro_torch.convert import load_jax_params
 from repro_torch.models.registry import Model
 from repro_torch.models.sharding import (MeshInfo, assemble, local_block,
                                          local_shape, spec_axes)
-from repro_torch.models.transformer import check_fsdp, check_trainable
+from repro_torch.models.transformer import check_trainable
 from repro_torch.obs.metrics import MetricsLogger
 from repro_torch.optim import grad_sync
 from repro_torch.optim.adamw import (AdamWConfig, adamw_leaf,
@@ -278,14 +278,6 @@ def zero_moment_specs(pshapes, pspecs, sizes: Dict[str, int]):
     return {k: spec_of(tuple(pshapes[k].shape), pspecs[k]) for k in pshapes}
 
 
-def check_gspmd(arch, st) -> None:
-    """What the GSPMD step cannot run yet: the encoder-decoder's FSDP
-    gathers (``transformer.check_fsdp``).  A MoE layer routes the global
-    batch's tokens, in its dispatch groups, over the DP members
-    (``layers.apply_moe``'s ``token_axes``)."""
-    check_fsdp(arch)
-
-
 def make_gspmd_train_step(model: Model, mesh: prims.Mesh,
                           opt_cfg: AdamWConfig, lr_fn: Callable, *,
                           fsdp: bool = True, microbatches: int = 1,
@@ -310,7 +302,6 @@ def make_gspmd_train_step(model: Model, mesh: prims.Mesh,
     further by :func:`zero_moment_specs` (each member updates its part of
     its block and the parts are gathered)."""
     check_trainable(model.arch, model.settings)
-    check_gspmd(model.arch, model.settings)
     mi = mi or mesh_info(mesh.sizes, fsdp=fsdp)
     dp_axes = dp_axes_of(mesh.sizes)
     model.shard(mi, mesh.sizes, mesh.coords, loss_axes=dp_axes)
@@ -461,8 +452,6 @@ class Trainer:
             raise ValueError(f"unknown mode {cfg.mode!r} (dfabric | gspmd)")
         # refused before any collective or checkpoint directory
         check_trainable(model.arch, model.settings)
-        if cfg.mode == "gspmd":
-            check_gspmd(model.arch, model.settings)
         self.model, self.mesh, self.shape, self.cfg = model, mesh, shape, cfg
         self.topo = topo if topo is not None else topology_from_mesh_sizes(mesh.sizes)
         self.pipeline = data_pipeline or TokenPipeline(

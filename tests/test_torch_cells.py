@@ -41,14 +41,21 @@ MESHES = {"single": make_production_mesh(multi_pod=False),
 CELLS = [(a, s) for a in list_archs() for s in SHAPES
          if shape_applicable(get_arch(a), SHAPES[s])[0]]
 # (arch, shape, mesh, build_cell's keyword arguments): cells the JAX
-# package builds with the sequence-parallel settings, the context-parallel
-# cell and MoE dispatch groups under its GSPMD step (ROADMAP item 8)
+# package builds with the sequence-parallel settings (every family), the
+# context-parallel cell and MoE dispatch groups under its GSPMD step
+# (ROADMAP item 8)
 FLAGGED = [("qwen2-0.5b", "train_4k", "test", dict(seq_shard=True)),
            ("qwen3-1.7b", "prefill_32k", "multi", dict(seq_shard=True)),
            ("nemotron-4-340b", "train_4k", "test", dict(seq_shard=True)),
            ("qwen2-0.5b", "train_4k", "test", dict(context_parallel=True)),
            ("qwen3-1.7b", "train_4k", "multi", dict(context_parallel=True)),
-           ("jamba-1.5-large-398b", "train_4k", "test", dict(moe_groups=2))]
+           ("jamba-1.5-large-398b", "train_4k", "test", dict(moe_groups=2)),
+           ("deepseek-moe-16b", "train_4k", "test", dict(seq_shard=True)),
+           ("rwkv6-1.6b", "train_4k", "test", dict(seq_shard=True)),
+           ("jamba-1.5-large-398b", "train_4k", "test", dict(seq_shard=True)),
+           ("whisper-medium", "train_4k", "test", dict(seq_shard=True)),
+           ("rwkv6-1.6b", "prefill_32k", "multi", dict(seq_shard=True)),
+           ("deepseek-moe-16b", "prefill_32k", "multi", dict(seq_shard=True))]
 COSTS = [("qwen2-0.5b", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
          ("rwkv6-1.6b", "long_500k"), ("whisper-medium", "decode_32k")]
 CACHE_SEQ = 4096
@@ -332,6 +339,91 @@ def test_collective_bytes_of_a_sequence_split_cell_by_hand():
     for axis in ("data", "pod"):
         assert got[axis] == base[axis]
     assert got["model"] == pytest.approx(want_model, rel=1e-12)
+
+
+def test_collective_bytes_of_an_rwkv6_sequence_split_cell_by_hand():
+    """rwkv6-1.6b train_4k with ``seq_shard`` on (2, 16, 16), its model
+    axis counted by hand from the config.  The model axis splits the time
+    mix's heads (32 / 16) and the channel mix's d_ff, and the vocabulary.
+    Each mix gathers its input with ``gather_replicated`` and sums its
+    input's gradient inside: the forward, its recompute and the backward
+    move a sum's bytes each, and the backward all-reduces the gathered
+    gradient where a dense sublayer reduce-scatters it, half a sum more; the
+    time mix sums four input gradients (xr, xk, xv, xg) and its decay
+    LoRA's (b, S, 64), and once a microbatch the gradients of w0, td_w2
+    and its groupnorm's affine, which a member uses on its channels; the
+    channel mix's gate takes a member's rows of a gathered input whose
+    gradient is summed (a sum a layer) and ``cmix/wr``'s gradient is
+    summed with the norms'."""
+    a = get_arch("rwkv6-1.6b")
+    d, L = a.d_model, a.n_layers
+    lora = a.rwkv.decay_lora
+    rows, S = SHAPES["train_4k"].global_batch // 32, 4096
+    act = rows * S * d * 2
+    unit, half = _ring(act, 16, 2.0), _ring(act, 16)
+    want_model = (2 * L * 3 * unit + 2 * L * half      # the two mixes
+                  + L * _ring(rows * S * (3 * d + lora) * 2, 16, 2.0)
+                  + L * unit                            # the gates' inputs
+                  + half + 2 * half                     # final norm, embed
+                  + _ring(L * (4 * d + d * d) * 2, 16, 2.0)    # norms, wr
+                  + _ring(L * (3 * d + lora * d) * 2, 16, 2.0)  # w0, td_w2, ln
+                  + _ring(3 * rows * S * 4, 16, 2.0))
+    rec = dryrun.run_cell("rwkv6-1.6b", "train_4k", multi_pod=True, seq_shard=True)
+    assert rec["ok"] and rec["step_kind"] == "dfabric"
+    assert rec["collectives"]["rows_per_member"] == rows
+    got = rec["collectives"]["bytes_per_member"]["model"]
+    assert got == pytest.approx(want_model, rel=1e-12)
+
+
+def test_collective_bytes_of_a_moe_sequence_split_cell_by_hand():
+    """deepseek-moe-16b train_4k with ``seq_shard`` on (2, 16, 16), its
+    model axis by hand: attention (16 heads), the 64 routed experts and
+    the shared experts split over model in each of its 28 layers, three
+    passes each (remat "full"); the MoE layer gathers with
+    ``gather_replicated`` (the router is replicated) and sums the tokens'
+    gradient inside, an all-reduce where attention and the shared experts
+    reduce-scatter, and sums the gates' (b, S, 6) fp32 gradient; the
+    embedding's reduce-scatter and gather, the final norm's gather, the
+    norms' gradients, the vocab-split head."""
+    a = get_arch("deepseek-moe-16b")
+    d, L, k = a.d_model, a.n_layers, a.moe.top_k
+    rows, S = SHAPES["train_4k"].global_batch // 32, 4096
+    act = rows * S * d * 2
+    unit, half = _ring(act, 16, 2.0), _ring(act, 16)
+    want_model = (3 * L * 3 * unit + L * half
+                  + _ring(rows * S * L * k * 4, 16, 2.0)
+                  + half + 2 * half
+                  + _ring(L * 2 * d * 2, 16, 2.0)
+                  + _ring(3 * rows * S * 4, 16, 2.0))
+    rec = dryrun.run_cell("deepseek-moe-16b", "train_4k", multi_pod=True,
+                          seq_shard=True)
+    assert rec["ok"] and rec["collectives"]["rows_per_member"] == rows
+    got = rec["collectives"]["bytes_per_member"]["model"]
+    assert got == pytest.approx(want_model, rel=1e-12)
+
+
+def test_collective_bytes_of_an_encoder_decoder_sequence_split_cell_by_hand():
+    """whisper-medium train_4k with ``seq_shard`` on (2, 16, 16), its
+    model axis by hand: each of the 24 decoder layers' attention, cross
+    attention and MLP split over model (three passes each), the 24
+    encoder layers' attention and MLP summing (b, 1500, d) over the
+    frames, which do not split, and in the backward each cross
+    attention's sum of the encoder output's gradient (b, 1500, d); the
+    whole embedding's gather, the final norm's gather, and the gradients
+    of ln1, ln2 and lnx, used on a member's rows."""
+    a = get_arch("whisper-medium")
+    d, L, F = a.d_model, a.n_layers, a.encoder.n_frames
+    rows, S = SHAPES["train_4k"].global_batch // 32, 4096
+    unit, half = _ring(rows * S * d * 2, 16, 2.0), _ring(rows * S * d * 2, 16)
+    frame_unit = _ring(rows * F * d * 2, 16, 2.0)
+    want_model = (3 * L * 3 * unit + 2 * a.encoder.n_layers * 3 * frame_unit
+                  + L * frame_unit + half + half
+                  + _ring(L * 6 * d * 2, 16, 2.0))
+    rec = dryrun.run_cell("whisper-medium", "train_4k", multi_pod=True,
+                          seq_shard=True)
+    assert rec["ok"] and rec["collectives"]["rows_per_member"] == rows
+    got = rec["collectives"]["bytes_per_member"]["model"]
+    assert got == pytest.approx(want_model, rel=1e-12)
 
 
 def test_collective_bytes_of_the_context_parallel_cell_by_hand():

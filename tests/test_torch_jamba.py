@@ -92,12 +92,12 @@ def test_jamba_with_experts_raises():
     """Jamba with its experts is served (tests/test_torch_configs.py holds
     it to JAX) and trained (tests/test_torch_train_families.py): MoE on
     the odd offsets of its 8-layer group, and a finite loss with a
-    gradient for every leaf.  Training it raises only where nothing is
-    ported: a sequence split of its layers (a model axis, the GSPMD step
-    and MoE dispatch groups under it are ported)."""
+    gradient for every leaf.  (The name is the refusals'.)  Its training
+    settings all pass the check: MoE dispatch groups and a sequence split
+    of its layers (``tests/test_torch_seq_parallel_families.py`` holds
+    them to JAX)."""
     import dataclasses
     from repro_torch.models.transformer import check_trainable
-    from repro_torch.runtime.train_loop import check_gspmd
     model = build_model(get_smoke_arch(JAMBA), ModelSettings(**FP32, remat="none"),
                         device="cpu")
     kids = [dict(getattr(model.blocks, f"l{off}").named_children())
@@ -110,11 +110,9 @@ def test_jamba_with_experts_raises():
     loss = model.loss(params, {"tokens": toks, "labels": toks})
     grads = torch.autograd.grad(loss, leaves)
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
-    check_gspmd(model.arch, model.settings)
-    check_gspmd(model.arch, dataclasses.replace(model.settings, moe_groups=2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        check_trainable(model.arch, dataclasses.replace(model.settings,
-                                                        seq_axis="model"))
+    for extra in (dict(moe_groups=2), dict(seq_axis="model"),
+                  dict(seq_axis="model", batch_axes=("data",))):
+        check_trainable(model.arch, dataclasses.replace(model.settings, **extra))
 
 
 def test_full_width_param_count():

@@ -1170,3 +1170,71 @@ def test_sequence_split_functions_on_card(cuda_device, tmp_path):
     for rank, res in out.items():
         assert res.pop("device") == ("cuda", "cuda"), rank
         assert all(v <= 1e-6 for v in res.values()), (rank, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,S", [(16, 1024), (8, 32768)])
+def test_wkv6_on_a_members_heads_over_the_gathered_sequence_on_card(cuda_device, H, S):
+    """K3 through ``wkv6_ops.wkv6`` at ``chip_smoke.py`` ``[seq-par]``'s
+    shapes, a model member's heads of rwkv6-1.6b's 32 over the sequence
+    gathered from the members' rows: (g) train_4k at model = 2 (16 heads,
+    S=1024) and (j) prefill_32k at model = 4 (8 heads, S=32768), bf16, the
+    last member's heads a view of the model-layout tensors; y and the
+    final state against the plain version at K3's tolerance."""
+    r, k, v, w, u, s0 = _wkv_inputs(150, 1, 32, S, 64, torch.bfloat16, cuda_device)
+    heads = slice(32 - H, 32)
+    local = [a.transpose(1, 2).contiguous()[:, :, heads] for a in (r, k, v, w)]
+    del r, k, v, w
+    before = wkv_kernel.LAUNCHES
+    y, sT = wkv_ops.wkv6(*local, u[heads], state=s0[:, heads])
+    assert wkv_kernel.LAUNCHES == before + 1 and y.shape == (1, S, H, 64)
+    ey, es = wkv6_ref(*(a.transpose(1, 2) for a in local), u[heads], s0[:, heads])
+    _wkv_close(y, ey.transpose(1, 2))
+    _wkv_close(sT, es)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,di", [(2048, 8192), (8192, 4096)])
+def test_mamba_scan_over_the_gathered_sequence_on_card(cuda_device, S, di):
+    """K4 through ``ms_ops.mamba_scan`` at ``chip_smoke.py`` ``[seq-par]``'s
+    shapes, a model member's channels of one jamba Mamba layer (d_inner
+    16384, d_state 16) over the sequence gathered from the members' rows:
+    (h) at model = 2 (8192 channels, S=2048) and (j) the block's prefill at
+    model = 4 (4096 channels, S=8192), bf16, the last member's channels;
+    against the plain version at K4's tolerance."""
+    u, dt, A, Bc, Cc, D, h0 = _ms_inputs(160, 1, S, 16384, 16, torch.bfloat16,
+                                         cuda_device)
+    ch = slice(16384 - di, 16384)
+    args = (u[..., ch].contiguous(), dt[..., ch].contiguous(), A[ch], Bc, Cc,
+            D[ch], h0[:, ch].contiguous())
+    del u, dt
+    before = ms_kernel.LAUNCHES
+    got = ms_ops.mamba_scan(*args)
+    assert ms_kernel.LAUNCHES == before + 1 and got[0].shape == (1, S, di)
+    _ms_check(args, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd,dtype", [
+    (2, 8, 448, 64, "bfloat16"), (2, 8, 448, 64, "float32"),
+    (1, 8, 4096, 128, "bfloat16"), (1, 8, 4096, 128, "float32")])
+def test_kernel_on_a_members_heads_over_the_gathered_sequence_on_card(
+        cuda_device, B, H, S, hd, dtype):
+    """K1 through ``L.attend`` at ``chip_smoke.py`` ``[seq-par]``'s member
+    shapes, model = 2: (i) whisper-medium's decoder, 8 of 16 heads over
+    its 448-long gathered text (B=2), and (f) deepseek-moe-16b's train_4k,
+    8 of 16 heads at hd 128 over S=4096, each in bf16 (its tolerance 2e-2)
+    and fp32 (the fp32 holds', 1e-4), in the model's layout, against the
+    plain version."""
+    from repro_torch.models import layers as L
+    dt = getattr(torch, dtype)
+    q, k, v = (_randn(170 + i, B, S, H, hd, dtype=dt, device=cuda_device)
+               for i in range(3))
+    before = kernel.LAUNCHES
+    out = L.attend(q, k, v, causal=True, impl="kernel")
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    exp = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True).transpose(1, 2)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)

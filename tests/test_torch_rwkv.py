@@ -173,21 +173,18 @@ def test_hybrid_still_raises():
     """RWKV and Mamba hybrids, with or without experts, are let through for
     serving and for training: a hybrid with experts (Jamba as published,
     MoE every 2nd layer) included, under either step, with MoE dispatch
-    groups under the GSPMD step too.  It still raises for what is not
-    ported: a sequence split of RWKV6 or hybrid layers."""
+    groups under the GSPMD step too, and with a sequence split of RWKV6 or
+    hybrid layers (the name is the refusal's, which that split was)."""
     from repro_torch.models.transformer import check_trainable
-    from repro_torch.runtime.train_loop import check_gspmd
     jamba = get_smoke_arch("jamba-1.5-large-398b")
     assert jamba.is_hybrid and jamba.moe is not None
     assert count_params(build_model(jamba, ModelSettings(**FP32),
                                     device="cpu")) > 0
     check_trainable(jamba, ModelSettings(**FP32))
     check_trainable(get_smoke_arch("rwkv6-1.6b"), ModelSettings(**FP32))
-    check_gspmd(jamba, ModelSettings(**FP32))
-    check_gspmd(jamba, ModelSettings(**FP32, moe_groups=2))
+    check_trainable(jamba, ModelSettings(**FP32, moe_groups=2))
     for arch in (jamba, get_smoke_arch("rwkv6-1.6b")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            check_trainable(arch, ModelSettings(**FP32, seq_axis="model"))
+        check_trainable(arch, ModelSettings(**FP32, seq_axis="model"))
     hybrid = get_smoke_arch("qwen2-0.5b").replace(mamba=MambaConfig(d_state=4),
                                                   attn_every=2)
     assert count_params(build_model(hybrid, ModelSettings(**FP32),

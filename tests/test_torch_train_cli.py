@@ -2,25 +2,19 @@
 3-tier run on 8 gloo CPU ranks that it spawns itself, runs with a model
 axis and in the GSPMD step, its mesh rules (the JAX CLI's), and what it
 refuses."""
-import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
-import types
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 
-from repro_torch.configs import get_smoke_arch  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import ModelSettings, build_model  # noqa: E402
-from repro_torch.runtime.train_loop import Trainer, TrainerConfig  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,24 +117,15 @@ def test_cli_trains_tp_and_gspmd_on_cpu(tmp_path, mode, arch, mesh):
      {"pod": 1, "data": 2, "model": 2}, "jamba-1.5-large-398b", dict(moe_groups=2)),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, cfg, sizes, arch, settings):
-    """(The name is the refusals', of which the RWKV6 sequence split is
-    left.)  MoE dispatch groups under the GSPMD step train: the
-    ``Trainer`` of deepseek's smoke on (2, 1, 1) and of jamba's with its
-    experts on (1, 2, 2), checkpointed at step 2, gives finite losses, the
-    same on every member (tests/test_torch_seq_parallel.py holds them to
-    the JAX ``Trainer``).  A sequence split of RWKV6 layers is refused
-    before any collective, naming ROADMAP.md queue 1, item 8."""
+    """(The name is the refusals', which these settings were.)  MoE
+    dispatch groups under the GSPMD step and a sequence split of RWKV6
+    layers train: the ``Trainer`` of deepseek's smoke on (2, 1, 1), of
+    rwkv6's with ``seq_axis`` on (1, 2, 2) and of jamba's with its experts
+    on (1, 2, 2), checkpointed at step 2, gives finite losses, the same on
+    every member (tests/test_torch_seq_parallel.py and
+    tests/test_torch_seq_parallel_families.py hold them to the JAX
+    ``Trainer``)."""
     from torch_harness import rank_tp_trainer, spawn_ranks
-    if "seq_axis" in settings:
-        st = ModelSettings(param_dtype="float32", compute_dtype="float32")
-        model = build_model(get_smoke_arch(arch), st, device="meta")
-        # settings the build itself would refuse, set after it
-        model.settings = dataclasses.replace(st, **settings)
-        mesh = types.SimpleNamespace(sizes=sizes)  # refused before any collective
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-            Trainer(model, mesh, ShapeConfig("t", 32, 8, "train"),
-                    TrainerConfig(**cfg))
-        return
     if "ckpt_dir" in cfg:
         cfg = dict(cfg, ckpt_dir=str(tmp_path / cfg["ckpt_dir"]))
     run = dict(arch=arch, sizes=sizes, cfg=cfg, settings=settings,

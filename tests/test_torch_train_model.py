@@ -86,15 +86,13 @@ def test_loss_chunk_does_not_change_the_loss(weights, batch):
 def test_untrainable_raise():
     """What the port trains: every family, remat none/full/dots, tri
     attention, fp32/fp32, bf16/bf16 and bf16/fp32, under a model axis or
-    not, in the GSPMD step too but for the encoder-decoder, with k/v
-    repeated per query head (``gqa_repeat``) or not, MoE dispatch groups
-    under the GSPMD step, the dense decoders with their sequence split
-    (``seq_axis``, ``batch_axes``).  What still raises, naming ROADMAP.md:
-    the encoder-decoder under the GSPMD step and a sequence split of
-    other than dense layers (item 8), and fp32 parameters with a bf16
+    not, with k/v repeated per query head (``gqa_repeat``) or not, MoE
+    dispatch groups, every family with its sequence split (``seq_axis``,
+    ``batch_axes``); the GSPMD step, which has no check of its own since
+    it runs the encoder-decoder too.
+    What still raises, naming ROADMAP.md: fp32 parameters with a bf16
     compute dtype (no reference)."""
     from repro_torch.configs.base import EncoderConfig
-    from repro_torch.runtime.train_loop import check_gspmd
     st = ModelSettings(param_dtype="float32", compute_dtype="float32")
     for name in ("rwkv6-1.6b", "jamba-1.5-large-398b", "deepseek-moe-16b"):
         check_trainable(get_smoke_arch(name), st)
@@ -106,22 +104,15 @@ def test_untrainable_raise():
                                           encoder=EncoderConfig(n_layers=2))
     for arch in (encdec, get_smoke_arch("whisper-medium")):
         check_trainable(arch, st)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 8"):
-            check_gspmd(arch, st)
-    for name in (ARCH, "rwkv6-1.6b", "jamba-1.5-large-398b", "deepseek-moe-16b"):
-        check_gspmd(get_smoke_arch(name), st)
     for name in ("jamba-1.5-large-398b", "deepseek-moe-16b"):
-        check_gspmd(get_smoke_arch(name), dataclasses.replace(st, moe_groups=2))
+        check_trainable(get_smoke_arch(name), dataclasses.replace(st, moe_groups=2))
     check_trainable(get_arch(ARCH), dataclasses.replace(st, gqa_repeat=True))
     for sp in (dict(seq_axis="model"), dict(batch_axes=("data",))):
         check_trainable(get_arch(ARCH), dataclasses.replace(st, **sp))
     for name in ("deepseek-moe-16b", "rwkv6-1.6b", "jamba-1.5-large-398b",
                  "whisper-medium"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 8"):
-            check_trainable(get_smoke_arch(name),
-                            dataclasses.replace(st, seq_axis="model"))
+        check_trainable(get_smoke_arch(name),
+                        dataclasses.replace(st, seq_axis="model"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_trainable(get_arch(ARCH), dataclasses.replace(
             st, compute_dtype="bfloat16"))

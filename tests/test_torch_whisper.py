@@ -384,21 +384,45 @@ def test_checkpoint_crosses_between_packages(tmp_path, weights, dtype, direction
 
 
 def test_gspmd_step_refuses_the_encoder_decoder():
-    """The DFabric step trains whisper; the GSPMD step (FSDP) raises,
-    naming ROADMAP, and so does an FSDP layout's forward."""
-    from repro_torch.runtime.train_loop import check_gspmd, mesh_info
+    """(The name is the refusal's, which the GSPMD step was for whisper
+    until its encoder's and cross attention's FSDP gathers were ported.)
+    The smoke under an FSDP layout on (data, model) = (2, 1), two gloo
+    ranks, each on its row of the batch: the loss, summed over the
+    members, is finite and equals the unsharded model's; every gradient,
+    put together from the members' blocks (the encoder's, the cross
+    attention's and the decoder's FSDP blocks reduce-scattered), equals
+    the unsharded one (rtol 1e-5, an atol of 1e-5 of the leaf's largest
+    value; the key biases' rounding noise to ``NOISE``)."""
+    from torch_harness import (NOISE, assemble_blocks, port_loss_and_grads,
+                               port_model, rank_tp_grads, smoke_weights,
+                               spawn_ranks, zero_gradient)
     arch = configs.get_smoke_arch(WHISPER)
-    st = ModelSettings(**FP32, max_seq=MAX_SEQ)
-    T.check_trainable(arch, st)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        check_gspmd(arch, st)
-    model = build_model(arch, st, device="cpu")
-    sizes = {"pod": 1, "data": 1, "model": 1}
-    model.shard(mesh_info(sizes, fsdp=True), sizes, {a: 0 for a in sizes})
-    batch = train_batch(arch, seed=1, B=1, S=8)
-    batch["frames"] = np.zeros((1, arch.encoder.n_frames, arch.d_model), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        model.loss(model.params(), {k: torch.from_numpy(v) for k, v in batch.items()})
+    sizes = {"data": 2, "model": 1}
+    weights = smoke_weights(seed=5, arch=WHISPER)
+    batch = train_batch(arch, seed=9, B=2, S=8)
+    batch["frames"] = np.random.default_rng(10).standard_normal(
+        (2, arch.encoder.n_frames, arch.d_model)).astype(np.float32)
+    out = spawn_ranks(2, rank_tp_grads, dict(cases=[dict(
+        weights=weights, batch=batch, arch=WHISPER, sizes=sizes, fsdp=True,
+        remat="full", loss_chunk=8)]))
+    out = [r[0] for r in out]
+    want_loss, want = port_loss_and_grads(
+        port_model(weights, arch=WHISPER, loss_chunk=8), batch)
+    want = {k: g.numpy() for k, g in want.items()}
+    specs = out[0][3]
+    assert any(sp[1] == "data" for k, sp in specs.items() if k.startswith("enc_blocks/"))
+    assert any("data" in sp for k, sp in specs.items() if "/xattn/" in k)
+    for loss, *_ in out:
+        assert np.isfinite(loss)
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    grads = assemble_blocks([(g, c, s) for _, g, c, s, _ in out],
+                            {k: v.shape for k, v in want.items()}, sizes, WHISPER)
+    for k, g in grads.items():
+        if zero_gradient(WHISPER, k):
+            assert max(np.abs(g).max(), np.abs(want[k]).max()) <= NOISE, k
+            continue
+        np.testing.assert_allclose(g, want[k], rtol=1e-5,
+                                   atol=1e-5 * np.abs(want[k]).max(), err_msg=k)
 
 
 def test_train_cli_smoke_on_cpu(capsys):

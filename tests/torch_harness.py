@@ -1413,7 +1413,9 @@ def check_tp_run(name, recs, jax_out, sizes, cfg, steps=None, state=True,
         _assemble_first(recs, sshapes, sizes)
     for k, got in state.items():
         want = jax_out[f"{name}/s/{k}"]
-        if zero_gradient(arch, k.rsplit("/", 1)[0]):
+        # a sync-state section is named after its leaf, the GSPMD state's
+        # moments carry the leaf's path
+        if zero_gradient(arch, k.rsplit("/", 1)[0]) or zero_gradient(arch, k):
             assert max(np.abs(got).max(), np.abs(want).max()) <= NOISE, k
             continue
         rel = 1e-2 if k.endswith("/ef") else 1e-4
@@ -1722,3 +1724,58 @@ def _serve_cell(mesh, cell_case):
     logits, cache = bound.run(cache, toks, 0)
     return (logits.float().numpy().copy(), n,
             {k: tuple(v.shape) for k, v in tree_paths(cache).items()})
+
+
+# ---------------------------------------------------------------------------
+# the sequence split of every family, whisper under the GSPMD step, planned
+# MoE dispatch over split experts (test_torch_seq_parallel_families.py)
+# ---------------------------------------------------------------------------
+
+
+def rank_moe_schedule(rank, payload):
+    """For each case of ``payload["cases"]`` (``arch``'s smoke MoE layer
+    from the numpy leaves ``p``, the global input ``x`` (B, S, d),
+    ``groups``, ``schedule``: a port schedule, on the mesh ``sizes``):
+    ``apply_moe`` on this member, with its ``E / n`` experts where
+    ``split`` (over model) and on its rows of ``x`` under ``token_axes``
+    (the DP axes, the GSPMD step's routing), once without the schedule
+    and once with it.  Returns one record a case: (the two outputs, the
+    two aux losses, the coords), or the error's text where the scheduled
+    call raised ``ValueError``."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import prims
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.train_loop import dp_axes_of, local_rows
+    out = []
+    for case in payload["cases"]:
+        sizes = case["sizes"]
+        mesh = prims.Mesh(sizes)
+        arch = get_smoke_arch(case["arch"])
+        p = {k: torch.from_numpy(v) if not isinstance(v, dict) else
+             {kk: torch.from_numpy(vv) for kk, vv in v.items()}
+             for k, v in case["p"].items()}
+        spec = None
+        if case["split"]:
+            n, r = sizes["model"], mesh.rank("model")
+            El = arch.moe.num_experts // n
+            for k in ("we_in", "we_gate", "we_out"):
+                p[k] = p[k][r * El:(r + 1) * El]
+            spec = (None, "model")
+        token_axes = dp_axes_of(sizes) if case["token_axes"] else ()
+        x = case["x"]
+        if token_axes:
+            x = local_rows({"x": x}, mesh)["x"]
+        x = torch.from_numpy(x)
+        with prims.bind(mesh):
+            kw = dict(groups=case["groups"], dispatch_spec=spec,
+                      token_axes=token_axes)
+            y0, a0 = L.apply_moe(arch, p, x, **kw)
+            try:
+                y1, a1 = L.apply_moe(arch, p, x, dispatch_schedule=case["schedule"],
+                                     **kw)
+            except ValueError as e:
+                out.append(str(e))
+                continue
+        out.append((y0.numpy().copy(), y1.numpy().copy(), a0.numpy().copy(),
+                    a1.numpy().copy(), tuple(sorted(mesh.coords.items()))))
+    return out
