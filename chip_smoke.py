@@ -13,12 +13,14 @@ S=2048, launches asserted; then fp32 kernel-vs-plain and prefill-vs-decode
 checks) and ``DecodeServer`` answering 16 requests:
 
   * qwen2-0.5b, with the flash-attention kernel (K1) in every prefill layer;
+    its fp32 checks on a 4-layer model;
   * rwkv6-1.6b, with the WKV6 kernel (K3) in every layer of every prefill
     and decode step;
   * jamba-1.5-large-398b cut to one card (one 8-layer Jamba block, no
     experts, every width published: ``configs.one_card_arch``), with the
     selective-scan kernel (K4) in its 7 Mamba layers of every prefill and
-    decode step and K1 in its attention layer's prefill;
+    decode step and K1 in its attention layer's prefill; its fp32 checks on
+    a Mamba layer and the attention layer;
   * deepseek-moe-16b at 14 of its 28 layers (64 routed experts top-6 and
     2 shared in each; 16.88 B parameters whole), with K1 in every prefill layer,
     the (token, k) slots each MoE layer drops at that shape, and its fp32
@@ -47,7 +49,8 @@ every layer's forward and K2 in every slow-tier leg, 4 steps with a
 checkpoint every 2 (``[train]``, run (a)); then ``[ckpt]``: (b) the same
 run with a failure injected after the step-2 save and a restart in new
 ranks that restores step 2 and runs steps 2-3, held to (a); (c) that
-step-2 checkpoint restored on one rank (mesh (1, 1, 1)) for one step.
+step-2 checkpoint restored on one rank (mesh (1, 1, 1), this process)
+for one step.
 The checkpoints (≈ 7.9 GB a step) go under ``build/ckpt_smoke`` and are
 deleted after the phase; too little free disk there raises.
 
@@ -61,9 +64,33 @@ plan says); parameters bit-equal over the 8 ranks after every step; (c)
 ``dfabric_all_to_all`` of one deepseek-moe-16b dispatch buffer (64 x 960 x
 2048 bf16) a rank at chunks 1/2/4 and every lane offset, bit-equal to one
 flat ``all_to_all_single``; (d) ``ring_all_reduce`` of embed's gradient
-size on a second mesh, ``{"data": 8}``, bit-equal to ``prims.psum``.  The
-gloo collectives move the card's tensors through host memory: their times
-are not fabric bandwidth.
+size on a second mesh, ``{"data": 8}``, bit-equal to ``prims.psum``; (e)
+RWKV6's time mix split inside its heads, on a third mesh of the same
+ranks: rwkv6-1.6b's smoke (4 heads of 16, d 64) on (pod, data, model) =
+(1, 1, 8), each member holding 8 columns (half a head) of the time mix's
+projections and running every head's recurrence (K3 over all 4, ``u`` and
+the ``wkv`` state whole), fp32, 8 rows of 32: the DFabric and the GSPMD
+step with and without the sequence split, 2 steps each, the losses within
+1e-5 relative of the same runs on one member (in this process, a world of
+one), K3 2 a rank a step, the blocks two members hold alike bit-equal;
+then prefill of 4 rows of 32 on (data, model) = (1, 8) with and without
+the split and 4 decode steps, the logits within 1e-4 of the one-member
+run's, the ``wkv`` state bit-equal on the 8 members.  The gloo
+collectives move the card's tensors through host memory: their times are
+not fabric bandwidth.
+
+Then ``[examples]``: the four examples' twins (``examples/*_torch.py``) in
+turn through their ``main(argv)`` in one spawned process, each starting
+and ending a world of its own (nccl, one member): quickstart (60 steps;
+the loss falls), elastic_restart (crash at step 10, restart from step 8,
+every restarted step's loss equal to the uninterrupted run's, the restore
+giving step 16), ddp_train (300 steps of its 67.1M-parameter model, the
+newest checkpoint at step 300 under ``build/ckpt_examples``, deleted
+after; the preemption handler installed, the straggler events printed)
+and serve_decode on the qwen2-0.5b, rwkv6-1.6b, jamba-1.5-large-398b and
+whisper-medium smokes (12/12 requests each); K1 in every attention layer's
+training forward, K3 and K4 in every RWKV6 and Mamba layer's decode step,
+each counted from 0 just before each ``main``, no K2.
 
 Then the training phases beyond dense fp32 (``FAMILY_RUNS``), each on two
 ranks sharing the card over gloo, mesh (2, 1, 1), the int8 slow tier (K2 on
@@ -82,13 +109,13 @@ width, cut to 2 of its 24 layers,
 bf16, B=1 S=1024 a rank, 1 step, K3 in every layer's forward and
 recompute (4 a rank a step; the backward recomputes the plain
 recurrence); ``[train-jamba]`` one full-width Mamba
-layer of the jamba cut, forward and backward through K4's autograd wrapper
+layer of the jamba cut (B=1 S=1024), forward and backward through K4's autograd wrapper
 against the plain path's gradients in fp32 and bf16, then the jamba smoke
 model with its experts, 1 step, K4 and K1 in the forward and recompute;
-``[train-whisper]`` whisper-medium at every width, cut to 4 of its 24
+``[train-whisper]`` whisper-medium at every width, cut to 2 of its 24
 encoder and 24 decoder layers, in fp32, ``remat="full"``, B=2 S=448 a
 rank with its frames from the data pipeline, 2 steps, K1's fp32 body in
-every decoder layer's forward and recompute (8 a rank a step), step 0's
+every decoder layer's forward and recompute (4 a rank a step), step 0's
 loss held to the masked step's at 1e-4 relative, an fp32 checkpoint at
 step 2 restored bit for bit.
 
@@ -99,14 +126,14 @@ model) = (2, 1, 2), the int8 slow tier on each member's local blocks, 1
 step of ``[train]``'s global batch, K1 on 7 local heads (24 a rank a
 step) and K2 as the local plan counts it, step 0's loss held to
 ``[train]``'s at 1e-4; ``[train-gspmd]`` qwen3-1.7b at every width, cut
-to 4 of its 28 layers, in bf16, ``remat="full"``, FSDP over data x TP
+to 2 of its 28 layers, in bf16, ``remat="full"``, FSDP over data x TP
 over model on (1, 2, 2), B=1 S=2048 a DP member, 2 steps, K1 on 8 local
 heads (8 a rank a step), step 0's loss held to one unsharded forward and
 backward on the global batch at 1e-3 and its gradient norms (the whole
 model's and the leaves nearest the loss) at 1e-2 relative, and its
-step-2 checkpoint (≈ 10.2 GB under ``build/ckpt_gspmd``, deleted after)
-restored into a fresh model bit for bit; ``[train-gspmd-rwkv]`` full-width rwkv6-1.6b at
-4 of its 24 layers, bf16 parameters with fp32 compute, FSDP x TP on (1, 2,
+step-2 checkpoint (under ``build/ckpt_gspmd``, deleted after) restored
+into a fresh model bit for bit; ``[train-gspmd-rwkv]`` full-width
+rwkv6-1.6b at 2 of its 24 layers, bf16 parameters with fp32 compute, FSDP x TP on (1, 2,
 2), B=1 S=512 a DP member, 2 steps, K3 on 16 local heads (4 a rank a
 step), step 0's loss held to an unsharded step's at 1e-3, its gradient
 norm one layer from the loss at 1e-2 and the whole model's at 3e-2, each
@@ -134,8 +161,8 @@ seconds); (b) one DP member's share of four cells of (pod, data, model) =
 the cell's settings and step kind (``Cell.bind``): qwen2-0.5b's
 prefill_32k (B=1 S=32768 bf16, K1 in each of its 24 layers, then in fp32
 at 4 layers held to the masked path at 1e-3), decode_32k (B=4 over a
-32768-long cache, 16 steps, no kernel, finite logits, TPOT), rwkv6-1.6b's
-long_500k (B=1, 16 steps at pos 524272 with K3, 24 a step, each launch
+32768-long cache, 8 steps, no kernel, finite logits, TPOT), rwkv6-1.6b's
+long_500k (B=1, 8 steps at pos 524280 with K3, 24 a step, each launch
 held to the plain recurrence on its own inputs at ``[K3]``'s tolerance;
 then in fp32 each layer's drift between the K3 and the plain path at 24
 layers, and the logits of the two paths held at 1e-3 at 4 layers) and
@@ -148,8 +175,8 @@ gloo in one spawn, each run one DP member's share of a cell of (pod, data,
 model) = (2, 16, 16) with the cell's settings (``attn_impl="kernel"`` for
 the prefill, ``use_kernel_ssm`` for the recurrences), its model axis cut
 to the 4 ranks: (a) qwen3-1.7b's prefill_32k on (data, model) = (1, 4),
-B=1 S=32768 bf16 at 8 of its 28 layers, K1 on each rank's 4 query heads
-with the kv repeated (``gqa_repeat``), 8 a prefill; (b) its decode_32k at
+B=1 S=32768 bf16 at 4 of its 28 layers, K1 on each rank's 4 query heads
+with the kv repeated (``gqa_repeat``), 4 a prefill; (b) its decode_32k at
 that depth, B=4 over a
 32768-long cache, 4 steps; (c) rwkv6-1.6b's long_500k, 4 steps, K3 on 8
 of 32 heads, 24 a step, every launch against the plain recurrence; (d) the
@@ -159,7 +186,7 @@ its softmax combined over data, K4 on 8192 of 16384 channels, 7 a step,
 1 step; the combine beside the whole ``attend_decode`` on random caches;
 (e) the ``DecodeServer`` over (2, 2), 8 requests on 8 slots (4 a data
 member), 8 new tokens each, every member's outputs equal.  Each run is
-held against the one-member run on the card in fp32 at 4 layers (jamba:
+held against the one-member run on the card in fp32 at 2 layers (jamba:
 a Mamba and its attention layer), at 1e-4 (rwkv6: 1e-3, each layer's
 drift printed first; the server: the tokens equal); the bf16 gap of (a)
 is printed; every run's check runs before the phase fails.
@@ -167,10 +194,10 @@ is printed; every run's check runs before the phase fails.
 Last, ``[seq-par]``: the sequence split, the context-parallel cell and
 MoE dispatch groups, 4 ranks sharing the card over gloo in one spawn,
 published widths, K1 on the gathered sequence: (a) qwen2-0.5b's train_4k
-cell with ``seq_shard`` (``Cell.bind``: the DFabric step, the residual
-stream's sequence split over model) on (pod, data, model) = (1, 2, 2),
-B=1 S=4096 a DP member, bf16, ``remat="full"``, 1 step, K1 48 a rank a
-step at (1,7,4096,64); (b) qwen3-1.7b's train_4k cell with
+cell with ``seq_shard`` at 12 of its 24 layers (the DFabric step with the
+cell's settings, the residual stream's sequence split over model) on
+(pod, data, model) = (1, 2, 2), B=1 S=4096 a DP member, bf16,
+``remat="full"``, 1 step, K1 24 a rank a step at (1,7,4096,64); (b) qwen3-1.7b's train_4k cell with
 ``context_parallel`` (the GSPMD step, every block whole on both model
 members, the fp32 moments under ``zero_moment_specs``) at 2 of its 28
 layers on (1, 2, 2), 2 steps, K1 4 a rank a step at (1,16,4096,128),
@@ -179,10 +206,10 @@ under FSDP over data x TP over model with the nemotron cell's settings (``seq_ax
 fp32, 1 step; each of (a)-(c) with the blocks two members hold alike
 bit-equal after every step and, in fp32 at 2 layers, step 0's loss within
 1e-5 and gradient norm within 1e-4 of the same step without the split;
-(d) qwen3-1.7b's prefill_32k cell with ``seq_shard`` at 4 of its 28
+(d) qwen3-1.7b's prefill_32k cell with ``seq_shard`` at 2 of its 28
 layers, one DP member on (data, model) = (1, 4), B=1 S=32768 bf16 timed
-once, K1 4 a rank, the
-cache the whole sequence, and in fp32 at 4 layers the logits within
+once, K1 2 a rank, the
+cache the whole sequence, and in fp32 at 2 layers the logits within
 atol = rtol = 1e-5 of the same prefill without the split; (e) one
 deepseek-moe-16b MoE layer in fp32 in 2 dispatch groups of a 4-row global
 batch over 4 DP members (each group spans two), the members' dropped slots
@@ -190,18 +217,18 @@ summed equal to the whole grouped layer's and each member's output within
 1e-5 of its largest value.  Then the sequence split of the other
 families, K1, K3 and K4 on the gathered sequence: (f) deepseek-moe-16b's
 train_4k cell with ``seq_shard`` at 2 of its 28 layers and (g)
-rwkv6-1.6b's at 4 of 24 (S=1024), the DFabric step on (1, 2, 2), bf16, 1
+rwkv6-1.6b's at 2 of 24 (S=1024), the DFabric step on (1, 2, 2), bf16, 1
 step, each with its fp32 hold at 2 layers ((f): the dropped slots equal
 without the split, layer by layer); (h) the jamba smoke with its experts
-under the GSPMD step with the split, 2 steps, then one full-width Mamba
-layer over model = 2 with the split (B=1 S=2048, each member's rows),
+under the GSPMD step with the split, 1 step, then one full-width Mamba
+layer over model = 2 with the split (B=1 S=1024, each member's rows),
 its assembled gradients through K4 against the plain layer's; (i)
-whisper-medium at 4 + 4 of its 24 + 24 layers under the GSPMD step (FSDP
+whisper-medium at 2 + 2 of its 24 + 24 layers under the GSPMD step (FSDP
 x TP) with the split, bf16, B=2 S=448 a DP member over its frames, 2
 steps, its checkpoint restored bit for bit, and in fp32 at 2 + 2 layers
 step 0's loss within 1e-5 of the DFabric step without the split; (j)
-rwkv6-1.6b's prefill_32k cell with ``seq_shard`` on (1, 4), every layer,
-K3 24 a rank, and the jamba block's prefill at S=8192 on (1, 4), K4 7 and
+rwkv6-1.6b's prefill_32k cell with ``seq_shard`` on (1, 4) at 8 of its 24
+layers, K3 8 a rank, and the jamba block's prefill at S=4096 on (1, 4), K4 7 and
 K1 1 a rank, each in fp32 (rwkv6 at 4 layers over 8192 tokens, jamba a
 Mamba layer and the attention layer) against the prefill without the
 split (each recurrence's drift printed, the recurrent states in the
@@ -229,9 +256,11 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
@@ -280,6 +309,30 @@ TRAIN3_RANKS, TRAIN3_TOKENS, TRAIN3_MID_STEPS = 8, 8 * 512, 1
 # (B=4 S=2048): 64 experts x C 960 x d_model 2048, bf16, as 8 rows
 A2A_SHAPE = (64, 960, 2048)
 RING_NUMEL = 151936 * 896  # qwen2-0.5b's embed gradient
+# [train3] (e): RWKV6's time mix split inside its heads, in the same 8-rank
+# world: rwkv6-1.6b's smoke (4 heads of 16, d 64) on a model axis of 8, each
+# member holding 8 columns (half a head) of ``wr``/``wk``/``wv``/``wg`` and
+# running every head's recurrence (K3 over all 4), fp32; its full-width form
+# starts at a model axis of 64.  The DFabric and the GSPMD step with and
+# without the sequence split, 8 rows of 32 (one DP member) for 2 steps, then
+# prefill of 4 rows of 32 on (data, model) = (1, 8), with and without the
+# split, and 4 decode steps; each held to the one-member run in the parent
+SPLIT_HEADS_ARCH = "rwkv6-1.6b"
+SPLIT_HEADS_SIZES = {"pod": 1, "data": 1, "model": 8}
+SPLIT_HEADS_RUNS = {"dfabric": ("dfabric", {}),
+                    "dfabric-sp": ("dfabric", dict(seq_axis="model")),
+                    "gspmd": ("gspmd", {}),
+                    "gspmd-sp": ("gspmd", dict(seq_axis="model",
+                                               batch_axes=("pod", "data")))}
+SPLIT_HEADS_ROWS, SPLIT_HEADS_SEQ, SPLIT_HEADS_STEPS = 8, 32, 2
+SPLIT_HEADS_SERVE_ROWS, SPLIT_HEADS_DECODE = 4, 4
+# [examples]: the four examples' twins (``examples/*_torch.py``), in one
+# spawned process through their ``main(argv)``; ddp_train's checkpoints
+# (≈ 0.8 GB each, 3 kept) go under build/
+EXAMPLES_DIR = os.path.join(HERE, "examples")
+EXAMPLES_SERVE_ARCHS = ("qwen2-0.5b", "rwkv6-1.6b", "jamba-1.5-large-398b",
+                        "whisper-medium")
+EXAMPLES_DDP_STEPS = 300
 
 
 def log(msg: str) -> None:
@@ -634,7 +687,10 @@ def check_wkv6(torch, gen, dev, arch):
     the per-case results."""
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.configs import get_smoke_arch
     H, hd = arch.d_model // arch.rwkv.head_size, arch.rwkv.head_size
+    smoke = get_smoke_arch(SPLIT_HEADS_ARCH)
+    Hs, hds = smoke.d_model // smoke.rwkv.head_size, smoke.rwkv.head_size
     S_member = GSPMD_RUNS["train-gspmd-rwkv"]["seq"]
     cases = [  # name, B, H, S, hd, r/k/v dtype; every case in the model layout
         ("main-bf16", B_MAIN, H, S_MAIN, hd, "bfloat16"),
@@ -655,6 +711,10 @@ def check_wkv6(torch, gen, dev, arch):
         ("main-seq-par-g-fp32", 1, H // 2, SEQ_PAR_TRAIN["g"].fp32_seq, hd, "float32"),
         ("main-seq-par-j", 1, H // 4, 32768, hd, "bfloat16"),
         ("main-seq-par-j-fp32", 1, H // 4, SEQ_PAR_RWKV_FP32_SEQ, hd, "float32"),
+        # [train3] (e): every head of the smoke on every member of model = 8,
+        # fp32; [examples]: a decode step of serve_decode_torch's 4 slots
+        ("main-split-heads", SPLIT_HEADS_ROWS, Hs, SPLIT_HEADS_SEQ, hds, "float32"),
+        ("main-examples-serve", 4, Hs, 1, hds, "float32"),
         ("ragged-S40", 2, H, 40, hd, "float32"),
         ("ragged-S100", 2, H, 100, hd, "bfloat16"),
         ("ragged-S333", 2, H, 333, hd, "float32"),
@@ -727,20 +787,23 @@ def check_mamba_scan(torch, gen, dev, arch):
         ("main-fp32", B_MAIN, S_MAIN, di, m.d_state, "float32"),
         # [train-jamba]: one full-width layer's training shape, and the
         # smoke model's (d_model 64, d_state 4, 2 rows of 512 a rank)
-        ("main-train-B1", 1, S_MAIN, di, m.d_state, "bfloat16"),
+        ("main-train-B1", 1, MAMBA_LAYER_SEQ, di, m.d_state, "bfloat16"),
         ("main-train-smoke", 2, 512, 128, 4, "bfloat16"),
         # [train-tp-hybrid] (d): a model member's 8192 channels of that layer
         # ([seq-par] (h) over the gathered sequence too), and in fp32
-        ("main-train-member", 1, S_MAIN, di // 2, m.d_state, "bfloat16"),
-        ("main-seq-par-h-fp32", 1, S_MAIN, di // 2, m.d_state, "float32"),
+        ("main-train-member", 1, MAMBA_LAYER_SEQ, di // 2, m.d_state, "bfloat16"),
+        ("main-seq-par-h-fp32", 1, MAMBA_LAYER_SEQ, di // 2, m.d_state, "float32"),
         # [seq-par] (h): the jamba smoke's 64 of 128 channels, 2 rows of 512;
         # (j): the block's prefill, 4096 channels at model = 4 over the
-        # gathered 8192, bf16 and the fp32 hold's
+        # gathered 4096, bf16 and the fp32 hold's
         ("main-seq-par-h-smoke", 2, 512, 64, 4, "bfloat16"),
         ("main-seq-par-j", 1, SEQ_PAR_JAMBA_PREFILL_SEQ, di // 4, m.d_state, "bfloat16"),
         ("main-seq-par-j-fp32", 1, SEQ_PAR_JAMBA_PREFILL_SEQ, di // 4, m.d_state,
          "float32"),
         ("decode-S1", 8, 1, di, m.d_state, "bfloat16"),
+        # [examples]: a decode step of serve_decode_torch's 4 slots on the
+        # jamba smoke (d_model 64: 128 channels, d_state 4), fp32
+        ("main-examples-serve", 4, 1, 128, 4, "float32"),
         # [serve-mesh] (d): a decode step of one row on a member's channels
         ("main-serve-mesh-long", 1, 1, di // 2, m.d_state, "bfloat16"),
         ("ragged-S40", 2, 40, di, m.d_state, "float32"),
@@ -1192,7 +1255,8 @@ def train3_rank(rank, world, init_method):
     run plan, recorded alike; (c) ``dfabric_all_to_all`` of a deepseek
     dispatch buffer at chunks 1/2/4 and every lane offset against one flat
     ``all_to_all_single``; (d) ``ring_all_reduce`` against ``prims.psum``
-    on a second mesh, ``{"data": 8}``."""
+    on a second mesh, ``{"data": 8}``; (e) :func:`split_heads_runs` on a
+    third, the model axis over all 8."""
     import gc
 
     import torch
@@ -1329,6 +1393,14 @@ def train3_rank(rank, world, init_method):
             psum, rec["psum_s"] = timed(lambda: prims.psum(xr, "data"))
         rec["ring_equal"] = torch.equal(ring, psum)
         rec["ring_bytes"] = xr.numel() * 4
+        del xr, ring, psum
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) RWKV6's time mix split inside its heads, model axis 8
+        t0 = time.perf_counter()
+        rec["e"] = split_heads_runs(torch, world)
+        rec["e_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     return rec
@@ -1396,6 +1468,333 @@ def run_train3(card):
     return recs
 
 
+def split_heads_runs(torch, model_axis):
+    """[train3] (e) on this member of a model axis of ``model_axis`` over
+    the world (1: the one-member reference, in a world of one): each
+    ``SPLIT_HEADS_RUNS`` ``Trainer`` run of the rwkv6 smoke in fp32 with K3
+    (each step recorded by :func:`step_recorder`), then prefill on (data,
+    model) = (1, ``model_axis``) with and without the sequence split, and
+    ``SPLIT_HEADS_DECODE`` decode steps from the first one's cache: the
+    logits, each call's K3 launches (counted from 0 just before it) and
+    milliseconds, the ``wkv`` states."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prims
+    from repro_torch.models import ModelSettings, build_model
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig, mesh_info
+    from repro_torch.utils.trees import tree_paths
+    arch = get_smoke_arch(SPLIT_HEADS_ARCH)
+    fp32 = dict(param_dtype="float32", compute_dtype="float32", use_kernel_ssm=True)
+    out = {}
+    for tag, (mode, fields) in SPLIT_HEADS_RUNS.items():
+        rec = out[tag] = {"steps": []}
+        start, on_step = step_recorder(rec)
+        trainer = Trainer(
+            build_model(arch, ModelSettings(**fp32, remat="none", **fields),
+                        device="cuda", seed=SEED),
+            prims.Mesh(dict(SPLIT_HEADS_SIZES, model=model_axis)),
+            ShapeConfig("split-heads", SPLIT_HEADS_SEQ, SPLIT_HEADS_ROWS, "train"),
+            TrainerConfig(steps=SPLIT_HEADS_STEPS, lr=3e-4, warmup=1, log_every=0,
+                          mode=mode))
+        params, opt, step0 = trainer.init_state()
+        rec["specs"] = {k: sp for k, sp in trainer.model.layout.specs.items()
+                        if k.endswith(("tmix/wr", "tmix/u"))}
+        start(trainer)
+        trainer.train(params, opt, step0, on_step=on_step)
+        del trainer, params, opt, start, on_step
+        gc.collect()
+    kernels = kernel_modules()
+    sizes = {"data": 1, "model": model_axis}
+    mesh = prims.Mesh(sizes)
+    B, S, n = SPLIT_HEADS_SERVE_ROWS, SPLIT_HEADS_SEQ, SPLIT_HEADS_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    toks = torch.randint(0, arch.vocab, (B, S + n), generator=gen, device="cuda")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0  # just before the path
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, ((time.perf_counter() - t0) * 1e3,
+                     {name: mod.LAUNCHES for name, mod in kernels.items()})
+
+    for tag, fields in (("prefill", {}),
+                        ("prefill-sp", dict(seq_axis="model", batch_axes=("data",)))):
+        model = build_model(arch, ModelSettings(**fp32, max_seq=S + n, **fields),
+                            device="cuda", seed=SEED)
+        model.shard(mesh_info(sizes), sizes, mesh.coords)
+        rec = out[tag] = {"calls": []}
+        with prims.bind(mesh):
+            (logits, cache), call = timed(lambda: model.prefill(toks[:, :S], batch=B))
+            rec["calls"].append(call)
+            rec["logits"] = [logits.cpu().numpy()]
+            for t in range(n if tag == "prefill" else 0):
+                (logits, cache), call = timed(lambda: model.decode_step(
+                    cache, toks[:, S + t:S + t + 1], S + t, batch=B, max_seq=S + n))
+                rec["calls"].append(call)
+                rec["logits"].append(logits.cpu().numpy())
+        rec["wkv"] = {k: v.cpu().numpy() for k, v in tree_paths(cache).items()
+                      if k.endswith("wkv")}
+        del model, cache
+    return out
+
+
+def split_heads_check(recs, ref, card):
+    """Log and check [train3] (e) (each rank's :func:`split_heads_runs`
+    record) against the one-member run ``ref``: the projections split over
+    model and ``u`` whole; every step's K3 launches as
+    ``expected_launches`` (no K2: one DP member), the ranks' losses equal
+    and within 1e-5 relative of ``ref``'s, the blocks two members hold alike
+    bit-equal; each prefill's and decode step's K3 launches (one a layer),
+    its logits within atol = rtol = 1e-4 of ``ref``'s (``[serve-mesh]``'s
+    tolerance), and the ``wkv`` states bit-equal on every member and
+    within 1e-4 of ``ref``'s."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_arch
+    layers = get_smoke_arch(SPLIT_HEADS_ARCH).n_layers
+    tokens = SPLIT_HEADS_ROWS * SPLIT_HEADS_SEQ
+    for tag in SPLIT_HEADS_RUNS:
+        r0 = recs[0][tag]
+        specs = r0["specs"]
+        if not (all("model" in sp for k, sp in specs.items() if k.endswith("wr"))
+                and not any("model" in sp for k, sp in specs.items() if k.endswith("u"))):
+            raise AssertionError(f"[train3] (e) {tag}: layout {specs}")
+        want = dict(r0["expected"], quantize_ef_fwd=0)
+        for rank, rec in enumerate(recs):
+            for st in rec[tag]["steps"]:
+                if rank == 0:
+                    log(f"[train3] (e) {tag} step {st['step']}: loss={st['loss']:.7f} "
+                        f"grad_norm={st['grad_norm']:.5f} step_s={st['dt']:.3f} "
+                        f"tok/s={tokens / st['dt']:.0f} launches={st['launches']} "
+                        f"(expected {want}) TP collectives {st['calls']} "
+                        f"blocks_bit_equal={st['agree']} ({st['shared']} blocks held "
+                        f"by 2+ members) peak_mem_gb={st['peak_gb']:.3f} | {card}")
+                if not (st["launches"] == want and st["agree"] and st["shared"] > 0
+                        and math.isfinite(st["loss"])):
+                    raise AssertionError(f"[train3] (e) {tag} rank {rank}: {st}")
+            if [a["loss"] for a in rec[tag]["steps"]] != [a["loss"] for a in r0["steps"]]:
+                raise AssertionError(f"[train3] (e) {tag}: rank {rank} disagrees on the loss")
+        mine = [st["loss"] for st in r0["steps"]]
+        one = [st["loss"] for st in ref[tag]["steps"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mine, one))
+        log(f"[train3] (e) {tag}: losses {mine} on (1, 1, 8) against {one} on one "
+            f"member: max rel diff {rel:.2e} (tol 1e-5); one member's step_s "
+            f"{[round(st['dt'], 3) for st in ref[tag]['steps']]}")
+        if len(mine) != SPLIT_HEADS_STEPS or not rel <= 1e-5:
+            raise AssertionError(f"[train3] (e) {tag}: losses off the one-member run")
+    for tag in ("prefill", "prefill-sp"):
+        errs = []
+        for rank, rec in enumerate(recs):
+            for t, (got, want) in enumerate(zip(rec[tag]["logits"], ref[tag]["logits"])):
+                errs.append(float(np.abs(got - want).max()))
+                torch.testing.assert_close(
+                    torch.from_numpy(got), torch.from_numpy(want), atol=1e-4, rtol=1e-4,
+                    msg=lambda m: f"[train3] (e) {tag} rank {rank} call {t}: {m}")
+            for k, v in rec[tag]["wkv"].items():
+                np.testing.assert_array_equal(v, recs[0][tag]["wkv"][k],
+                                              err_msg=f"[train3] (e) {tag} {k}")
+                torch.testing.assert_close(torch.from_numpy(v),
+                                           torch.from_numpy(ref[tag]["wkv"][k]),
+                                           atol=1e-4, rtol=1e-4)
+            for ms, launches in rec[tag]["calls"]:
+                if launches != {"flash_attention_fwd": 0, "wkv6_fwd": layers,
+                                "mamba_scan_fwd": 0, "quantize_ef_fwd": 0}:
+                    raise AssertionError(f"[train3] (e) {tag} rank {rank}: {launches}")
+        calls = recs[0][tag]["calls"]
+        log(f"[train3] (e) {tag} on (data, model) = (1, 8), B={SPLIT_HEADS_SERVE_ROWS} "
+            f"S={SPLIT_HEADS_SEQ} fp32: prefill {calls[0][0]:.2f} ms"
+            + (f", decode steps {', '.join(f'{ms:.2f}' for ms, _ in calls[1:])} ms"
+               if len(calls) > 1 else "")
+            + f"; K3 {layers} a call; logits max_abs_diff {max(errs):.3e} from the "
+            f"one-member run (atol = rtol = 1e-4), the wkv state (every head) "
+            f"bit-equal on the 8 members | {card}")
+
+
+def split_heads_reference(torch):
+    """:func:`split_heads_runs` on one member, in a world of this process
+    alone (the runs bind their meshes to it)."""
+    from repro_torch.launch.mesh import one_process_mesh
+    with one_process_mesh((1,), ("data",), "cuda"):
+        out = split_heads_runs(torch, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_rank(rank, world, init_method, ckpt_dir):
+    """[examples] in a spawned process that joins no group: the four twins
+    in turn through their ``main(argv)`` on the card (each starts and ends a
+    world of its own), every kernel's launches counted from 0 just before
+    each ``main``; the wall of each, what it printed and the numbers the
+    checks read.  The per-step launches each twin's settings give come
+    from its ``build`` on the meta device."""
+    import contextlib
+    import io
+    import signal
+    import torch
+    sys.path.insert(0, EXAMPLES_DIR)
+    import ddp_train_torch as ddp
+    import elastic_restart_torch as er
+    import quickstart_torch as qs
+    import serve_decode_torch as sd
+    from repro_torch.models import count_params
+    kernels = kernel_modules()
+
+    def run(mod, argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        for m in kernels.values():
+            m.LAUNCHES = 0  # just before the path
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        return res, dict(wall=time.perf_counter() - t0, text=buf.getvalue(),
+                         launches={n: m.LAUNCHES for n, m in kernels.items()})
+
+    def per_step(model):
+        return expected_launches(model.arch, model.settings)
+
+    out = {}
+    res, rec = run(qs, [])
+    out["quickstart"] = dict(rec, per_step=per_step(qs.build("meta")[0]),
+                             losses=[m["loss"] for m in res["metrics"]],
+                             dts=[m["dt"] for m in res["metrics"]],
+                             tokens=qs.Shape.global_batch * qs.Shape.seq_len)
+    (ref, restarted, restored), rec = run(er, [])
+    out["elastic_restart"] = dict(
+        rec, per_step=per_step(er.build("meta")), ref=[m["loss"] for m in ref["metrics"]],
+        restarted=[(m["step"], m["loss"]) for m in restarted["metrics"]],
+        restored_step=restored[2], dts=[m["dt"] for m in ref["metrics"]],
+        tokens=er.Shape.global_batch * er.Shape.seq_len)
+    handler = signal.getsignal(signal.SIGTERM)
+    (trainer, res), rec = run(ddp, ["--steps", str(EXAMPLES_DDP_STEPS),
+                                    "--ckpt-dir", ckpt_dir])
+    installed = signal.getsignal(signal.SIGTERM)
+    signal.signal(signal.SIGTERM, handler)
+    model = ddp.build("meta")
+    out["ddp_train"] = dict(
+        rec, per_step=per_step(model), n_params=count_params(model), step=res["step"],
+        losses=[m["loss"] for m in res["metrics"]], dts=[m["dt"] for m in res["metrics"]],
+        latest=trainer.ckpt.latest_step(), stragglers=len(res["straggler_events"]),
+        handler=getattr(installed, "__qualname__", repr(installed)),
+        saves=[dict(c) for c in trainer.ckpt_log],
+        tokens=ddp.Shape.global_batch * ddp.Shape.seq_len)
+    del trainer, res
+    for name in EXAMPLES_SERVE_ARCHS:
+        (server, outs), rec = run(sd, ["--arch", name])
+        out[f"serve_decode {name}"] = dict(
+            rec, per_step=per_step(sd.build(name, "meta")[1]),
+            done=sum(len(t) >= 24 for t in outs.values()), requests=len(outs),
+            steps=server.stats["steps"], tok_s=server.throughput(),
+            lat=server.latency_summary())
+        del server
+    return out
+
+
+def examples_k1_cases() -> tuple:
+    """K1's cases at the training twins' shapes: (case name, rows, arch,
+    seq, dtype) from each twin's ``Shape`` and model (its ``build`` on the
+    meta device)."""
+    sys.path.insert(0, EXAMPLES_DIR)
+    import ddp_train_torch as ddp
+    import elastic_restart_torch as er
+    import quickstart_torch as qs
+    return tuple((f"main-examples-{tag}", mod.Shape.global_batch, model.arch,
+                  mod.Shape.seq_len, model.settings.compute_dtype)
+                 for tag, mod, model in (("quickstart", qs, qs.build("meta")[0]),
+                                         ("elastic", er, er.build("meta")),
+                                         ("ddp", ddp, ddp.build("meta"))))
+
+
+def run_examples(card):
+    """[examples]: :func:`examples_rank` in one spawned process, then each
+    twin's checks: quickstart's loss falls over its 60 steps; the restarted
+    elastic run ends on the uninterrupted run's loss, from its restored
+    step on, and the restore gives step 16; ddp_train reaches step 300 with
+    its newest checkpoint at 300, the preemption handler installed and the
+    straggler events printed; every served arch completes 12/12; every
+    kernel's launches as the settings give them (K1 in each attention
+    layer's training forward, K3 and K4 in each RWKV6 and Mamba layer's
+    decode step, K2 never)."""
+    from repro_torch.launch import train as train_cli
+    ckpt_dir = os.path.join(HERE, "build", "ckpt_examples")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = train_cli.run_ranks(examples_rank, 1, ckpt_dir, timeout=900)[0]
+    log(f"[examples] the four twins in one process: {time.perf_counter() - t0:.1f} s "
+        f"wall (spawn included) | {card}")
+    for name, rec in out.items():
+        for line in rec["text"].splitlines():
+            if line.strip():
+                log(f"[examples] {name} | {line}")
+
+    def launches_ok(name, steps):
+        rec = out[name]
+        want = {k: v * steps for k, v in rec["per_step"].items()}
+        want["quantize_ef_fwd"] = 0
+        if name.startswith("serve_decode"):
+            want["flash_attention_fwd"] = 0  # decode attention is plain PyTorch
+        if rec["launches"] != want:
+            raise AssertionError(f"[examples] {name} launched {rec['launches']}, "
+                                 f"expected {want}")
+        return want
+
+    def steps_line(name, rec, steps):
+        dts = rec["dts"][1:] or rec["dts"]
+        med = statistics.median(dts)
+        return (f"[examples] {name}: {rec['wall']:.1f} s wall, {steps} steps, step 0 "
+                f"{rec['dts'][0]:.3f} s, median step {med * 1e3:.2f} ms, "
+                f"{rec['tokens'] / med:.0f} tok/s")
+
+    q = out["quickstart"]
+    want = launches_ok("quickstart", len(q["losses"]))
+    log(steps_line("quickstart", q, len(q["losses"])) + f"; loss {q['losses'][0]:.4f} -> "
+        f"{q['losses'][-1]:.4f}; launches {want} | {card}")
+    if not (len(q["losses"]) == 60 and q["losses"][-1] < q["losses"][0]):
+        raise AssertionError("[examples] quickstart: the loss did not fall over 60 steps")
+    e = out["elastic_restart"]
+    crash = int(re.search(r"injected failure at step (\d+)", e["text"]).group(1))
+    first = e["restarted"][0][0]
+    want = launches_ok("elastic_restart", len(e["ref"]) + crash + len(e["restarted"]))
+    same = [loss for _, loss in e["restarted"]] == e["ref"][first:]
+    log(steps_line("elastic_restart", e, len(e["ref"])) + f" (the reference run); "
+        f"crashed at {crash}, restarted from step {first}: final loss "
+        f"{e['restarted'][-1][1]!r} vs {e['ref'][-1]!r}, every restarted step's loss "
+        f"equal: {same}; restored step {e['restored_step']}; launches {want} | {card}")
+    if not (same and e["restored_step"] == 16):
+        raise AssertionError("[examples] elastic_restart: the restart left the "
+                             "uninterrupted trajectory")
+    d = out["ddp_train"]
+    want = launches_ok("ddp_train", d["step"])
+    saves = ", ".join(f"{c['step']}: {c['blocking_s']:.3f}" for c in d["saves"])
+    log(steps_line("ddp_train", d, d["step"]) + f"; {d['n_params']} parameters; loss "
+        f"{d['losses'][0]:.4f} -> {d['losses'][-1]:.4f}; newest checkpoint step "
+        f"{d['latest']}; blocking s a save ({saves}); SIGTERM handler {d['handler']}; "
+        f"straggler events {d['stragglers']}; launches {want} | {card}")
+    if not (d["step"] == EXAMPLES_DDP_STEPS and d["latest"] == EXAMPLES_DDP_STEPS
+            and "install_preemption_handler" in d["handler"]
+            and f"straggler events = {d['stragglers']}" in d["text"]):
+        raise AssertionError(f"[examples] ddp_train: {d['step']}, {d['latest']}, "
+                             f"{d['handler']}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for name in EXAMPLES_SERVE_ARCHS:
+        s = out[f"serve_decode {name}"]
+        want = launches_ok(f"serve_decode {name}", s["steps"])
+        lat = s["lat"]
+        log(f"[examples] serve_decode {name}: {s['wall']:.1f} s wall, "
+            f"{s['done']}/{s['requests']} completed in {s['steps']} steps, "
+            f"{s['tok_s']:.1f} tok/s, ttft p50 {lat['ttft_p50_s'] * 1e3:.1f} ms, tpot p50 "
+            f"{lat.get('tpot_p50_s', 0) * 1e3:.2f} ms p99 "
+            f"{lat.get('tpot_p99_s', 0) * 1e3:.2f} ms; launches {want} | {card}")
+        if not s["done"] == s["requests"] == 12:
+            raise AssertionError(f"[examples] serve_decode {name}: {s['done']}/12")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # training beyond dense fp32: bf16, experts, RWKV6, Jamba (two ranks)
 # ---------------------------------------------------------------------------
@@ -1438,7 +1837,7 @@ FAMILY_RUNS = {
     "train-jamba": FamilyRun("jamba-1.5-large-398b-smoke",
                              dict(BF16, remat="full", attn_impl="kernel",
                                   use_kernel_ssm=True), 2, 512, 1, None),
-    # whisper-medium at every width, 4 of its 24 + 24 layers (for the
+    # whisper-medium at every width, 2 of its 24 + 24 layers (for the
     # card's time), fp32, K1's fp32 body in each decoder layer's
     # forward and recompute, the encoder and the cross attention masked;
     # remat: without it each rank would keep every encoder layer's fp32
@@ -1446,7 +1845,7 @@ FAMILY_RUNS = {
     "train-whisper": FamilyRun("whisper-medium",
                                dict(param_dtype="float32", compute_dtype="float32",
                                     remat="full", attn_impl="kernel"),
-                               2, None, 2, 2, depth=4, masked_step0=True),
+                               2, None, 2, 2, depth=2, masked_step0=True),
 }
 FAMILY_SIZES = {"pod": 2, "data": 1, "model": 1}
 
@@ -1725,7 +2124,7 @@ def check_restore(tag, arch, fields, ckpt_dir, step, r0, card):
 
 def jamba_layer_check(torch, gen, dev, card):
     """One full-width Mamba layer of the jamba cut (d_model 8192, d_inner
-    16384, d_state 16), B=1 S=2048, forward and backward through K4's
+    16384, d_state 16), B=1 S=MAMBA_LAYER_SEQ, forward and backward through K4's
     autograd wrapper (``use_kernel=True``: K4 forward, the plain scan
     recomputed in the backward) against the plain path's, in fp32 (K4's
     tolerance, 1e-4) and bf16 (the JAX tests' bf16 tolerance, 2e-2), each
@@ -1738,8 +2137,9 @@ def jamba_layer_check(torch, gen, dev, card):
     for dt_name, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
         dt = getattr(torch, dt_name)
         p = SSM.init_mamba(arch, gen, (), dt, dev)
-        x = (torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev) * 0.5).to(dt)
-        gy = torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev).to(dt)
+        x = (torch.randn(1, MAMBA_LAYER_SEQ, arch.d_model, generator=gen, device=dev)
+             * 0.5).to(dt)
+        gy = torch.randn(1, MAMBA_LAYER_SEQ, arch.d_model, generator=gen, device=dev).to(dt)
         leaves = tree_paths(p)
         grads, times = {}, {}
         for use_kernel in (False, True):  # the first grows the allocator's pool
@@ -1766,7 +2166,7 @@ def jamba_layer_check(torch, gen, dev, card):
             worst = max(worst, (g.float() - ref.float()).abs().max().item())
         log(f"[train-jamba] one Mamba layer at full width (d_model {arch.d_model}, "
             f"d_inner {arch.mamba.expand * arch.d_model}, d_state {arch.mamba.d_state}) "
-            f"{dt_name} B=1 S={S_MAIN}: forward + backward plain {times[False]:.3f} s "
+            f"{dt_name} B=1 S={MAMBA_LAYER_SEQ}: forward + backward plain {times[False]:.3f} s "
             f"(run first), with K4 {times[True]:.3f} s; the input's and {len(leaves)} parameter "
             f"gradients within {tol} (max abs diff {worst:.3e}) | {card}")
         del p, x, gy, grads, leaves
@@ -1824,10 +2224,10 @@ TP_RANKS, TP_TOKENS = 4, 4 * 2048
 GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
 #: the GSPMD step's runs, FSDP over data x TP over model on (1, 2, 2), B=1 a
 #: DP member (rows: the global batch's), at every published width:
-#: ``[train-gspmd]`` qwen3-1.7b cut to 4 of its 28 layers (at 28 the script
+#: ``[train-gspmd]`` qwen3-1.7b cut to 2 of its 28 layers (at 28 the script
 #: took 1170 s of its 1200 s limit on an H100 host), in bf16,
 #: ``remat="full"``, S=2048, 2 steps, a checkpoint at step 2;
-#: ``[train-gspmd-rwkv]`` rwkv6-1.6b cut to 4 of its 24 layers (at 24:
+#: ``[train-gspmd-rwkv]`` rwkv6-1.6b cut to 2 of its 24 layers (at 24:
 #: 106-136 s), bf16 parameters with
 #: fp32 compute (in bf16 compute the unsharded step's own gradient norm is
 #: 1.9x its fp32 one), K3 on each member's 16 heads, S=512 (the plain
@@ -1838,15 +2238,15 @@ GSPMD_SIZES = {"pod": 1, "data": 2, "model": 2}
 #: leaves nearest the loss.  A deep random RWKV6's backward amplifies
 #: rounding layer by layer (at 24 layers its whole-model norm moved 1.03%,
 #: its layers' up to 2.9%, growing with the distance from the loss: the
-#: printed profile); at 4 layers it moves far less, and both runs are held
+#: printed profile); at 2 layers it moves far less, and both runs are held
 #: to 1e-2
 GSPMD_RUNS = {
-    "train-gspmd": dict(arch="qwen3-1.7b", depth=4, sizes=GSPMD_SIZES, rows=2,
+    "train-gspmd": dict(arch="qwen3-1.7b", depth=2, sizes=GSPMD_SIZES, rows=2,
                         seq=2048, steps=2, ckpt=2,
                         gnorm_tol=dict(whole=1e-2, tail=1e-2),
                         fields=dict(BF16, remat="full", attn_impl="kernel",
                                     loss_chunk=2048)),
-    "train-gspmd-rwkv": dict(arch="rwkv6-1.6b", depth=4, sizes=GSPMD_SIZES, rows=2,
+    "train-gspmd-rwkv": dict(arch="rwkv6-1.6b", depth=2, sizes=GSPMD_SIZES, rows=2,
                              seq=512, steps=2, ckpt=None,
                              gnorm_tol=dict(whole=1e-2, tail=1e-2),
                              fields=dict(param_dtype="bfloat16",
@@ -2306,20 +2706,24 @@ HYBRID_ROWS, HYBRID_SEQ, HYBRID_STEPS = 2, 512, 1
 MAMBA_CUT = {0: ("float32", 11, 1e-4), 1: ("bfloat16", 12, 2e-2)}
 BF16_LEAF_REL = 3e-2
 MOE_CUT_SEED = 13
+#: the sequence (B=1) of the full-width Mamba layer that ``[train-jamba]``,
+#: ``[train-tp-hybrid]`` (d) and ``[seq-par]`` (h) hold against the plain layer
+MAMBA_LAYER_SEQ = 1024
 
 
 def mamba_layer(torch, dt_name, seed):
     """(the jamba cut's arch, one full-width Mamba layer's leaves in
-    ``dt_name``, an input and an output cotangent, B=1 S=2048), drawn on
-    the card from ``seed``."""
+    ``dt_name``, an input and an output cotangent, B=1 S=MAMBA_LAYER_SEQ),
+    drawn on the card from ``seed``."""
     from repro_torch.configs import one_card_arch
     from repro_torch.models import ssm as SSM
     arch = one_card_arch("jamba-1.5-large-398b")[0]
     dt, dev = getattr(torch, dt_name), torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     p = SSM.init_mamba(arch, gen, (), dt, dev)
-    x = (torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev) * 0.5).to(dt)
-    gy = torch.randn(1, S_MAIN, arch.d_model, generator=gen, device=dev).to(dt)
+    x = (torch.randn(1, MAMBA_LAYER_SEQ, arch.d_model, generator=gen, device=dev)
+         * 0.5).to(dt)
+    gy = torch.randn(1, MAMBA_LAYER_SEQ, arch.d_model, generator=gen, device=dev).to(dt)
     return arch, p, x, gy
 
 
@@ -2506,7 +2910,7 @@ def check_mamba_cut(torch, recs, out_dir, card, sp=False):
                  if sp else "")
         log(f"{tag} one Mamba layer of the jamba cut at full width "
             f"(d_model {arch.d_model}, d_inner {arch.mamba.expand * arch.d_model}, "
-            f"d_state {arch.mamba.d_state}) {dt_name} B=1 S={S_MAIN} over model = 2"
+            f"d_state {arch.mamba.d_state}) {dt_name} B=1 S={MAMBA_LAYER_SEQ} over model = 2"
             f"{split}: "
             f"{members[0]['channels']} channels a member, K4 launches a member "
             f"{[m['launches'] for m in members]}, forward + backward "
@@ -2595,6 +2999,7 @@ def run_checkpoint_phase(ckpt_root, ref_recs, card):
     restored, its losses against (a), the checkpoint's bytes on disk and
     its save and restore seconds."""
     import numpy as np
+    import torch
     from repro_torch.launch import train as train_cli
     ref_dir, ft_dir = (os.path.join(ckpt_root, d) for d in ("ref", "ft"))
     ref_loss = {st["step"]: st["loss"] for st in ref_recs[0]["steps"]}
@@ -2637,10 +3042,17 @@ def run_checkpoint_phase(ckpt_root, ref_recs, card):
         f"ranks; the write was drained first: {latest} complete, "
         f"{dir_bytes(os.path.join(ft_dir, latest))} bytes")
 
-    # (c) elastic: restore step 2 on one rank, the whole global batch, one step
+    # (c) elastic: restore step 2 on one rank, the whole global batch, one
+    # step; the rank is this process (a world of one, no spawn), which holds
+    # no model here, and keeps its SIGTERM handler
     t0 = time.perf_counter()
-    el = train_cli.run_ranks(train_rank, 1, ft_dir, "elastic", timeout=900)
-    log(f"[ckpt] (c) elastic run: {time.perf_counter() - t0:.1f} s wall")
+    handler = signal.getsignal(signal.SIGTERM)
+    with tempfile.TemporaryDirectory() as tmp:
+        el = [train_rank(0, 1, f"file://{os.path.join(tmp, 'store')}", ft_dir, "elastic")]
+    signal.signal(signal.SIGTERM, handler)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ckpt] (c) elastic run in this process: {time.perf_counter() - t0:.1f} s wall")
     check_train_steps("ckpt elastic", el, 1,
                       plan_slow_chunks({"pod": 1, "data": 1, "model": 1}))
     st = el[0]["steps"]
@@ -2956,7 +3368,7 @@ CELL_MESH = {"pod": 2, "data": 16, "model": 16}
 #: peak is 32.06 GB a rank)
 CELL_TRAIN_SIZES = {"pod": 2, "data": 1, "model": 1}
 CELL_TRAIN_MICROBATCHES = 2
-CELL_DECODE_STEPS = 16
+CELL_DECODE_STEPS = 8
 CELL_TRAIN_STEPS = 1
 #: the depth of the fp32 holds of prefill_32k and long_500k (the bf16 runs
 #: are at full depth): at 24 random layers rwkv6's fp32 rounding is
@@ -3360,16 +3772,16 @@ SERVE_MESH_FSDP = {"data": 2, "model": 2}
 SERVE_MESH_RANKS = 4
 #: decode steps of (b) and (c) (16 in the cells; cut for time)
 SERVE_MESH_STEPS = 4
-#: (a) and (b)'s depth: 8 of qwen3's 28 layers, for the card's time
-SERVE_MESH_QWEN3_LAYERS = 8
+#: (a) and (b)'s depth: 4 of qwen3's 28 layers, for the card's time
+SERVE_MESH_QWEN3_LAYERS = 4
 #: (d)'s decode steps in bf16 and in fp32 (16 in the cell): every step
 #: gathers the member's FSDP blocks of the whole block (4.5 GB a rank in
 #: bf16) over gloo, which copies them through host memory, 9.65 s a step
 #: (p50 of 16 in the first chip call of the phase)
 SERVE_MESH_JAMBA_STEPS = (1, 1)
-#: the fp32 holds' depth: 4 layers for qwen3 and rwkv6 (as [cells]); for
-#: jamba a Mamba layer and the attention layer (attn_every 2), every width
-SERVE_MESH_FP32_LAYERS = 4
+#: the fp32 holds' depth: 2 layers for qwen3 and rwkv6; for jamba a Mamba
+#: layer and the attention layer (attn_every 2), every width
+SERVE_MESH_FP32_LAYERS = 2
 SERVE_MESH_JAMBA_FP32 = dict(n_layers=2, attn_every=2)
 #: (e): 8 requests (one for each slot) of 8 new tokens (16 of 32 in the
 #: earlier phases' servers; cut for time: a step is ~0.25 s over gloo)
@@ -3969,7 +4381,7 @@ SEQ_PAR_STEPS, SEQ_PAR_SEQ = 2, 4096
 #: at 4 of qwen3's 28 layers (at 28: 43.4 s of the phase); (e) 4 DP
 #: members of one deepseek MoE layer in 2 dispatch groups
 SEQ_PAR_PREFILL = {"data": 1, "model": 4}
-SEQ_PAR_PREFILL_LAYERS = 4
+SEQ_PAR_PREFILL_LAYERS = 2
 SEQ_PAR_MOE, SEQ_PAR_MOE_GROUPS = {"data": 4}, 2
 #: the fp32 holds' depth: with and without the sequence split, one step
 #: (a)-(c) or one prefill (d) on the same inputs
@@ -3990,19 +4402,23 @@ class SpRun(NamedTuple):
     fp32_seq: int
 
 
-#: (a), (b), (f) and (g).  (a) runs 1 step; (b) 2 of qwen3's 28 layers
-#: (at 28 its two steps and their checks took 59-83 s of the phase: each
-#: step sums and gathers the whole replicated blocks over gloo), 2 steps, so that its ZeRO moments cross a step; (f) 2 of deepseek's 28
-#: (a third adds about 9.4 GB a DP member at 16 bytes a parameter, nothing
-#: sharded over data); (g) 4 of rwkv6's 24 at S=1024, its fp32 hold at 2
-#: layers and S=256 (the backward is the plain recurrence, step by step)
+#: (a), (b), (f) and (g).  (a) runs 1 step at 12 of qwen2's 24 layers;
+#: (b) 2 of qwen3's 28 layers (at 28 its two steps and their checks took
+#: 59-83 s of the phase: each step sums and gathers the whole replicated
+#: blocks over gloo), 2 steps, so that its ZeRO moments cross a step; (f)
+#: 2 of deepseek's 28 (a third adds about 9.4 GB a DP member at 16 bytes a
+#: parameter, nothing sharded over data); (g) 2 of rwkv6's 24 at S=1024,
+#: its fp32 hold at 2 layers and S=256 (the backward is the plain
+#: recurrence, step by step); the fp32 holds of (a), (b) and (f) run
+#: SEQ_PAR_FP32_SEQ tokens a DP member
+SEQ_PAR_FP32_SEQ = 1024
 SEQ_PAR_TRAIN = {
-    "a": SpRun("qwen2-0.5b", "seq_shard", None, SEQ_PAR_SEQ, 1,
-               SEQ_PAR_FP32_LAYERS, SEQ_PAR_SEQ),
+    "a": SpRun("qwen2-0.5b", "seq_shard", 12, SEQ_PAR_SEQ, 1,
+               SEQ_PAR_FP32_LAYERS, SEQ_PAR_FP32_SEQ),
     "b": SpRun("qwen3-1.7b", "context_parallel", 2, SEQ_PAR_SEQ, SEQ_PAR_STEPS,
-               SEQ_PAR_FP32_LAYERS, SEQ_PAR_SEQ),
-    "f": SpRun("deepseek-moe-16b", "seq_shard", 2, SEQ_PAR_SEQ, 1, 2, SEQ_PAR_SEQ),
-    "g": SpRun("rwkv6-1.6b", "seq_shard", 4, 1024, 1, 2, 256)}
+               SEQ_PAR_FP32_LAYERS, SEQ_PAR_FP32_SEQ),
+    "f": SpRun("deepseek-moe-16b", "seq_shard", 2, SEQ_PAR_SEQ, 1, 2, SEQ_PAR_FP32_SEQ),
+    "g": SpRun("rwkv6-1.6b", "seq_shard", 2, 1024, 1, 2, 256)}
 
 
 def depth_cut(arch, layers):
@@ -4257,20 +4673,23 @@ def sp_moe(torch):
 #: sequence split (``HYBRID_FIELDS``, B=HYBRID_ROWS S=HYBRID_SEQ a DP
 #: member), then one full-width Mamba layer of MAMBA_CUT over model = 2 with
 #: the sequence split, B=1 S=2048
-SEQ_PAR_JAMBA_STEPS = 2
+SEQ_PAR_JAMBA_STEPS = 1
 #: (i) whisper-medium under the GSPMD step (FSDP x TP) with the sequence
-#: split, bf16, ``remat="full"``, K1 in the decoder; its depth (4 of 24 +
+#: split, bf16, ``remat="full"``, K1 in the decoder; its depth (2 of 24 +
 #: 24, for the card's time), rows a DP member, steps, checkpoint step and
 #: fp32 hold's depth
-SEQ_PAR_WHISPER = dict(depth=4, rows=2, steps=2, ckpt=2, fp32_depth=2)
+SEQ_PAR_WHISPER = dict(depth=2, rows=2, steps=2, ckpt=2, fp32_depth=2)
 #: (j) prefill with the sequence split on SEQ_PAR_PREFILL, B=1: rwkv6-1.6b's
-#: prefill_32k cell at every layer, and the jamba block (one_card_arch) at
-#: S=8192; the fp32 holds: rwkv6 at 4 layers over the first 8192 tokens (at
+#: prefill_32k cell at SEQ_PAR_RWKV_PREFILL_LAYERS of its 24 layers (for
+#: the card's time: each layer gathers and reduce-scatters 134 MB over
+#: gloo), and the jamba block (one_card_arch) at
+#: S=4096; the fp32 holds: rwkv6 at 4 layers over the first 8192 tokens (at
 #: 32768 its two prefills took 10-20 s of the run's 31-53 s), jamba a Mamba
 #: layer and the attention layer (attn_every 2: 11 GB in fp32, built by the
 #: ranks at once; 4 layers, 20 GB, had to be built in turns)
-SEQ_PAR_JAMBA_PREFILL_SEQ = 8192
+SEQ_PAR_JAMBA_PREFILL_SEQ = 4096
 SEQ_PAR_RWKV_FP32_SEQ = 8192
+SEQ_PAR_RWKV_PREFILL_LAYERS = 8
 #: the planned MoE dispatch: one deepseek-moe-16b MoE layer in fp32, its
 #: experts over model, each DP member's row of a 2 x 2048 global batch
 #: routed with the batch's; a 4-member all-to-all at chunks 2, lane offset 1
@@ -4351,8 +4770,9 @@ def sp_whisper(torch, kernels, mesh, ckpt_dir):
 
 def sp_prefill_family(torch, kernels, part, toks):
     """(j) on this rank of SEQ_PAR_PREFILL: rwkv6-1.6b's prefill_32k cell
-    with ``seq_shard`` (``part`` "rwkv") or the jamba block at S=8192
-    ("jamba"), B=1, bf16 at every layer, K3/K4 (and K1) in the forward,
+    with ``seq_shard`` at SEQ_PAR_RWKV_PREFILL_LAYERS layers (``part``
+    "rwkv") or the jamba block at S=4096 ("jamba"), B=1, bf16, K3/K4 (and
+    K1) in the forward,
     timed once; then in fp32 at the hold's depth with the split and
     without it on the same tokens: the logits, every cache leaf and each
     recurrence's output a layer."""
@@ -4367,7 +4787,8 @@ def sp_prefill_family(torch, kernels, part, toks):
     cell = build_cell(name, "prefill_32k", CELL_MESH, seq_shard=True, attn_impl="kernel")
     st = dataclasses.replace(cell.model.settings, use_kernel_ssm=True)
     if part == "rwkv":
-        arch, hold, turns = cell.arch, dict(n_layers=4), 1
+        arch = cell.arch.replace(n_layers=SEQ_PAR_RWKV_PREFILL_LAYERS)
+        hold, turns = dict(n_layers=4), 1
         hold_toks = toks[:, :SEQ_PAR_RWKV_FP32_SEQ].cuda()
     else:
         # 18 GB uncut in bf16: two ranks' at a time
@@ -4649,7 +5070,7 @@ def sp_check_whisper(recs, card):
 
 
 def sp_check_prefill_family(torch, part, recs, card):
-    """(j): K3 (rwkv6: 24 a rank) or K4 and K1 (the jamba block: 7 and 1)
+    """(j): K3 (rwkv6: one a layer a rank) or K4 and K1 (the jamba block: 7 and 1)
     launched on every rank, the logits (1, vocab) and finite, the
     attention cache the whole sequence; fp32 at the hold's depth: each
     recurrence's drift between the split and the unsplit prefill, layer
@@ -4657,8 +5078,8 @@ def sp_check_prefill_family(torch, part, recs, card):
     the whole sequence's) within 1e-5 (rwkv6: 1e-3) of the unsplit's."""
     from repro_torch.configs import get_arch, one_card_arch
     key = f"j-{part}"
-    arch = (get_arch("rwkv6-1.6b") if part == "rwkv"
-            else one_card_arch("jamba-1.5-large-398b")[0])
+    arch = (get_arch("rwkv6-1.6b").replace(n_layers=SEQ_PAR_RWKV_PREFILL_LAYERS)
+            if part == "rwkv" else one_card_arch("jamba-1.5-large-398b")[0])
     n_attn = 0 if part == "rwkv" else len(arch.attn_layer_ids())
     want = {k: 0 for k in kernel_modules()}
     want.update({"wkv6_fwd": arch.n_layers} if part == "rwkv" else
@@ -4842,7 +5263,9 @@ def main() -> None:
                 # a microbatch of its rows of the train_4k cell
                 ("main-cells-prefill", 1, qwen, 32768, "bfloat16"),
                 ("main-cells-train", 8 // CELL_TRAIN_MICROBATCHES, qwen,
-                 4096, "bfloat16")),
+                 4096, "bfloat16"),
+                # [examples]: the training twins' batches, fp32
+                *examples_k1_cases()),
         # a model member's local heads in [train-tp] and [train-gspmd]
         locals_=(("main-train-tp-fp32", 2, qwen.n_heads // 2, qwen.n_kv_heads // 2,
                   S_MAIN, qwen.resolved_head_dim, "float32"),
@@ -4855,24 +5278,25 @@ def main() -> None:
                  ("main-serve-mesh-prefill", 1, qwen3.n_heads // 4,
                   qwen3.n_heads // 4, 32768, qwen3.resolved_head_dim, "bfloat16"),
                  # [seq-par] (a): a model member's 7 heads of qwen2 on the
-                 # gathered 4096-long sequence, bf16 and the fp32 hold's
+                 # gathered 4096-long sequence, bf16, and the fp32 hold's
                  *((f"main-seq-par-a-{dt}", 1, qwen.n_heads // 2, qwen.n_kv_heads // 2,
-                    SEQ_PAR_SEQ, qwen.resolved_head_dim, dt)
-                   for dt in ("bfloat16", "float32")),
+                    S, qwen.resolved_head_dim, dt)
+                   for dt, S in (("bfloat16", SEQ_PAR_SEQ), ("float32", SEQ_PAR_FP32_SEQ))),
                  # (b): every head of qwen3 on the whole gathered sequence
                  # (the context-parallel cell's blocks are whole)
                  *((f"main-seq-par-b-{dt}", 1, qwen3.n_heads, qwen3.n_kv_heads,
-                    SEQ_PAR_SEQ, qwen3.resolved_head_dim, dt)
-                   for dt in ("bfloat16", "float32")),
+                    S, qwen3.resolved_head_dim, dt)
+                   for dt, S in (("bfloat16", SEQ_PAR_SEQ), ("float32", SEQ_PAR_FP32_SEQ))),
                  # (c): a model member's 8 heads of qwen3, fp32
                  ("main-seq-par-c-float32", 1, qwen3.n_heads // 2,
                   qwen3.n_kv_heads // 2, SEQ_PAR_SEQ, qwen3.resolved_head_dim,
                   "float32"),
                  # (f): a model member's 8 heads of deepseek on the gathered
-                 # 4096-long sequence (its fp32 hold's is (c)'s shape); (i):
+                 # 4096-long sequence (its fp32 hold's is (c)'s heads over
+                 # SEQ_PAR_FP32_SEQ); (i):
                  # whisper's decoder, 8 heads, 2 rows of 448; (j): the jamba
                  # block's 16 query heads at model = 4, the kv repeated per
-                 # head (the cell's gqa_repeat), S=8192; (h): the jamba
+                 # head (the cell's gqa_repeat), S=4096; (h): the jamba
                  # smoke's 2 heads and its kv head, 2 rows of 512
                  ("main-seq-par-f", 1, deepseek.n_heads // 2, deepseek.n_kv_heads // 2,
                   SEQ_PAR_SEQ, deepseek.resolved_head_dim, "bfloat16"),
@@ -4887,7 +5311,9 @@ def main() -> None:
 
     model, fa_launches = prefill_checks(torch, gen, dev, qwen, attention_settings,
                                         counters, {"flash_attention_fwd": qwen.n_layers}, 3)
-    fp32_checks(torch, gen, dev, qwen, attention_settings)
+    # the fp32 checks on 4 of its 24 layers, built at that depth
+    fp32_checks(torch, gen, dev, qwen, attention_settings, fp32_layers=4,
+                full_depth=False)
     server, launches = serve(model, qwen, counters)
     log(serve_line(qwen.name, server, launches)
         + " (decode attention is plain PyTorch)")
@@ -4937,7 +5363,9 @@ def main() -> None:
     model, jamba_launches = prefill_checks(
         torch, gen, dev, jamba, jamba_settings, counters,
         {"mamba_scan_fwd": n_mamba, "flash_attention_fwd": len(jamba.attn_layer_ids())}, 1)
-    fp32_checks(torch, gen, dev, jamba, jamba_settings)
+    # the fp32 checks on a Mamba layer and the attention layer at every
+    # width (``[serve-mesh]``'s hold)
+    fp32_checks(torch, gen, dev, jamba.replace(**SERVE_MESH_JAMBA_FP32), jamba_settings)
     server, launches = serve(model, jamba, counters)
     if launches != {"flash_attention_fwd": 0, "wkv6_fwd": 0, "quantize_ef_fwd": 0,
                     "mamba_scan_fwd": n_mamba * server.stats["steps"]}:
@@ -5003,7 +5431,15 @@ def main() -> None:
     log(f"[train3] card memory in use by this process before the ranks start: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     train3 = run_train3(card)
-    phase_done("train3: 8 ranks (2,2,2,1), top-k, mid int8, all-to-all, ring")
+    phase_done("train3: 8 ranks (2,2,2,1), top-k, mid int8, all-to-all, ring, "
+               "(e) the rwkv6 smoke on model = 8")
+    log(f"[train3] (e) the 8 ranks' runs: {train3[0]['e_s']:.1f} s on rank 0")
+    split_heads_check([r["e"] for r in train3], split_heads_reference(torch), card)
+    phase_done("train3 (e): the one-member reference and the checks")
+
+    # ---- the four examples' twins, in one spawned process ------------------
+    run_examples(card)
+    phase_done("examples: quickstart, elastic_restart, ddp_train, serve_decode")
 
     # ---- training beyond dense fp32: bf16, experts, RWKV6, Jamba ----------
     family = family_phases(torch, gen, dev, card, phase_done)

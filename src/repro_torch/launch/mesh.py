@@ -3,14 +3,20 @@ and the JAX CLI's ``--mesh`` rules.
 
 A mesh here is {axis: size}, slowest tier first: what the sharding rules,
 the planner and the cells read.  Each rank of the ``torch.distributed``
-world is one member of a bound mesh (``core.prims.Mesh``).
+world is one member of a bound mesh (``core.prims.Mesh``);
+:func:`one_process_mesh` binds a one-member mesh to a world of this
+process alone (the examples' meshes).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Sequence, Tuple
+import os
+import tempfile
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -79,3 +85,33 @@ def rank_device(device: str, backend: str, rank: int, world: int) -> torch.devic
                          f"this machine has {cards}; use --backend gloo to "
                          f"share cards")
     return torch.device("cuda", rank % cards)
+
+
+def default_backend(device) -> str:
+    """The process-group backend for ranks on ``device``: nccl on a card,
+    gloo on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+@contextlib.contextmanager
+def one_process_mesh(shape: Sequence[int], axes: Sequence[str], device) -> Iterator:
+    """A ``core.prims.Mesh`` of ``shape`` (every size 1) over ``axes``,
+    bound to a ``torch.distributed`` world of this process alone, joined
+    through a file store in a temporary directory, under
+    :func:`default_backend` of ``device``; the world is destroyed on exit.
+    The twin of the reference's ``make_mesh`` on one device."""
+    from repro_torch.core.prims import Mesh
+    if math.prod(shape) != 1:
+        raise ValueError(f"a mesh of {tuple(shape)} needs "
+                         f"{math.prod(shape)} processes, not one")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(default_backend(dev),
+                                init_method=f"file://{os.path.join(tmp, 'store')}",
+                                world_size=1, rank=0)
+        try:
+            yield Mesh(dict(zip(axes, shape)))
+        finally:
+            dist.destroy_process_group()

@@ -48,7 +48,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, ShapeConfig, get_arch, get_smoke_arch
 from repro_torch.core import prims
-from repro_torch.launch.mesh import mesh_ranks, parse_mesh, rank_device
+from repro_torch.launch.mesh import default_backend, mesh_ranks, parse_mesh, rank_device
 from repro_torch.models.registry import build_model, resolve_device
 from repro_torch.models.transformer import ModelSettings
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
@@ -102,7 +102,7 @@ def resolve_args(args: argparse.Namespace) -> argparse.Namespace:
     is missing or a backend the device cannot use."""
     resolve_device(args.device)
     if args.backend is None:
-        args.backend = "nccl" if args.device == "cuda" else "gloo"
+        args.backend = default_backend(args.device)
     if args.backend == "nccl" and args.device == "cpu":
         raise ValueError("nccl needs --device cuda")
     cards = torch.cuda.device_count() if args.device == "cuda" else 1

@@ -17,7 +17,13 @@ the JAX package.  A replicated tensor used on local channels enters
 through ``prims.to_parallel`` (its gradient summed over the members), and
 a row-parallel product's output leaves through ``prims.psum_replicated``.
 RWKV6's time mix runs the wkv recurrence on its heads, between the
-column-split ``wr``/``wk``/``wv``/``wg`` and the row-parallel ``wo``; its
+column-split ``wr``/``wk``/``wv``/``wg`` and the row-parallel ``wo``; where
+the heads do not split over the axis but d does (``u`` and the ``wkv``
+state whole on every member, as the reference's rules give), r, k, v and
+w are gathered to whole heads (``prims.gather_on_use``,
+whose reduce-scatter backward sums the members' parts of each column's
+gradient), every member runs the recurrence and the groupnorm on every
+head, and keeps its columns for the affine, the gate and ``wo``; its
 channel mix is column- then row-parallel with the replicated ``wr`` gate
 applied after the sum; Mamba runs the conv and the scan on its channels of
 ``d_inner`` between the paired ``w_in`` cut and the row-parallel ``w_x``
@@ -103,13 +109,16 @@ def init_rwkv_time_mix(arch: ArchConfig, gen: torch.Generator,
 
 
 def _rwkv_projections(arch: ArchConfig, p: Params, x: torch.Tensor,
-                      x_prev: torch.Tensor, axis: Optional[str] = None):
+                      x_prev: torch.Tensor, axis: Optional[str] = None,
+                      whole_heads: bool = False):
     """Data-dependent token-shift mixing + projections.
 
     x: (B, S, d); x_prev: x shifted right by one (B, S, d).
     Returns r, k, v, g, w — each (B, S, H, hd) except g (B, S, d); r, k, v,
     g in x's dtype, w in fp32.  With ``axis`` the mixing stays replicated
-    and each output holds this member's heads (channels of g).
+    and each output holds this member's heads (channels of g); with
+    ``whole_heads`` too, r, k, v and w are this member's columns gathered
+    over ``axis`` into every head.
     """
     hd = arch.rwkv.head_size
     B_, S_ = x.shape[:2]
@@ -128,29 +137,39 @@ def _rwkv_projections(arch: ArchConfig, p: Params, x: torch.Tensor,
     def column(xi, name):  # this member's columns of a (d, d) leaf
         return mm(prims.to_parallel(xi, axis), p[name])
 
-    r = column(xr, "wr").reshape(B_, S_, -1, hd)
-    k = column(xk, "wk").reshape(B_, S_, -1, hd)
-    v = column(xv, "wv").reshape(B_, S_, -1, hd)
+    def heads(t):  # (B, S, columns) -> (B, S, heads, hd)
+        if whole_heads:  # the gathered columns, laid out as the kernel reads them
+            t = prims.gather_on_use(t, axis, 2).contiguous()
+        return t.reshape(B_, S_, -1, hd)
+
+    r = heads(column(xr, "wr"))
+    k = heads(column(xk, "wk"))
+    v = heads(column(xv, "wv"))
     g = F.silu(column(xg, "wg"))
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32,
     # on this member's channels
     lora = prims.to_parallel(torch.tanh(mm(xw, p["td_w1"])), axis)
     ww = _local(p["w0"], axis) + mm(lora, _local(p["td_w2"], axis))
-    w = torch.exp(-torch.exp(ww.float())).reshape(B_, S_, -1, hd)
+    w = heads(torch.exp(-torch.exp(ww.float())))
     return r, k, v, g, w
 
 
 def _wkv_groupnorm(arch: ArchConfig, p: Params, y: torch.Tensor,
-                   axis: Optional[str] = None) -> torch.Tensor:
+                   axis: Optional[str] = None,
+                   whole_heads: bool = False) -> torch.Tensor:
     """Per-head groupnorm of the wkv output. y: (B, S, H, hd) -> (B, S, d)
     fp32.  The population variance and eps 64e-5, as in the reference.
     With ``axis`` y holds this member's heads, and the affine its
-    channels."""
+    channels; with ``whole_heads`` y holds every head, normalised whole,
+    and this member's channels are kept for the affine."""
     B_, S_, H, hd = y.shape
     yf = y.float()
     mean = yf.mean(dim=-1, keepdim=True)
     var = yf.var(dim=-1, keepdim=True, correction=0)
     yn = ((yf - mean) * torch.rsqrt(var + 64e-5)).reshape(B_, S_, H * hd)
+    if whole_heads:
+        n = H * hd // prims.axis_size(axis)
+        yn = yn.narrow(-1, prims.axis_rank(axis) * n, n)
     return (yn * _local(p["ln_scale"], axis).float()
             + _local(p["ln_bias"], axis).float())
 
@@ -177,21 +196,24 @@ def apply_rwkv_time_mix(arch: ArchConfig, p: Params, x: torch.Tensor,
                         sp: Optional[str] = None):
     """Full time-mix block. Returns (out, (new_shift, new_wkv)); new_shift
     is a view of x.  With ``axis`` the recurrence runs on this member's
-    heads (``u`` holds them) and ``wo`` is row-parallel; with ``sp`` on
-    the gathered sequence, ``out`` the member's rows."""
+    heads (``u`` holds them) and ``wo`` is row-parallel, or, where ``u``
+    holds every head (the heads do not split over ``axis``), on every head
+    (the state whole, ``u``'s gradient summed over ``axis``); with ``sp``
+    on the gathered sequence, ``out`` the member's rows."""
     x = prims.gather_replicated(x, sp, 1)
     B, S, d = x.shape
+    whole_heads = axis is not None and p["u"].shape[-2] * arch.rwkv.head_size == d
     if shift_state is None:
         shift_state = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     x_prev = torch.cat([shift_state[:, None, :], x[:, :-1]], dim=1)
-    r, k, v, g, w = _rwkv_projections(arch, p, x, x_prev, axis)
-    u = p["u"].float()
+    r, k, v, g, w = _rwkv_projections(arch, p, x, x_prev, axis, whole_heads)
+    u = (prims.to_parallel(p["u"], axis) if whole_heads else p["u"]).float()
     if use_kernel:
         y, new_state = wkv_ops.wkv6(r, k, v, w, u, state=wkv_state)
     else:
         y, new_state = wkv6_scan_ref(r.float(), k.float(), v.float(), w, u,
                                      state=wkv_state)
-    y = _wkv_groupnorm(arch, p, y.to(x.dtype), axis)
+    y = _wkv_groupnorm(arch, p, y.to(x.dtype), axis, whole_heads)
     out = sublayer_out(mm(y.to(x.dtype) * g, p["wo"]), axis, sp)
     return out, (x[:, -1], new_state)
 

@@ -481,19 +481,14 @@ def _apply_rwkv_layer(arch: ArchConfig, p: Params, x: torch.Tensor,
     when None).  In decode the new states are copied into ``cache``; the
     shifts returned by the mixers are views of their inputs.  ``specs``,
     ``sp``: as in :func:`_apply_layer` (the time mix on this member's
-    heads, the channel mix on its d_ff columns)."""
+    heads or, where its projections split over the model axis but its
+    heads do not, on every head; the channel mix on its d_ff columns)."""
     state = cache or {}
-    heads = _axis(specs, "tmix", "wr", 1)
-    if heads != _axis(specs, "tmix", "u", 0):
-        raise NotImplementedError(
-            f"{arch.name}: the time mix's projections split over "
-            f"{heads!r} but its heads over {_axis(specs, 'tmix', 'u', 0)!r}: "
-            f"a split inside a head is not ported (ROADMAP.md queue 1, item 8)")
     h = L.apply_norm(arch, _on_rows(p["ln1"], sp), x)
     out, (tshift, wkv) = SSM.apply_rwkv_time_mix(
         arch, p["tmix"], h, shift_state=state.get("tshift"),
-        wkv_state=state.get("wkv"), use_kernel=st.use_kernel_ssm, axis=heads,
-        sp=sp)
+        wkv_state=state.get("wkv"), use_kernel=st.use_kernel_ssm,
+        axis=_axis(specs, "tmix", "wr", 1), sp=sp)
     x = x + out
     h = L.apply_norm(arch, _on_rows(p["ln2"], sp), x)
     out, cshift = SSM.apply_rwkv_channel_mix(

@@ -1238,3 +1238,131 @@ def test_kernel_on_a_members_heads_over_the_gathered_sequence_on_card(
                         causal=True).transpose(1, 2)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd", [(8, 4, 2, 64, 16), (8, 4, 2, 32, 16),
+                                         (8, 8, 8, 256, 64)],
+                         ids=["quickstart", "elastic_restart", "ddp_train"])
+def test_kernel_at_the_examples_training_shapes_on_card(cuda_device, B, H, KV, S, hd):
+    """K1's fp32 body through ``L.attend`` at the training twins' batches
+    (``examples/*_torch.py``): quickstart's qwen2 smoke (8 x 64), the
+    elastic restart's qwen3 smoke (8 x 32), ddp_train's 12-layer model (8 x
+    256, 8 heads of 64), in the model's layout, against the plain version
+    at the fp32 tolerance."""
+    from repro_torch.models import layers as L
+    q = _randn(180, B, S, H, hd, device=cuda_device)
+    k, v = (_randn(181 + i, B, S, KV, hd, device=cuda_device) for i in range(2))
+    before = kernel.LAUNCHES
+    out = L.attend(q, k, v, causal=True, impl="kernel")
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    exp = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True).transpose(1, 2)
+    torch.testing.assert_close(out, exp, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wkv6_over_gathered_whole_heads_on_card(cuda_device):
+    """K3 at ``chip_smoke.py`` ``[train3]`` (e)'s shape, every head of
+    rwkv6-1.6b's smoke (8 rows of 32, 4 heads of 16, fp32) on each member
+    of a model axis of 8: r, k, v and w put together from the 8 members'
+    column blocks as the tiled gather lays them out, then made contiguous
+    and cut into heads as the time mix does; y and the final state against
+    the plain version at K3's tolerance."""
+    B, S, H, hd, n = 8, 32, 4, 16, 8
+    r, k, v, w, u, s0 = _wkv_inputs(190, B, H, S, hd, torch.float32, cuda_device)
+
+    def gathered(t):  # (B, H, S, hd) -> the members' (B, S, d / n) blocks, gathered
+        cols = t.transpose(1, 2).reshape(B, S, H * hd)
+        blocks = torch.stack(cols.chunk(n, dim=2))  # (n, B, S, d / n)
+        moved = blocks.movedim(3, 1).reshape(n * H * hd // n, B, S)
+        return moved.movedim(0, 2).contiguous().reshape(B, S, H, hd)
+
+    heads = [gathered(t) for t in (r, k, v, w)]
+    for got, t in zip(heads, (r, k, v, w)):
+        assert torch.equal(got, t.transpose(1, 2))
+    before = wkv_kernel.LAUNCHES
+    y, sT = wkv_ops.wkv6(*heads, u, state=s0)
+    assert wkv_kernel.LAUNCHES == before + 1 and y.shape == (B, S, H, hd)
+    ey, es = wkv6_ref(r, k, v, w, u, s0)
+    _wkv_close(y, ey.transpose(1, 2))
+    _wkv_close(sT, es)
+
+
+def _whole_heads_rank(rank, store, queue):
+    """One of two ranks sharing the card over gloo, the members of a
+    ``model`` axis: RWKV6's time mix with one head of 64 (d 64), so that
+    its projections split over the two members and its head does not (``u``
+    whole), through K3 on CUDA tensors, against the unsplit time mix on this
+    rank."""
+    import dataclasses
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.configs import get_smoke_arch
+        from repro_torch.core import prims
+        from repro_torch.models import ssm
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=2, rank=rank)
+        arch = get_smoke_arch("rwkv6-1.6b")
+        arch = arch.replace(rwkv=dataclasses.replace(arch.rwkv, head_size=64))
+        gen = torch.Generator(device=dev).manual_seed(11)
+        p = ssm.init_rwkv_time_mix(arch, gen, (), torch.float32, dev)
+        for name in ("x_maa", "w_maa", "k_maa", "v_maa", "r_maa", "g_maa", "ln_bias"):
+            p[name] = torch.randn(p[name].shape, generator=gen, device=dev) * 0.1
+        x = torch.randn((2, 32, 64), generator=gen, device=dev)
+        out_w, (_, wkv_w) = ssm.apply_rwkv_time_mix(arch, p, x, use_kernel=True)
+        cols = slice(rank * 32, (rank + 1) * 32)
+        mine = dict(p, wo=p["wo"][cols],
+                    **{n: p[n][:, cols] for n in ("wr", "wk", "wv", "wg")})
+        before = wkv_kernel.LAUNCHES
+        with prims.bind(prims.Mesh({"model": 2})):
+            out, (_, wkv) = ssm.apply_rwkv_time_mix(arch, mine, x, use_kernel=True,
+                                                    axis="model")
+        torch.cuda.synchronize()
+        res = dict(launches=wkv_kernel.LAUNCHES - before,
+                   out=(out - out_w).abs().max().item(),
+                   wkv=(wkv - wkv_w).abs().max().item(),
+                   scale=out_w.abs().max().item(), wkv_scale=wkv_w.abs().max().item(),
+                   shape=tuple(wkv.shape))
+        dist.destroy_process_group()
+        queue.put((rank, res, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+@pytest.mark.cuda
+def test_time_mix_over_whole_heads_on_card(cuda_device, tmp_path):
+    """The time mix with its projections split over two members and its
+    one head whole on each (the layout of ``[train3]`` (e) at model = 8),
+    two ranks sharing the card over gloo: each member's output within 1e-5
+    of its largest value of the unsplit time mix's, its ``wkv`` state (the
+    whole head) within K3's atol, 2e-5 x (its largest value + 1) (the
+    members' projections are other GEMMs than the whole one's, so they
+    round apart), and one K3 launch a member."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_whole_heads_rank,
+                         args=(r, str(tmp_path / "store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(2):
+            rank, res, err = queue.get(timeout=300)
+            assert err is None, err
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    for rank, res in out.items():
+        assert res["launches"] == 1 and res["shape"] == (2, 1, 64, 64), (rank, res)
+        assert res["out"] <= 1e-5 * res["scale"], (rank, res)
+        assert res["wkv"] <= 2e-5 * (res["wkv_scale"] + 1), (rank, res)

@@ -184,28 +184,32 @@ def run_jax_devices(script: str, inputs: dict, n_devices: int = 8,
             return {k: z[k] for k in z.files}
 
 
-def _rank_main(rank, world, store, fn, payload_path, queue):
+def _rank_main(rank, world, store, fn, payload_path, queue, group=True):
     import pickle
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
         with open(payload_path, "rb") as f:
             payload = pickle.load(f)
-        dist.init_process_group("gloo", init_method=f"file://{store}",
-                                world_size=world, rank=rank)
+        if group:
+            dist.init_process_group("gloo", init_method=f"file://{store}",
+                                    world_size=world, rank=rank)
         out = fn(rank, payload)
-        dist.destroy_process_group()
+        if group:
+            dist.destroy_process_group()
         queue.put((rank, out, None))
     except BaseException:  # reported to the parent, which raises
         queue.put((rank, None, traceback.format_exc()))
 
 
-def spawn_ranks(world: int, fn, payload, timeout: float = 300) -> list:
+def spawn_ranks(world: int, fn, payload, timeout: float = 300,
+                group: bool = True) -> list:
     """``fn(rank, payload)`` in each of ``world`` spawned processes joined
     in one gloo group through a tmp-file store (no fixed port, so parallel
     test workers do not collide); returns the results in rank order.
     ``fn`` must be a module-level function of a module that imports no
-    jax (this one)."""
+    jax (this one).  Without ``group`` the processes join no group (``fn``
+    starts its own)."""
     import pickle
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
@@ -217,7 +221,7 @@ def spawn_ranks(world: int, fn, payload, timeout: float = 300) -> list:
         queue = ctx.Queue()
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world, os.path.join(tmp, "store"), fn,
-                                   os.path.join(tmp, "payload.pkl"), queue))
+                                   os.path.join(tmp, "payload.pkl"), queue, group))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -1779,3 +1783,99 @@ def rank_moe_schedule(rank, payload):
         out.append((y0.numpy().copy(), y1.numpy().copy(), a0.numpy().copy(),
                     a1.numpy().copy(), tuple(sorted(mesh.coords.items()))))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the examples' PyTorch twins (test_torch_examples.py)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples")
+#: the smokes ``examples/serve_decode_torch.py`` is held to its original on
+SERVE_ARCHS = (ARCH, RWKV, JAMBA, WHISPER)
+#: quickstart's steps held to the JAX ``Trainer``'s
+QUICKSTART_STEPS = 6
+
+
+def _run_main(mod, argv):
+    """(``mod.main(argv)``'s return, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    return out, buf.getvalue()
+
+
+def rank_examples(rank, payload):
+    """The twins in this process, which no group joins (each ``main``
+    starts and ends a world of its own): quickstart's first
+    ``QUICKSTART_STEPS`` steps from ``payload["quickstart"]`` (JAX's
+    weights), ddp_train's parameter count and step-0 loss from
+    ``payload["ddp"]``, serve_decode's server at temperature 0 on each of
+    ``SERVE_ARCHS`` from ``payload["serve"][arch]``, then each ``main`` on
+    the CPU: quickstart's 60 steps, elastic_restart, ddp_train
+    ``--steps 2`` (checkpoints under ``payload["tmp"]``) and serve_decode
+    twice an arch.  Returns the records the tests read."""
+    import dataclasses
+    import importlib
+    import sys
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import one_process_mesh
+    from repro_torch.models import count_params
+    from repro_torch.runtime.train_loop import Trainer
+    torch.set_num_threads(payload.get("threads", 2))
+    sys.path.insert(0, EXAMPLES)
+    qs, ddp, er, sd = (importlib.import_module(f"{n}_torch") for n in
+                       ("quickstart", "ddp_train", "elastic_restart", "serve_decode"))
+    out = {}
+
+    model, cfg = qs.build("cpu")
+    load_jax_params(model, payload["quickstart"])
+    with one_process_mesh((1, 1, 1), ("pod", "data", "model"), "cpu") as mesh:
+        res = Trainer(model, mesh, qs.Shape(), dataclasses.replace(
+            cfg, steps=QUICKSTART_STEPS, log_every=0)).train()
+    out["quickstart_losses"] = [m["loss"] for m in res["metrics"]]
+
+    model = ddp.build("cpu")
+    load_jax_params(model, payload["ddp"])
+    batch = TokenPipeline(model.arch, ddp.Shape(), DataConfig(seed=0)).batch_at(0)
+    with torch.no_grad():
+        loss = model.loss(model.params(), {k: torch.from_numpy(v)
+                                           for k, v in batch.items()})
+    out["ddp"] = dict(count=count_params(model), loss0=loss.item(), batch=batch)
+    del model
+
+    out["greedy"] = {}
+    for name in SERVE_ARCHS:
+        arch, model = sd.build(name, "cpu")
+        load_jax_params(model, payload["serve"][name])
+        _, outs = sd.serve(arch, model, "cpu", 12, 24, None, temperature=0.0)
+        out["greedy"][name] = outs
+
+    res, out["quickstart_text"] = _run_main(qs, ["--device", "cpu"])
+    out["quickstart_main"] = [m["loss"] for m in res["metrics"]]
+    (ref, restarted, restored), out["elastic_text"] = _run_main(er, ["--device", "cpu"])
+    out["elastic"] = dict(ref=[m["loss"] for m in ref["metrics"]],
+                          restarted=[(m["step"], m["loss"]) for m in restarted["metrics"]],
+                          restored_step=restored[2])
+    (trainer, res), out["ddp_text"] = _run_main(ddp, [
+        "--device", "cpu", "--steps", "2", "--ckpt-dir", os.path.join(payload["tmp"], "ddp")])
+    out["ddp_main"] = dict(step=res["step"], losses=[m["loss"] for m in res["metrics"]])
+    out["serve_main"] = {}
+    for name in SERVE_ARCHS:
+        runs = [_run_main(sd, ["--device", "cpu", "--arch", name]) for _ in range(2)]
+        out["serve_main"][name] = [(outs, text) for (_, outs), text in runs]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RWKV6's time mix over whole heads (test_torch_rwkv_split_heads.py)
+# ---------------------------------------------------------------------------
+
+
+def rank_split_heads(rank, payload):
+    """:func:`rank_seq_parallel` on ``payload["train"]`` (its payload),
+    then :func:`rank_serve_mesh` on ``payload["serve"]``, in one world."""
+    return (rank_seq_parallel(rank, payload["train"]),
+            rank_serve_mesh(rank, payload["serve"]))
